@@ -5,22 +5,40 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. environment: the card, its power limit, torch/CUDA versions; builds the CUDA
-   kernel from ``vaegan_tpu_torch/csrc`` and prints the compiler's report.
-   TF32 is switched off for convolutions and matmuls for the parity phases;
-   the port's float32 convolutions pin IEEE float32 themselves, so phase 3
-   repeats its model comparisons with PyTorch's default flags restored, and
-   phase 4 times the default path users get;
-2. kernel against its plain PyTorch version: ``bn_act_dropout`` at each of the
-   served model's fused-BN sites at batch 64, float32 and bfloat16, dropout
-   p = 0 and 0.5, timed with CUDA events beside its memory bound;
+1. environment: the card, its power limit, torch/CUDA versions; builds every CUDA
+   kernel from ``vaegan_tpu_torch/csrc`` (one ``nvcc`` per source, started
+   together) and prints registers and spills per kernel. TF32 is switched off for
+   convolutions and matmuls for the parity phases; the port's float32 layers and
+   train step pin IEEE float32 themselves, so phases 3 and 6 repeat their
+   comparisons with PyTorch's default flags restored, and phases 4 and 7 time the
+   default path users get;
+2. serving kernel against its plain PyTorch version: ``bn_act_dropout`` at each
+   of the served model's fused-BN sites at batch 64, float32 and bfloat16,
+   dropout p = 0 and 0.5, timed with CUDA events beside its memory bound;
 3. the served model: ``preset("vaegan_infer")`` (the notebook generator, 256²,
    float32, full width) with ``use_pallas="all"`` and seeded random weights
    answers reconstruct / encode / decode / sample / interpolate requests through
    the port's entry points and a serving bundle; the launch counts show every
    fused BN went through the kernel; the outputs are held against the
    ``use_pallas="off"`` model on the card and the CPU model on a small batch;
-4. numbers: reconstruct images/s at batch 64, batch-1 latency, sample images/s.
+4. serving numbers: reconstruct images/s at batch 64, batch-1 latency, sample
+   images/s;
+5. training kernels against their plain versions at the notebook step's shapes
+   (batch 4), float32 and bfloat16: ``bn_act_dropout`` backward at the 12 sites,
+   ``reparam_kl`` forward and backward, ``recon_loss_sums``; the dropout mask and
+   the reparameterization noise replayed bit for bit by the backwards, the sums
+   bitwise equal run to run, kernel / plain / yardstick times beside each bound;
+6. the training step: ``preset("notebook")`` (256², float32, full-width
+   generator and 139.7 M-parameter critic, WGAN-GP, RMSprop, clamp) with
+   ``use_pallas="all"`` takes six steps (four G+D, two critic-only) through
+   ``create_train_state`` / ``make_train_step`` with exact kernel launch counts
+   per step; then the fused step is held against the ``use_pallas="off"`` step
+   with its own dropout masks and noise injected (TF32 forced off, and again
+   with the default flags), against itself under both flag settings (the
+   step's backward pins IEEE float32; a TF32 step is shown to miss that
+   tolerance), and against the CPU at 64², batch 2;
+7. training numbers: step ms and images/s at batch 4 and 16, the top device
+   kernels of a profiled step, the device-busy share, each kernel's share.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +46,7 @@ The second-to-last line is a JSON object describing each kernel; the last line i
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -80,13 +99,6 @@ def time_cuda(torch, fn, reps=20, windows=5, warmup=3):
         e.synchronize()
         times.append(s.elapsed_time(e) / reps)
     return statistics.median(times)
-
-
-def l2_rotation(torch, x):
-    """Copies of ``x`` to cycle through so that back-to-back timed launches find
-    their input in device memory, not in the 50 MB L2, as the bound assumes."""
-    n = max(1, -(-256 * 2 ** 20 // (x.numel() * x.element_size())))
-    return [x] + [x.clone(memory_format=torch.channels_last) for _ in range(n - 1)]
 
 
 def time_host(torch, fn, reps, warmup=2):
@@ -168,7 +180,7 @@ def phase_kernel(torch, sites, bw, fp32_peak):
                     kept = float(keep.float().mean())
                     if not 0.45 <= kept <= 0.55:
                         raise SystemExit(f"site {i}: keep rate {kept} outside [0.45, 0.55]")
-                xs = l2_rotation(torch, x)
+                xs = [r[0] for r in rotation(torch, x)]
                 rest = args[1:]
                 k_ms = time_cuda(torch, lambda i: fused.bn_act_dropout(xs[i % len(xs)], *rest))
                 p_ms = time_cuda(torch, lambda i: fused.bn_act_dropout_reference(
@@ -196,7 +208,7 @@ def phase_kernel(torch, sites, bw, fp32_peak):
                     if bound_by != "bytes":
                         summary["bound_by"] = "operations"
                 del y, r, yf, rf, err, bad, xs
-        xs = l2_rotation(torch, x32)
+        xs = [r[0] for r in rotation(torch, x32)]
         two = time_cuda(torch, lambda i: torch.nn.functional.leaky_relu(
             torch.nn.functional.batch_norm(xs[i % len(xs)], mean, var, scale, bias, False, 0.0,
                                            1e-5), SLOPE), windows=1, warmup=1)
@@ -212,6 +224,480 @@ def phase_kernel(torch, sites, bw, fp32_peak):
         f"{summary['plain_ms']:.4f} ms; F.leaky_relu(F.batch_norm(...)) as two PyTorch calls "
         f"{summary['two_call_ms']:.4f} ms (yardstick only, not one library call)")
     return summary
+
+
+TRAIN_BATCH = 4
+# f32 operations per element, counted from the kernels' arithmetic (Philox and
+# transcendentals as one each): the backward's 11, the reparameterization's 16,
+# its backward's 13, the loss sums' 4
+OPS = {"bn_act_dropout_bwd": 11, "reparam_kl": 16, "reparam_kl_bwd": 13, "recon_loss_sums": 4}
+
+
+def bound(nbytes, ops, bw, fp32_peak):
+    """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` f32 operations."""
+    tb, to = nbytes / bw, ops / fp32_peak
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def rotation(torch, *tensors):
+    """Tuples of copies of ``tensors`` to cycle through so that back-to-back timed
+    launches find their inputs in device memory, not in the 50 MB L2, as the
+    bound assumes."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, -(-256 * 2 ** 20 // size))
+    fmt = lambda t: t.clone(memory_format=torch.channels_last) if t.dim() == 4 else t.clone()  # noqa: E731
+    return [tensors] + [tuple(fmt(t) for t in tensors) for _ in range(n - 1)]
+
+
+def check_close(what, got, ref, dtype, rel_scale=None):
+    """max |got - ref| against the stated tolerance: elementwise f32 1e-6 + 1e-6 |ref|,
+    bf16 one bf16 ulp of ref; a sum (``rel_scale``) 1e-5 of max(1, max |ref|)."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    if rel_scale is not None:
+        lim = 1e-5 * max(1.0, float(r.abs().max()))
+        bad = int((err > lim).sum())
+    elif dtype == torch.float32:
+        bad = int((err > 1e-6 + 1e-6 * r.abs()).sum())
+    else:
+        bad = int((err > bf16_ulp(torch, r)).sum())
+    if bad:
+        raise SystemExit(f"{what}: {bad} elements out of tolerance, max_abs_err {float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
+    """Rows 2-5 against their plain versions at the training step's shapes."""
+    import torch.nn.functional as F
+
+    from vaegan_tpu_torch.ops import fused
+
+    log(f"== phase 5: training kernels vs their plain versions (batch {TRAIN_BATCH}, the "
+        "notebook step's shapes; kernel: median of 5 CUDA-event windows of 20 launches, inputs "
+        "rotated through >= 256 MB; plain and yardstick: one window; tolerances: elementwise f32 "
+        "1e-6 + 1e-6|ref|, bf16 1 ulp; sums 1e-5 of max(1, max|ref|); eps 4e-6 absolute) ==")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+               "yardstick_ms": 0.0, "max_abs_err": 0.0, "bound_by": "bytes"}
+           for k in ("bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd", "recon_loss_sums")}
+
+    def note(name, k_ms, p_ms, b, err, y_ms=None):
+        o = out[name]
+        o["ms"] += k_ms
+        o["plain_ms"] += p_ms
+        o["bound_ms"] += b[0]
+        if b[1] != "bytes":
+            o["bound_by"] = "operations"
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+        if y_ms is not None:
+            o["yardstick_ms"] += y_ms
+
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    # ---- row 2: bn_act_dropout backward at the 12 sites of a generator step
+    for i, (c, h, w) in enumerate(sites):
+        p = 0.5 if i % 2 == 0 else 0.0          # bn1 drops at 0.5, bn2 at 0
+        mean = torch.randn(c, device="cuda", generator=g) * 0.3
+        var = torch.rand(c, device="cuda", generator=g) + 0.5
+        scale = torch.rand(c, device="cuda", generator=g) + 0.5
+        bias = torch.randn(c, device="cuda", generator=g) * 0.1
+        x32 = cl(torch.randn(TRAIN_BATCH, c, h, w, device="cuda", generator=g))
+        g32 = cl(torch.randn(TRAIN_BATCH, c, h, w, device="cuda", generator=g))
+        seed = 4321 + i
+        for dtype in (torch.float32, torch.bfloat16):
+            x, gy = x32.to(dtype), g32.to(dtype)
+            args = (mean, var, scale, bias, seed, SLOPE, p)
+            k = fused.bn_act_dropout_backward(x, gy, *args)
+            r = fused.bn_act_dropout_backward_reference(x, gy, *args)
+            again = fused.bn_act_dropout_backward(x, gy, *args)
+            torch.cuda.synchronize()
+            err = check_close(f"row 2 site {i} dx", k[0], r[0], dtype)
+            for j, name in enumerate(("dscale", "dbias", "dmean", "dvar"), 1):
+                err = max(err, check_close(f"row 2 site {i} {name}", k[j], r[j], dtype, True))
+            det = all(torch.equal(a, b) for a, b in zip(k, again))
+            y = fused.bn_act_dropout(x, *args)
+            dx1 = fused.bn_act_dropout_backward(x, torch.ones_like(y), *args)[0]
+            replay = torch.equal(dx1 == 0, y == 0) and (
+                p == 0 or torch.equal(y != 0, fused.keep_mask(x, seed, p)))
+            if not (det and replay):
+                raise SystemExit(f"row 2 site {i}: deterministic={det} mask_replayed={replay}")
+            rot = rotation(torch, x, gy)
+            k_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_backward(*rot[n % len(rot)], *args))
+            p_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_backward_reference(
+                *rot[n % len(rot)], *args), windows=1, warmup=1)
+            # yardstick: what PyTorch's own autograd runs for BN -> LeakyReLU ->
+            # dropout: the two masks, then native_batch_norm_backward
+            inv = torch.rsqrt(var + 1e-5)
+            a = (x.float() - mean.view(1, -1, 1, 1)) * (inv * scale).view(1, -1, 1, 1) \
+                + bias.view(1, -1, 1, 1)
+            keep = (fused.keep_mask(x, seed, p).to(dtype) * fused.keep_scale(p)) if p else None
+
+            def yard(n):
+                xx, gg = rot[n % len(rot)]
+                gl = gg * keep if keep is not None else gg
+                ga = torch.where(a > 0, gl, gl * SLOPE).to(dtype)
+                return torch.ops.aten.native_batch_norm_backward(
+                    ga, xx, scale, None, None, mean, inv, True, 1e-5,
+                    [True, True, True])
+
+            y_ms = time_cuda(torch, yard, windows=1, warmup=1) if dtype == torch.float32 else 0.0
+            n = x.numel()
+            b = bound(3 * n * x.element_size() + 8 * c * 4, OPS["bn_act_dropout_bwd"] * n, bw,
+                      fp32_peak)
+            log(f"row 2 site {i:2d} C={c:3d} HxW={h}x{w} {str(dtype)[6:]:8s} p={p}: "
+                f"max_abs_err={err:.3e} deterministic={det} mask_replayed={replay} "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
+                f"yardstick_ms={y_ms:.4f} GB/s={3 * n * x.element_size() / k_ms / 1e6:.0f}")
+            if dtype == torch.float32:
+                note("bn_act_dropout_bwd", k_ms, p_ms, b, err, y_ms)
+            del k, r, again, y, dx1, rot, a, keep
+        del x32, g32
+        torch.cuda.empty_cache()
+
+    # ---- rows 3 and 4: reparam_kl at the code processor's (4, 256, 64, 64)
+    h, w, c = latent
+    shape = (TRAIN_BATCH, c, h, w)
+    for dtype in (torch.float32, torch.bfloat16):
+        mu = cl(torch.randn(shape, device="cuda", generator=g)).to(dtype)
+        lv = cl(torch.randn(shape, device="cuda", generator=g) * 0.5).to(dtype)
+        gz = cl(torch.randn(shape, device="cuda", generator=g)).to(dtype)
+        gkl = torch.tensor(0.25, device="cuda")
+        z, kl = fused.reparam_kl_forward(mu, lv, 77)
+        z2, kl2 = fused.reparam_kl_forward(mu, lv, 77)
+        zr, klr = fused.reparam_kl_reference(mu, lv, 77)
+        err3 = max(check_close("row 3 z", z, zr, dtype), check_close("row 3 kl", kl, klr, dtype, True))
+        errs4 = []
+        for gk in (None, gkl):
+            k4 = fused.reparam_kl_backward(mu, lv, gz, gk, 77)
+            r4 = fused.reparam_kl_backward_reference(mu, lv, gz, gk, 77)
+            errs4 += [check_close(f"row 4 {n} gkl={gk is not None}", a, b, dtype)
+                      for n, a, b in zip(("dmu", "dlv"), k4, r4)]
+        zero = torch.zeros_like(mu, dtype=torch.float32)
+        e_fwd, _ = fused.reparam_kl_forward(zero, zero, 5)        # z = 0 + 1 * eps
+        _, e_bwd = fused.reparam_kl_backward(zero, zero, torch.full_like(zero, 2.0), None, 5)
+        e_plain = fused.reparam_noise(shape, 5, "cuda")
+        torch.cuda.synchronize()
+        replay = torch.equal(e_fwd, e_bwd)
+        e_err = float((e_fwd - e_plain).abs().max())
+        det = torch.equal(z, z2) and torch.equal(kl, kl2)
+        e64 = e_fwd.double()
+        mom = (float(e64.mean()), float(e64.var()), float((e64 ** 4).mean()))
+        log(f"row 3/4 {str(dtype)[6:]}: z max_abs_err={err3:.3e}, kl {float(kl)!r} vs plain "
+            f"{float(klr)!r}, deterministic={det}; backward max_abs_err={max(errs4):.3e}; eps "
+            f"forward==backward bitwise={replay}, |eps - plain|max={e_err:.3e} (tolerance 4e-6), "
+            f"mean={mom[0]:.2e} var={mom[1]:.5f} E[eps^4]={mom[2]:.4f} over {e64.numel()} draws")
+        n_el = e64.numel()
+        if not (replay and det and e_err <= 4e-6 and abs(mom[0]) < 5 / n_el ** 0.5
+                and abs(mom[1] - 1) < 5 * (2 / n_el) ** 0.5):
+            raise SystemExit("reparam_kl: noise replay, determinism or moments failed")
+        if dtype == torch.float32:
+            rot = rotation(torch, mu, lv)
+            n = mu.numel()
+            k_ms = time_cuda(torch, lambda i: fused.reparam_kl_forward(*rot[i % len(rot)], 77))
+            p_ms = time_cuda(torch, lambda i: fused.reparam_kl_reference(*rot[i % len(rot)], 77),
+                             windows=1, warmup=1)
+            b = bound(3 * n * 4 + 4, OPS["reparam_kl"] * n, bw, fp32_peak)
+            note("reparam_kl", k_ms, p_ms, b, err3)
+            log(f"row 3 f32 {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"bound_ms={b[0]:.4f} ({b[1]})")
+            rot = rotation(torch, mu, lv, gz)
+            k_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward(*rot[i % len(rot)], None, 77))
+            p_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward_reference(
+                *rot[i % len(rot)], None, 77), windows=1, warmup=1)
+            b = bound(5 * n * 4, OPS["reparam_kl_bwd"] * n, bw, fp32_peak)
+            note("reparam_kl_bwd", k_ms, p_ms, b, max(errs4))
+            log(f"row 4 f32 {shape} (gkl None, as on the step): kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+            del rot
+        del mu, lv, gz, z, z2, zr, zero, e_fwd, e_bwd, e_plain, e64
+
+    # ---- row 5: recon_loss_sums over (4, 256, 256, 1) pairs
+    for dtype in (torch.float32, torch.bfloat16):
+        r_ = torch.randn(TRAIN_BATCH, 256, 256, 1, device="cuda", generator=g).to(dtype)
+        t_ = torch.rand(TRAIN_BATCH, 256, 256, 1, device="cuda", generator=g).to(dtype)
+        s1, s2 = fused.recon_loss_sums_forward(r_, t_), fused.recon_loss_sums_forward(r_, t_)
+        sr = fused.recon_loss_sums_reference(r_, t_)
+        err = check_close("row 5 sums", s1, sr, dtype, True)
+        det = torch.equal(s1, s2)
+        log(f"row 5 {str(dtype)[6:]}: sums {s1.tolist()} vs plain {sr.tolist()}, "
+            f"max_abs_err={err:.3e}, deterministic={det}")
+        if not det:
+            raise SystemExit("recon_loss_sums: two runs differ")
+        if dtype == torch.float32:
+            rot = rotation(torch, r_, t_)
+            n = r_.numel()
+            k_ms = time_cuda(torch, lambda i: fused.recon_loss_sums_forward(*rot[i % len(rot)]))
+            p_ms = time_cuda(torch, lambda i: fused.recon_loss_sums_reference(*rot[i % len(rot)]),
+                             windows=1, warmup=1)
+            y_ms = time_cuda(torch, lambda i: (F.l1_loss(*rot[i % len(rot)], reduction="sum"),
+                                               F.mse_loss(*rot[i % len(rot)], reduction="sum")),
+                             windows=1, warmup=1)
+            b = bound(2 * n * 4 + 8, OPS["recon_loss_sums"] * n, bw, fp32_peak)
+            note("recon_loss_sums", k_ms, p_ms, b, err, y_ms)
+            log(f"row 5 f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} "
+                f"({b[1]}) yardstick F.l1_loss + F.mse_loss (two calls) {y_ms:.4f} ms")
+            del rot
+    s = out["bn_act_dropout_bwd"]
+    log(f"row 2 over the 12 sites of one batch-{TRAIN_BATCH} G step (f32): kernel {s['ms']:.4f} ms, "
+        f"bound {s['bound_ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, yardstick (masks + "
+        f"native_batch_norm_backward, not one call) {s['yardstick_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def record_grads(state):
+    """Make each optimizer keep the gradients it is stepped with, by name."""
+    store = {"g": {}, "d": {}}
+    for key, opt, module in (("g", state.opt_g, state.generator), ("d", state.opt_d, state.critic)):
+        named, inner = list(module.named_parameters()), opt.step
+
+        def step(*a, _named=named, _inner=inner, _store=store[key], **k):
+            _store.clear()
+            _store.update({n: p.grad.detach().clone() for n, p in _named})
+            return _inner(*a, **k)
+
+        opt.step = step
+    return store
+
+
+def critic_draws(torch, critic, batch, rng, device):
+    """Injected critic Dropout2d masks for the four forwards and the GP alphas."""
+    from vaegan_tpu_torch.models import ResBlockDiscriminator
+
+    inj = {}
+    for fwd in ("real", "fake", "interp", "gen"):
+        inj[f"d_masks_{fwd}"] = {
+            f"{n}.dropout": (torch.rand((batch, m.conv1.weight_orig.shape[0], 1, 1), generator=rng)
+                             >= 0.5).to(device)
+            for n, m in critic.named_modules() if isinstance(m, ResBlockDiscriminator)}
+    inj["alpha"] = torch.rand(batch, generator=rng).to(device)
+    return inj
+
+
+GRAD_MEDIAN_TOL = 1e-3     # median over a net's tensors of |g_a - g_b|_2 / |g_b|_2
+GRAD_MAX_TOL = 1e-2        # max over a net's tensors of max |g_a - g_b| / max |g_net|
+
+
+def step_errors(a, b):
+    """Per net ("g", "d"): (median relative L2 error of its gradient tensors,
+    largest element error over the net's largest gradient), and the metrics whose
+    relative error exceeds 2e-4 (+1e-5 absolute)."""
+    bad = [k for k, want in b["metrics"].items()
+           if not abs(a["metrics"][k] - want) <= 1e-5 + 2e-4 * abs(want)]
+    out = {}
+    for net in ("g", "d"):
+        ga, gb = a["grads"][net], b["grads"][net]
+        scale = max(float(t.abs().max()) for t in gb.values())
+        rel = sorted(float((ga[k] - r).norm()) / max(float(r.norm()), 1e-30) for k, r in gb.items())
+        worst = max(float((ga[k] - r).abs().max()) for k, r in gb.items()) / scale
+        out[net] = (rel[len(rel) // 2], worst)
+    return out, bad
+
+
+def compare_steps(what, a, b):
+    """Hold step record ``a`` against ``b``: every metric within 2e-4 relative
+    (+1e-5); per net, the median relative L2 error of the gradient tensors within
+    1e-3 and the largest element error within 1e-2 of the net's largest gradient.
+    Measured on an H100: a step against itself run twice differs by up to
+    2e-4 in the critic (cuDNN's summation order), the fused step against the
+    unfused one by 5e-4, a TF32 step against an IEEE one by 5e-3 (generator) and
+    2e-2 (critic)."""
+    errs, bad = step_errors(a, b)
+    ok = not bad and all(m <= GRAD_MEDIAN_TOL and w <= GRAD_MAX_TOL for m, w in errs.values())
+    log(f"{what}: generator gradients median rel L2 err {errs['g'][0]:.3e}, max err / max "
+        f"grad {errs['g'][1]:.3e}; critic {errs['d'][0]:.3e}, {errs['d'][1]:.3e}; metrics out "
+        f"of tolerance {bad}; d_loss {a['metrics']['d_loss']!r} vs {b['metrics']['d_loss']!r}, "
+        f"g_loss {a['metrics']['g_loss']!r} vs {b['metrics']['g_loss']!r} -> "
+        f"{'agree' if ok else 'DISAGREE'}")
+    return ok
+
+
+def phase_train_step(torch, vt, tf32_defaults):
+    """The notebook training step at full width through the port's entry points."""
+    from vaegan_tpu_torch.models import layers
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.train import fused_draws
+    import vaegan_tpu_torch.train.step as step_mod
+
+    cfg = vt.preset("notebook")
+    cfg_all = cfg.replace(train=cfg.train.replace(use_pallas="all"))
+    cfg_off = cfg.replace(train=cfg.train.replace(use_pallas="off"))
+    size = cfg.data.image_size
+    log(f"== phase 6: training step, preset('notebook') {size}x{size} batch {TRAIN_BATCH} "
+        "float32, use_pallas='all', seeded weights, synthetic batches ==")
+    state = vt.create_train_state(cfg_all, device="cuda", seed=SEED)
+    n_g = sum(p.numel() for p in state.generator.parameters())
+    n_d = sum(p.numel() for p in state.critic.parameters())
+    log(f"generator {n_g} parameters, critic {n_d} parameters "
+        f"(critic fused: {state.critic.use_pallas}, under the gradient penalty)")
+    if (n_g, n_d) != (4_192_783, 139_697_217):
+        raise SystemExit("parameter counts differ from the JAX package's")
+    data = torch.Generator(device="cuda").manual_seed(SEED)
+    batches = [torch.rand((TRAIN_BATCH, size, size, 1), device="cuda", generator=data)
+               for _ in range(3)]
+    steps = {g: vt.make_train_step(cfg_all, g) for g in (True, False)}
+    plan = (True, True, False, True, False, True)
+    want = {True: {"bn_act_dropout": 12, "bn_act_dropout_bwd": 12, "reparam_kl": 1,
+                   "reparam_kl_bwd": 1, "recon_loss_sums": 1},
+            False: {"bn_act_dropout": 12, "bn_act_dropout_bwd": 0, "reparam_kl": 1,
+                    "reparam_kl_bwd": 0, "recon_loss_sums": 0}}
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    totals = dict(fused.LAUNCHES)
+    for i, do_g in enumerate(plan):
+        before = dict(fused.LAUNCHES)
+        state, m = steps[do_g](state, batches[i % 3], 1000 + i)
+        torch.cuda.synchronize()
+        got = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        vals = {k: float(v) for k, v in m.items()}
+        finite = all(v == v and abs(v) != float("inf") for v in vals.values())
+        log(f"step {i} ({'G+D' if do_g else 'D only'}): launches {got}, finite={finite}, "
+            + ", ".join(f"{k}={v:.6g}" for k, v in vals.items()))
+        if got != want[do_g] or not finite:
+            raise SystemExit(f"step {i}: launch counts {got} (want {want[do_g]}) or a non-finite loss")
+    main_path = {k: fused.LAUNCHES[k] - totals[k] for k in totals}
+    log(f"main path (training): {len(plan)} steps, launches {main_path}")
+
+    # ---- the fused step against the use_pallas='off' step, and TF32 checks
+    def one_step(cfg_, dev, batch, inj_extra=None, seed=7):
+        """One G step from fresh seeded weights with injected critic draws;
+        returns its metrics, its gradients and (fused) its own draws."""
+        st = vt.create_train_state(cfg_, device=dev, seed=SEED)
+        grads = record_grads(st)
+        inj = critic_draws(torch, st.critic, batch.shape[0], torch.Generator().manual_seed(11), dev)
+        if inj_extra:
+            inj.update({k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                            else v.to(dev)) for k, v in inj_extra.items()})
+        x = batch.to(dev)
+        st, m = vt.make_train_step(cfg_, True, inject=inj)(st, x, seed)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        rec = {"metrics": {k: float(v) for k, v in m.items()},
+               "grads": {k: {n: t.cpu() for n, t in v.items()} for k, v in grads.items()},
+               "draws": fused_draws(st.generator) if cfg_.train.use_pallas == "all" else None}
+        del st
+        return rec
+
+    x0 = batches[0]
+    results = {}
+    for flags in ("TF32 off", "default"):
+        if flags == "TF32 off":
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        else:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+        fused_rec = one_step(cfg_all, "cuda", x0)
+        off_rec = one_step(cfg_off, "cuda", x0, inj_extra=fused_rec["draws"])
+        if not compare_steps(f"fused vs use_pallas='off' step on the card ({flags} flags)",
+                             fused_rec, off_rec):
+            raise SystemExit("the fused step disagrees with the unfused step")
+        results[flags] = fused_rec
+        torch.cuda.empty_cache()
+    # the step pins IEEE float32 itself, so under the default flags its gradients are
+    # the TF32-off run's up to cuDNN's run-to-run summation order; a step whose
+    # convolutions run in TF32 misses the same tolerance
+    if not compare_steps("fused step, default flags vs TF32 off", results["default"],
+                         results["TF32 off"]):
+        raise SystemExit("the step's gradients under PyTorch's default flags are not IEEE float32's")
+    saved = step_mod.precision, layers.precision
+    step_mod.precision = layers.precision = lambda dtype: contextlib.nullcontext()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_rec = one_step(cfg_all, "cuda", x0)
+    finally:
+        step_mod.precision, layers.precision = saved
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    if compare_steps("diagnostic: the step with its precision pin removed and "
+                     "cudnn.allow_tf32=True (TF32 convolutions) vs TF32 off", tf32_rec,
+                     results["TF32 off"]):
+        raise SystemExit("the tolerance does not tell a TF32 step from an IEEE one")
+
+    # ---- the card against the CPU at a reduced size (64^2, batch 2)
+    small = cfg_all.replace(data=cfg_all.data.replace(image_size=64, batch_size=2))
+    xs = torch.rand((2, 64, 64, 1), generator=torch.Generator().manual_seed(3))
+    t0 = time.perf_counter()
+    cpu_rec = one_step(small, "cpu", xs)
+    cpu_s = time.perf_counter() - t0
+    card_rec = one_step(small, "cuda", xs)
+    if not compare_steps(f"card vs CPU, fused step at 64x64 batch 2 (CPU step {cpu_s:.1f} s)",
+                         card_rec, cpu_rec):
+        raise SystemExit("the card's step disagrees with the CPU's")
+    torch.cuda.empty_cache()
+    return cfg_all, state, batches, main_path
+
+
+def phase_train_numbers(torch, vt, cfg_all, state, batches, card_line):
+    """Step time and images/s at batch 4 and 16, and where a step's device time goes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    log(f"== phase 7: training numbers on {card_line} (float32, PyTorch's default flags) ==")
+    step = vt.make_train_step(cfg_all, True)
+    counter = iter(range(10 ** 6))
+    t4 = time_host(torch, lambda: step(state, batches[0], next(counter)), reps=8)
+    log(f"train step batch {TRAIN_BATCH}: {t4 * 1e3:.3f} ms median of 8, "
+        f"{TRAIN_BATCH / t4:.2f} images/s [{card_line}]")
+    big = vt.create_train_state(cfg_all, device="cuda", seed=SEED)
+    x16 = torch.rand((16,) + tuple(batches[0].shape[1:]), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.reset_peak_memory_stats()
+    t16 = time_host(torch, lambda: step(big, x16, next(counter)), reps=4, warmup=1)
+    log(f"train step batch 16: {t16 * 1e3:.3f} ms median of 4, {16 / t16:.2f} images/s, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card_line}]")
+    del big, x16
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batches[1], next(counter))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels)
+    if busy == 0:
+        log("profiler: no device time recorded")
+    else:
+        log(f"profile of one batch-{TRAIN_BATCH} G step: wall {wall_ms:.3f} ms (profiler on), "
+            f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) [{card_line}]")
+        for ms, count, name in kernels[:10]:
+            log(f"  {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+        for tag, pattern in (("bn_act_dropout", "bn_act_dropout_fwd"),
+                             ("bn_act_dropout_bwd", "bn_act_dropout_bwd"),
+                             ("reparam_kl", "reparam_fwd"), ("reparam_kl_bwd", "reparam_bwd"),
+                             ("recon_loss_sums", "recon_sums")):
+            ms = sum(k[0] for k in kernels if pattern in k[2] or
+                     (tag == "reparam_kl" and "reparam_kl_finish" in k[2]))
+            log(f"  {tag}: {ms:.4f} ms of the step's device time ({100 * ms / busy:.2f}%)")
+    return t4, t16
+
+
+def ptxas_summary(report: str):
+    """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: the
+    registers, shared memory and spills of each entry function."""
+    import re
+
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            for short in ("bn_act_dropout_fwd_kernel", "bn_act_dropout_bwd_finish_kernel",
+                          "bn_act_dropout_bwd_kernel", "reparam_fwd_kernel", "reparam_bwd_kernel",
+                          "reparam_kl_finish_kernel", "recon_sums_finish_kernel",
+                          "recon_sums_kernel"):
+                if short in name:
+                    kind = ("<bf16" if "nv_bfloat16" in name else "<f32" if "If" in name else "<")
+                    vec = ",4>" if "Li4E" in name else ",1>" if "Li1E" in name else ">"
+                    name = short + (kind + vec if kind != "<" else "")
+                    break
+        elif "spill stores" in line and name:
+            spills = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spills}")
+            name = None
+    return out
 
 
 def main() -> int:
@@ -247,12 +733,15 @@ def main() -> int:
         f"defaults: cudnn.allow_tf32={tf32_defaults[0]}, matmul.allow_tf32={tf32_defaults[1]}, "
         "restored for the repeat of phase 3's model comparisons and for phase 4)")
     t0 = time.perf_counter()
-    lib = _build.build("bn_act_dropout")
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, HERE)}")
-    with open(f"{lib}.log") as f:
-        report = f.read().strip()
-    if report:
-        log(report)
+    libs = _build.build_all()
+    build = [f"kernel build ({len(libs)} sources, one nvcc each, started together): "
+             f"{time.perf_counter() - t0:.2f} s"]
+    for name, lib in libs.items():
+        build.append(f"-- {name}: {os.path.relpath(lib, HERE)} (compiler report: {lib}.log)")
+        with open(f"{lib}.log") as f:
+            build += [f"   {line}" for line in ptxas_summary(f.read())]
+    for line in build:
+        log(line)
 
     # ---------------------------------------------------------------- models
     cfg = vt.preset("vaegan_infer")
@@ -345,10 +834,10 @@ def main() -> int:
     # activation per site; 12 sites and 6 residual sums keep that near 1e-6 of
     # the output's scale, so 1e-4 leaves two orders of margin. The CPU model
     # (plain versions, oneDNN convolutions) is held to the same tolerance.
-    gen_off = vt.build_models(cfg_off, device="cuda")
+    gen_off = vt.build_generator(cfg_off, device="cuda")
     gen_off.load_state_dict(gen.state_dict(), strict=True)
     state_off = state.replace(generator=gen_off)
-    gen_cpu = vt.build_models(cfg_all, device="cpu")
+    gen_cpu = vt.build_generator(cfg_all, device="cpu")
     gen_cpu.load_state_dict({k: v.cpu() for k, v in gen.state_dict().items()}, strict=True)
     state_cpu = state.replace(generator=gen_cpu)
     r_cpu, mse_cpu = vt.reconstruct(cfg_all, state_cpu, images[:2].cpu())
@@ -421,19 +910,39 @@ def main() -> int:
         for ms, count, name in kernels[:10]:
             log(f"  {ms:9.3f} ms  x{count:<3d} {name[:110]}")
 
-    log(json.dumps({"kernels": [{
-        "name": "bn_act_dropout",
-        "route": "cuda",
-        "source": "vaegan_tpu_torch/csrc/bn_act_dropout.cu",
+    # ---------------------------------------------------------------- phases 5-7
+    train_kernels = phase_train_kernels(torch, sites, vt.latent_shape(cfg), bw, fp32_peak)
+    cfg_train, train_state, batches, train_launches = phase_train_step(torch, vt, tf32_defaults)
+    t4, t16 = phase_train_numbers(torch, vt, cfg_train, train_state, batches, card_line)
+    log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
+        f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
+        f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s")
+
+    src = "vaegan_tpu_torch/csrc/"
+    rows = [{
+        "name": "bn_act_dropout", "route": "cuda", "source": src + "bn_act_dropout.cu",
         "replaces": "vaegan_tpu/ops/pallas_fused.py:80",
-        "launches": main_path_launches,
-        "max_abs_err": summary["max_abs_err"],
-        "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"],
-        "bound_ms": summary["bound_ms"],
-        "bound_by": summary["bound_by"],
-        "library_ms": None,
-    }]}))
+        "launches": train_launches["bn_act_dropout"],
+        "launches_by_path": {"serving": main_path_launches,
+                             "training": train_launches["bn_act_dropout"]},
+        "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
+        "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
+        "bound_by": summary["bound_by"], "library_ms": None,
+    }]
+    for name, source, line in (("bn_act_dropout_bwd", "bn_act_dropout.cu", 95),
+                               ("reparam_kl", "reparam_kl.cu", 244),
+                               ("reparam_kl_bwd", "reparam_kl.cu", 262),
+                               ("recon_loss_sums", "recon_loss_sums.cu", 373)):
+        k = train_kernels[name]
+        rows.append({"name": name, "route": "cuda", "source": src + source,
+                     "replaces": f"vaegan_tpu/ops/pallas_fused.py:{line}",
+                     "launches": train_launches[name], "max_abs_err": k["max_abs_err"],
+                     "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for line in build:      # again here: the start of a long log may be cut off
+        log(line)
+    log(card_line)
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,9 @@
-"""The port's fused BN + LeakyReLU + dropout, on the CPU: its plain version
-against the JAX package's jnp fallback, the Philox dropout stream, and the
-wrapper's checks. The CUDA kernel itself is held against this plain version on
-the card by ``chip_smoke.py``."""
+"""The port's fused kernels on the CPU: their plain versions against the JAX
+package's jnp fallbacks and identities, the Philox streams, the autograd
+wiring, and the wrappers' checks. The CUDA kernels themselves are held against
+these plain versions on the card by ``chip_smoke.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,3 +142,214 @@ def test_wrapper_rejects(bad):
         p = 1.0
     with pytest.raises((ValueError, TypeError)):
         fused.bn_act_dropout(xt, *vecs, 0, SLOPE, p)
+
+
+# ---------------------------------------------------------------------------
+# row 2: bn_act_dropout backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stats", ["running", "batch"])
+@pytest.mark.parametrize("c", [1, 3, 64])
+def test_backward_plain_matches_jax_vjp_p0(c, stats):
+    """The backward's plain version against ``jax.vjp`` of the JAX package's
+    ``bn_act_dropout`` (its jnp fallback on the CPU), p = 0: with running stats
+    all five gradients directly; with batch stats the whole chain through
+    ``batch_stats`` (autograd carries dmean and dvar into x). Tolerance 2e-5 of
+    each gradient's scale: sums over 70 rows in two orders."""
+    x, mean, var, scale, bias = inputs(c)
+    g = np.random.default_rng(5).normal(size=x.shape).astype(np.float32)
+    seed0 = jnp.zeros((), jnp.int32)
+    if stats == "running":
+        f = lambda *a: pf.bn_act_dropout(*a, seed0, SLOPE, 0.0)  # noqa: E731
+        _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (x, mean, var, scale, bias)))
+        jdx, jdm, jdv, jds, jdb = vjp(jnp.asarray(g))
+        dx, ds, db, dm, dv = fused.bn_act_dropout_backward(
+            nchw(x), nchw(g), t(mean), t(var), t(scale), t(bias), 0, SLOPE, 0.0)
+        pairs = [(nhwc(dx), jdx), (dm, jdm), (dv, jdv), (ds, jds), (db, jdb)]
+    else:
+        def f(x, scale, bias):
+            m, v, _, _ = jax_batch_stats(x, jnp.asarray(mean), jnp.asarray(var),
+                                         use_running_average=False)
+            return pf.bn_act_dropout(x, m, v, scale, bias, seed0, SLOPE, 0.0)
+        _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+        jdx, jds, jdb = vjp(jnp.asarray(g))
+        xt = nchw(x).requires_grad_(True)
+        st, bt = t(scale).requires_grad_(True), t(bias).requires_grad_(True)
+        m, v, _, _ = batch_stats(xt, t(mean), t(var), use_running_average=False)
+        y = fused.bn_act_dropout(xt, m, v, st, bt, 0, SLOPE, 0.0)
+        dx, ds, db = torch.autograd.grad(y, (xt, st, bt), nchw(g))
+        pairs = [(nhwc(dx), jdx), (ds, jds), (db, jdb)]
+    for got, want in pairs:
+        got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-5 * max(1.0, float(np.abs(want).max())))
+
+
+def test_backward_replays_the_forward_mask():
+    """At p = 0.5 the backward's dx is zero exactly where the forward dropped."""
+    x, mean, var, scale, bias = inputs(16, shape=(4, 8, 8))
+    args = (t(mean), t(var), t(scale), t(bias), 99, SLOPE, 0.5)
+    y = fused.bn_act_dropout(nchw(x), *args)
+    dx = fused.bn_act_dropout_backward(nchw(x), torch.ones_like(y), *args)[0]
+    assert torch.equal(dx == 0, y == 0)
+    assert torch.equal(y != 0, fused.keep_mask(nchw(x), 99, 0.5))
+
+
+@pytest.mark.parametrize("mode", ["level", "upsample"])
+def test_fused_block_p05_matches_jax_unfused_block(mode):
+    """One train-mode ``ResBlockVAE`` at p = 0.5: the port's fused block (both
+    kernels' plain versions, the mask from its own seed) against the JAX
+    package's unfused block with that mask injected; output, gradients of the
+    input and of every parameter, and the running statistics. Tolerance 1e-4 of
+    each tensor's scale (oneDNN and XLA:CPU sum convolutions in different orders)."""
+    from vaegan_tpu.models import ResBlockVAE as JBlock
+    from vaegan_tpu_torch.interop import from_jax_variables
+    from vaegan_tpu_torch.models import ResBlockVAE
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 8, 8, 3)).astype(np.float32)
+    jblk = JBlock(8, mode=mode)
+    v = jblk.init({"params": jax.random.key(0)}, jnp.asarray(x), train=False)
+    port = ResBlockVAE(3, 8, mode, use_pallas=True)
+    # the upsample rule reads the block's name: nest the block under one
+    prefix = f"block-{mode}."
+    sd = from_jax_variables({k: {prefix[:-1]: c} for k, c in v.items()})
+    port.load_state_dict({k[len(prefix):]: c for k, c in sd.items()}, strict=True)
+    xt = nchw(x).requires_grad_(True)
+    y = port(xt, train=True, seeds=torch.Generator().manual_seed(4))
+    seed, shape = port.bn1.last_draw
+    mask = fused.keep_mask(torch.empty(shape).contiguous(memory_format=torch.channels_last),
+                           seed, 0.5)
+    w = rng.normal(size=nhwc(y.detach()).shape).astype(np.float32)
+    params = dict(port.named_parameters())
+    grads = torch.autograd.grad((y * nchw(w)).sum(), [xt] + list(params.values()))
+
+    masks = {"dropout": {"mask": jnp.asarray(nhwc(mask.float()) > 0)}}
+
+    def loss(params, x):
+        out, upd = jblk.apply({"params": params, "batch_stats": v["batch_stats"],
+                               "masks": masks}, x, train=True, mutable=["batch_stats"])
+        return jnp.sum(out * w), (out, upd)
+
+    (_, (jy, upd)), (jg, jgx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        v["params"], jnp.asarray(x))
+    tol = lambda a: dict(rtol=0, atol=1e-4 * max(1.0, float(np.abs(a).max())))  # noqa: E731
+    np.testing.assert_allclose(nhwc(y.detach()), np.asarray(jy), **tol(jy))
+    np.testing.assert_allclose(nhwc(grads[0]), np.asarray(jgx), **tol(jgx))
+    want = {k[len(prefix):]: c for k, c in
+            from_jax_variables({"params": {prefix[:-1]: jg}}).items()}
+    for (name, _), g in zip(params.items(), grads[1:]):
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), err_msg=name,
+                                   **tol(want[name].numpy()))
+    stats = {k[len(prefix):]: c for k, c in
+             from_jax_variables({"batch_stats": {prefix[:-1]: upd["batch_stats"]}}).items()}
+    sd = port.state_dict()
+    for k, val in stats.items():
+        np.testing.assert_allclose(sd[k].numpy(), val.numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# rows 3 and 4: reparam_kl forward and backward
+# ---------------------------------------------------------------------------
+
+def _mu_lv(shape=(2, 6, 5, 7), seed=8):
+    rng = np.random.default_rng(seed)
+    mu = rng.normal(size=shape).astype(np.float32)
+    lv = (rng.normal(size=shape) * 0.5).astype(np.float32)
+    return mu, lv
+
+
+def test_reparam_identities():
+    """The identities ``tests/tpu_check.py`` holds the TPU kernel to, on the plain
+    version: z - mu = e^{lv/2} eps with the replayed eps; the KL equals
+    ``losses.kl_divergence``; d sum z / d mu = 1 and d sum z / d lv = (z - mu) / 2;
+    d kl / d mu = mu and d kl / d lv = -(1 - e^lv) / 2. Tolerance 1e-5 relative."""
+    from vaegan_tpu import losses as jlosses
+
+    mu, lv = _mu_lv()
+    mut, lvt = nchw(mu).requires_grad_(True), nchw(lv).requires_grad_(True)
+    z, kl = fused.reparam_kl(mut, lvt, 31)
+    eps = fused.reparam_noise(mut.shape, 31, "cpu")
+    np.testing.assert_allclose((z - mut).detach().numpy(),
+                               (torch.exp(0.5 * lvt) * eps).detach().numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(kl.detach()), float(jlosses.kl_divergence(mu, lv, "sum")),
+                               rtol=1e-5)
+    dmu, dlv = torch.autograd.grad(z.sum(), (mut, lvt), retain_graph=True)
+    assert torch.equal(dmu, torch.ones_like(dmu))
+    np.testing.assert_allclose(dlv.numpy(), ((z - mut) / 2).detach().numpy(), rtol=1e-5, atol=1e-6)
+    kmu, klv = torch.autograd.grad(kl, (mut, lvt))
+    np.testing.assert_allclose(kmu.numpy(), mut.detach().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(klv.numpy(), (-0.5 * (1 - torch.exp(lvt))).detach().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_reparam_noise_moments_and_streams():
+    """eps over 2**20 draws: mean 0, variance 1, kurtosis 3 (within 5 standard
+    errors); a pure function of (seed, index), independent of the dropout
+    stream's words for the same seed."""
+    eps = fused.reparam_noise((1, 1, 1024, 1024), 12, "cpu").reshape(-1).double()
+    n = eps.numel()
+    assert abs(float(eps.mean())) < 5 / n ** 0.5
+    assert abs(float(eps.var()) - 1.0) < 5 * (2 / n) ** 0.5
+    assert abs(float((eps ** 4).mean()) - 3.0) < 5 * (96 / n) ** 0.5
+    a = fused.reparam_noise((2, 3, 4, 5), 12, "cpu").permute(0, 2, 3, 1).reshape(-1)
+    assert torch.equal(a, eps[:120].float())
+    bits = fused.dropout_bits(8, 12, "cpu")
+    w = fused.philox4x32_10(*(torch.tensor([v]) for v in (0, 0, 1, 0)), 12, 0)
+    assert int(w[0]) not in bits.tolist()
+
+
+def test_reparam_kl_cotangent_none_counts_as_zero():
+    mu, lv = _mu_lv()
+    g = nchw(np.random.default_rng(1).normal(size=mu.shape).astype(np.float32))
+    a = fused.reparam_kl_backward(nchw(mu), nchw(lv), g, None, 5)
+    b = fused.reparam_kl_backward(nchw(mu), nchw(lv), g, torch.zeros(()), 5)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# row 5: recon_loss_sums
+# ---------------------------------------------------------------------------
+
+def test_recon_loss_sums_matches_jax_and_its_grad():
+    """Sums against ``pallas_fused.recon_loss_sums`` (its jnp fallback) at 1e-6
+    relative, and the plain-PyTorch backward against its ``jax.vjp``."""
+    rng = np.random.default_rng(2)
+    r = rng.normal(size=(3, 9, 7, 1)).astype(np.float32)
+    tt = rng.normal(size=(3, 9, 7, 1)).astype(np.float32)
+    ct = np.asarray([0.7, -1.3], np.float32)
+    want, vjp = jax.vjp(pf.recon_loss_sums, jnp.asarray(r), jnp.asarray(tt))
+    jdr, jdt = vjp(jnp.asarray(ct))
+    rt, tt_ = t(r).requires_grad_(True), t(tt).requires_grad_(True)
+    got = fused.recon_loss_sums(rt, tt_)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6)
+    dr, dt = torch.autograd.grad(got, (rt, tt_), t(ct))
+    np.testing.assert_allclose(dr.numpy(), np.asarray(jdr), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(jdt), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["reparam_shape", "reparam_dtype", "recon_dtype", "bwd_channels"])
+def test_new_wrappers_reject(bad):
+    mu, lv = _mu_lv()
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "reparam_shape":
+            fused.reparam_kl_forward(nchw(mu), nchw(lv)[:1], 0)
+        elif bad == "reparam_dtype":
+            fused.reparam_kl_forward(nchw(mu), nchw(lv).double(), 0)
+        elif bad == "recon_dtype":
+            fused.recon_loss_sums_forward(t(mu), t(lv).double())
+        else:
+            x = torch.zeros(1, fused.MAX_CHANNELS + 1, 1, 1).contiguous(
+                memory_format=torch.channels_last)
+            v = torch.zeros(fused.MAX_CHANNELS + 1)
+            fused.bn_act_dropout_backward(x, x, v, v, v, v, 0, SLOPE, 0.0)
+
+
+def test_cpu_tensors_launch_no_kernel():
+    before = dict(fused.LAUNCHES)
+    mu, lv = _mu_lv()
+    z, kl = fused.reparam_kl(nchw(mu).requires_grad_(True), nchw(lv), 3)
+    z.sum().backward()
+    fused.recon_loss_sums(t(mu), t(lv))
+    assert fused.LAUNCHES == before

@@ -19,6 +19,7 @@ from vaegan_tpu.config import preset as jpreset
 from vaegan_tpu.train.state import TrainState, build_models as jbuild_models
 import vaegan_tpu_torch as vt
 from vaegan_tpu_torch.models import BatchNorm, Dropout
+from vaegan_tpu_torch.ops import fused
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SIZE = 16
@@ -59,7 +60,7 @@ def setup(use_pallas="all", **gen):
     jcfg, cfg = configs(use_pallas, **gen)
     v = _jax_init(tuple(sorted(gen.items())))
     jgen, _ = jbuild_models(jcfg)
-    port = vt.build_models(cfg, device="cpu")
+    port = vt.build_generator(cfg, device="cpu")
     port.load_state_dict(vt.from_jax_variables(v), strict=True)
     return jcfg, cfg, jgen, v, port
 
@@ -122,7 +123,7 @@ def test_train_forward_with_injected_eps_matches_jax():
     v = _jax_init(())
     jcfg0, cfg0 = configs("off", dropout_prob=0.0)
     jgen, _ = jbuild_models(jcfg0)
-    port = vt.build_models(cfg0, device="cpu")
+    port = vt.build_generator(cfg0, device="cpu")
     port.load_state_dict(vt.from_jax_variables(v), strict=True)
     x = images(4)
     eps = np.random.default_rng(6).normal(size=(4, 4, 4, 16)).astype(np.float32)
@@ -137,12 +138,26 @@ def test_train_forward_with_injected_eps_matches_jax():
 
 
 def test_train_mode_needs_eps_and_the_unfused_path():
-    port = setup("all")[-1]
-    with pytest.raises(NotImplementedError):
-        port(torch.from_numpy(images()), train=True, eps=torch.zeros(2, 4, 4, 16))
+    """Train mode draws its own noise on both paths now: the fused generator in
+    the ``reparam_kl`` kernel (its plain version here) from a seed drawn from
+    ``seeds``, the unfused one from the device ``generator``; the same draws give
+    the same outputs, and the fused draws replay as the kernel's plain noise."""
+    x = torch.from_numpy(images())
+    port = setup("all", dropout_prob=0.0)[-1]    # p = 0: the seeds feed the noise only
+    a = port(x, train=True, seeds=torch.Generator().manual_seed(1))
+    seed, shape = port.code_processor.last_draw
+    b = port(x, train=True, seeds=torch.Generator().manual_seed(1))
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    z_mu = port(x, train=True, eps=torch.zeros(shape[0], shape[2], shape[3], shape[1]),
+                seeds=torch.Generator().manual_seed(1))
+    eps = fused.reparam_noise(shape, seed, "cpu").permute(0, 2, 3, 1)
+    again = port(x, train=True, eps=eps, seeds=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(again[0].detach().numpy(), a[0].detach().numpy(), **TOL)
+    assert not torch.allclose(z_mu[0], a[0])
     port = setup("off")[-1]
-    with pytest.raises(ValueError):
-        port(torch.from_numpy(images()), train=True)
+    c = port(x, train=True, generator=torch.Generator().manual_seed(2))
+    d = port(x, train=True, generator=torch.Generator().manual_seed(2))
+    assert all(torch.equal(p, q) for p, q in zip(c, d)) and torch.isfinite(c[0]).all()
 
 
 def test_dropout_elementwise_and_channelwise():

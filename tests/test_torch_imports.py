@@ -30,5 +30,9 @@ def test_no_jax_imports(path):
 
 
 def test_the_scan_sees_the_package():
-    assert len(FILES) >= 10
+    assert len(FILES) >= 15
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for module in ("losses.py", "train/step.py", "train/optim.py", "ops/spectral_norm.py",
+                   "models/networks.py", "interop.py"):
+        assert f"vaegan_tpu_torch/{module}" in names, module
     assert "torch" in imported_roots(ROOT / "vaegan_tpu_torch" / "ops" / "fused.py")

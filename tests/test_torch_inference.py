@@ -120,7 +120,28 @@ def test_entry_points_default_to_cuda(pair, tmp_path):
     _, _, cfg, state = pair
     vt.save_bundle(str(tmp_path), cfg, state)
     for call in (lambda: vt.build_models(cfg), lambda: vt.create_generator_state(cfg),
+                 lambda: vt.create_train_state(cfg),
                  lambda: vt.load_bundle(str(tmp_path)),
                  lambda: vt.mean_predictor_floor(batch())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_recalibrate_bn_stats_matches_jax(pair):
+    """Standing BN statistics from three batches (the train-mode fused BN under
+    ``torch.no_grad``, dropout off, z = mu) against the JAX package's
+    ``recalibrate_bn_stats``; the parameters and the caller's state are left as
+    they were. Tolerance 1e-4 relative + 1e-5."""
+    jcfg, jstate, cfg, state = pair
+    loader = [batch(2, seed=s) for s in range(3)]
+    want = jinference.recalibrate_bn_stats(jcfg, jstate, loader, num_batches=3)
+    before = {k: v.clone() for k, v in state.generator.state_dict().items()}
+    got = vt.recalibrate_bn_stats(cfg, state, loader, num_batches=3)
+    assert all(torch.equal(v, state.generator.state_dict()[k]) for k, v in before.items())
+    sd = got.generator.state_dict()
+    for k, val in vt.from_jax_variables({"batch_stats": want.g_stats}).items():
+        np.testing.assert_allclose(sd[k].numpy(), val.numpy(), rtol=1e-4, atol=1e-5, err_msg=k)
+    for k, v in state.generator.named_parameters():
+        assert torch.equal(sd[k], v)
+    with pytest.raises(ValueError, match="empty loader"):
+        vt.recalibrate_bn_stats(cfg, state, [])

@@ -1,100 +1,51 @@
-// Fused BatchNorm-normalize + LeakyReLU + inverted dropout, forward, for sm_90a.
+// Fused BatchNorm-normalize + LeakyReLU + inverted dropout, forward and backward,
+// for sm_90a.
 //
-// Replaces vaegan_tpu/ops/pallas_fused.py::_bn_fwd_kernel (launched from _bn_fwd).
+// Replaces vaegan_tpu/ops/pallas_fused.py::_bn_fwd_kernel (launched from _bn_fwd) and
+// ::_bn_bwd_kernel (launched from _bn_bwd_rule).
 //
-//   y = drop_p(leaky_slope(scale * (x - mean) * rsqrt(var + eps) + bias)) / (1 - p)
+//   forward:  y = drop_p(leaky_slope(scale * (x - mean) * rsqrt(var + eps) + bias)) / (1 - p)
+//   backward: ga = leaky'(a) * mask * g / (1 - p),  xhat = (x - mean) * inv,  inv = rsqrt(var + eps)
+//             dx = ga * scale * inv,  dscale = sum ga * xhat,  dbias = sum ga,
+//             dmean = -inv * scale * sum ga,  dvar = -0.5 * scale * sum(ga * xhat) / (var + eps)
+//   (dmean and dvar let autograd continue into the batch statistics, as the TPU kernel's did)
 //
-// x is an NHWC activation viewed as a row-major (M = N*H*W, C) matrix, f32 or bf16;
-// mean, var, scale and bias are (C,) f32; the math runs in f32 and y has x's type.
+// x (and g, y, dx) is an NHWC activation viewed as a row-major (M = N*H*W, C) matrix,
+// f32 or bf16; mean, var, scale and bias are (C,) f32; the math runs in f32.
 //
-// What bounds it: memory. Each element is read once and written once with ~6 flops
-// (plus one Philox4x32-10 call per 4 elements when p > 0), far below the H100's
-// ~300 flops per byte ridge, so the least time is 2 * numel * sizeof(T) / bandwidth.
+// What bounds it: memory. The forward reads x and writes y; the backward reads x and g
+// and writes dx, with ~10 flops per element (plus one Philox4x32-10 call per 4 elements
+// when p > 0), far below the H100's ~300 flops per byte ridge. The least time is the
+// bytes over the bandwidth.
 //
 // What the design does about it:
-//  - one pass, no intermediate in device memory: the dropout mask is never stored,
-//    it is recomputed from (seed, element index) by whoever needs it (the backward
-//    kernel of the training path);
-//  - each thread owns 4 consecutive elements, loaded and stored as one 16-byte (f32)
-//    or 8-byte (bf16) vector when the pointers are aligned, and a grid-stride loop over
-//    a grid sized to the SM count keeps every SM streaming;
-//  - the per-channel (mean, inv * scale, bias) are computed once per block into shared
-//    memory; the channel of an element is its flat index mod C, so any C works
-//    (C = 1 and C = 64 are on the serving path; the TPU kernel only took C % 128 == 0);
-//  - no padding of M: the ragged tail is masked here (the TPU wrapper padded M to a
-//    multiple of its 1024-row block);
-//  - random bits come from Philox4x32-10 keyed on (seed lo, seed hi) with counter
-//    (g lo, g hi, 0, 0), g = flat element index / 4, word (index % 4): the mask is a
-//    pure function of (seed, index), independent of block shape, and the plain PyTorch
-//    version in vaegan_tpu_torch/ops/fused.py computes the same bits. The keep rule is
-//    the TPU kernel's: keep = float(bits >> 8) >= p * 2^24.
+//  - one pass over the activation in each direction and no intermediate in device
+//    memory: the dropout mask is never stored, the backward recomputes it from
+//    (seed, element index) with the forward's Philox words (philox.cuh, stream 0);
+//  - each thread owns 4 consecutive elements, loaded and stored as one 16-byte (f32) or
+//    8-byte (bf16) vector when aligned; a grid-stride loop over a grid sized to the SM
+//    count keeps every SM streaming; the ragged tail is masked (no padding of M);
+//  - the channel of an element is its flat index mod C, so any C works (C = 1 and 64
+//    are on the model's path; the TPU kernel took only C % 128 == 0);
 //  - the arithmetic uses the explicitly rounded intrinsics (__fsub_rn, __fmul_rn,
-//    __fadd_rn) so no multiply-add is contracted and each step rounds exactly as the
-//    plain version's separate tensor ops do.
+//    __fadd_rn) so no multiply-add is contracted: elementwise outputs are bitwise the
+//    plain PyTorch version's, and the backward sees the same sign of the LeakyReLU
+//    input as the forward did;
+//  - the backward's channel sums are deterministic. The TPU accumulated them over a
+//    grid that runs in order; CUDA blocks run at once, so each thread keeps its own sums
+//    (a block of `threads` threads with `vec` elements each spans a multiple of C
+//    elements, so a thread always meets the same channels), the block folds them per
+//    channel in shared memory in a fixed tree, writes one row of partials, and a second
+//    small kernel adds the rows in block order. No float atomics: two runs give the
+//    same bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "philox.cuh"
 
 namespace {
 
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+using namespace vaegan;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
-    }
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
-  *out = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const __nv_bfloat162 a = q[0];
-  const __nv_bfloat162 b = q[1];
-  v[0] = __low2float(a);
-  v[1] = __high2float(a);
-  v[2] = __low2float(b);
-  v[3] = __high2float(b);
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v[0], v[1]);
-  q[1] = __floats2bfloat162_rn(v[2], v[3]);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
@@ -119,23 +70,11 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
        g += stride) {
     const long long base = g << 2;
-    const bool full = vec && base + 4 <= n;
     float v[4];
-    if (full) {
-      load4(x + base, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = base + j < n ? to_f32(x[base + j]) : 0.f;
-    }
-    uint32_t bits[4] = {0u, 0u, 0u, 0u};
-    if (dropout) {
-      const uint4 r = philox4x32_10(
-          make_uint4((uint32_t)g, (uint32_t)((unsigned long long)g >> 32), 0u, 0u), k0, k1);
-      bits[0] = r.x;
-      bits[1] = r.y;
-      bits[2] = r.z;
-      bits[3] = r.w;
-    }
+    load_group(x, base, n, vec, v);
+    uint4 r = make_uint4(0u, 0u, 0u, 0u);
+    if (dropout) r = philox_words(g, kStreamDropout, k0, k1);
+    const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
     int c = (int)(base % C);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -148,22 +87,149 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
       v[j] = l;
       c = c + 1 == C ? 0 : c + 1;
     }
-    if (full) {
-      store4(y + base, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (base + j < n) from_f32(v[j], y + base + j);
-      }
-    }
+    store_group(y, base, n, vec, v);
   }
 }
 
+// Backward, pass 1: dx, and one row of per-channel partial sums per block
+// (partial[block][0][c] = sum ga, partial[block][1][c] = sum ga * xhat).
+// VEC elements per thread slot; blockDim.x * VEC is a multiple of C.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(VEC == 4 ? kThreads : 1024) bn_act_dropout_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
+    float* __restrict__ partial, const float* __restrict__ mean,
+    const float* __restrict__ var, const float* __restrict__ scale,
+    const float* __restrict__ bias, long long n, int C, float slope, float eps,
+    int dropout, float threshold, float keep_scale, uint32_t k0, uint32_t k1, int vec) {
+  extern __shared__ float sh[];
+  float* s_mean = sh;
+  float* s_mul = sh + C;
+  float* s_bias = sh + 2 * C;
+  float* s_inv = sh + 3 * C;
+  float* s_scale = sh + 4 * C;
+  const int W = blockDim.x * VEC;  // slots of the block, a multiple of C
+  float* red0 = sh + 5 * C;
+  float* red1 = red0 + W;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const float inv = rsqrtf(__fadd_rn(var[c], eps));
+    s_mean[c] = mean[c];
+    s_mul[c] = __fmul_rn(inv, scale[c]);
+    s_bias[c] = bias[c];
+    s_inv[c] = inv;
+    s_scale[c] = scale[c];
+  }
+  __syncthreads();
+
+  int ch[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) ch[j] = (int)((threadIdx.x * VEC + j) % C);
+  float acc0[VEC], acc1[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc0[j] = acc1[j] = 0.f;
+
+  const long long stride = (long long)gridDim.x * W;
+  for (long long base = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC; base < n;
+       base += stride) {
+    float xv[VEC], gv[VEC];
+    uint32_t bits[VEC];
+    if constexpr (VEC == 4) {
+      load_group(x, base, n, vec, xv);
+      load_group(g, base, n, vec, gv);
+      uint4 r = make_uint4(0u, 0u, 0u, 0u);
+      if (dropout) r = philox_words(base >> 2, kStreamDropout, k0, k1);
+      bits[0] = r.x;
+      bits[1] = r.y;
+      bits[2] = r.z;
+      bits[3] = r.w;
+    } else {
+      xv[0] = to_f32(x[base]);
+      gv[0] = to_f32(g[base]);
+      bits[0] = 0u;
+      if (dropout) {
+        const uint4 r = philox_words(base >> 2, kStreamDropout, k0, k1);
+        const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+        bits[0] = w[base & 3];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int c = ch[j];
+      const float d = __fsub_rn(xv[j], s_mean[c]);
+      const float a = __fadd_rn(__fmul_rn(d, s_mul[c]), s_bias[c]);
+      const float xhat = __fmul_rn(d, s_inv[c]);
+      float gl = gv[j];
+      if (dropout) {
+        gl = __uint2float_rn(bits[j] >> 8) >= threshold ? __fmul_rn(gl, keep_scale) : 0.f;
+      }
+      const float ga = a > 0.f ? gl : __fmul_rn(gl, slope);
+      xv[j] = __fmul_rn(__fmul_rn(ga, s_scale[c]), s_inv[c]);
+      if (base + j < n) {  // masked tail elements add nothing
+        acc0[j] = __fadd_rn(acc0[j], ga);
+        acc1[j] = __fadd_rn(acc1[j], __fmul_rn(ga, xhat));
+      }
+    }
+    if constexpr (VEC == 4) {
+      store_group(dx, base, n, vec, xv);
+    } else {
+      from_f32(xv[0], dx + base);
+    }
+  }
+
+  // fold the slots of each channel: slot s holds channel s % C, k = W / C slots each
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    red0[threadIdx.x * VEC + j] = acc0[j];
+    red1[threadIdx.x * VEC + j] = acc1[j];
+  }
+  __syncthreads();
+  int k = W / C;
+  while (k % 2 == 0) {
+    const int half = (k / 2) * C;
+    for (int s = threadIdx.x; s < half; s += blockDim.x) {
+      red0[s] = __fadd_rn(red0[s], red0[s + half]);
+      red1[s] = __fadd_rn(red1[s], red1[s + half]);
+    }
+    __syncthreads();
+    k /= 2;
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s0 = red0[c], s1 = red1[c];
+    for (int m = 1; m < k; ++m) {
+      s0 = __fadd_rn(s0, red0[c + m * C]);
+      s1 = __fadd_rn(s1, red1[c + m * C]);
+    }
+    partial[(long long)blockIdx.x * 2 * C + c] = s0;
+    partial[(long long)blockIdx.x * 2 * C + C + c] = s1;
+  }
+}
+
+// Backward, pass 2: add the blocks' partial rows in block order, per channel.
+__global__ void bn_act_dropout_bwd_finish_kernel(
+    const float* __restrict__ partial, int blocks, const float* __restrict__ var,
+    const float* __restrict__ scale, float eps, int C, float* __restrict__ dscale,
+    float* __restrict__ dbias, float* __restrict__ dmean, float* __restrict__ dvar) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  double s0 = 0.0, s1 = 0.0;
+  for (int b = 0; b < blocks; ++b) {
+    s0 += (double)partial[(long long)b * 2 * C + c];
+    s1 += (double)partial[(long long)b * 2 * C + C + c];
+  }
+  const float sum_ga = (float)s0;
+  const float sum_gx = (float)s1;
+  const float ve = __fadd_rn(var[c], eps);
+  const float inv = rsqrtf(ve);
+  dscale[c] = sum_gx;
+  dbias[c] = sum_ga;
+  dmean[c] = __fmul_rn(__fmul_rn(scale[c], sum_ga), -inv);
+  dvar[c] = __fdiv_rn(__fmul_rn(__fmul_rn(scale[c], sum_gx), -0.5f), ve);
+}
+
 template <typename T>
-int launch(const void* x, void* y, const float* mean, const float* var, const float* scale,
-           const float* bias, long long n, int C, float slope, float eps, int dropout,
-           float threshold, float keep_scale, unsigned long long seed, int max_blocks,
-           cudaStream_t stream) {
+int launch_fwd(const void* x, void* y, const float* mean, const float* var,
+               const float* scale, const float* bias, long long n, int C, float slope,
+               float eps, int dropout, float threshold, float keep_scale,
+               unsigned long long seed, int max_blocks, cudaStream_t stream) {
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > max_blocks) blocks = max_blocks;
@@ -174,6 +240,36 @@ int launch(const void* x, void* y, const float* mean, const float* var, const fl
       static_cast<const T*>(x), static_cast<T*>(y), mean, var, scale, bias, n, C, slope,
       eps, dropout, threshold, keep_scale, (uint32_t)(seed & 0xFFFFFFFFull),
       (uint32_t)(seed >> 32), vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* g, void* dx, float* partial, const float* mean,
+               const float* var, const float* scale, const float* bias, float* dscale,
+               float* dbias, float* dmean, float* dvar, long long n, int C, float slope,
+               float eps, int dropout, float threshold, float keep_scale,
+               unsigned long long seed, int threads, int vec_elems, int blocks,
+               cudaStream_t stream) {
+  const size_t align = 4 * sizeof(T);
+  const int vec = ((uintptr_t)x % align == 0) && ((uintptr_t)g % align == 0) &&
+                  ((uintptr_t)dx % align == 0);
+  const size_t smem = (5 * (size_t)C + 2 * (size_t)threads * vec_elems) * sizeof(float);
+  const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull), k1 = (uint32_t)(seed >> 32);
+  if (vec_elems == 4) {
+    bn_act_dropout_bwd_kernel<T, 4><<<blocks, threads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx), partial,
+        mean, var, scale, bias, n, C, slope, eps, dropout, threshold, keep_scale, k0, k1,
+        vec);
+  } else {
+    bn_act_dropout_bwd_kernel<T, 1><<<blocks, threads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx), partial,
+        mean, var, scale, bias, n, C, slope, eps, dropout, threshold, keep_scale, k0, k1,
+        vec);
+  }
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  bn_act_dropout_bwd_finish_kernel<<<(C + 255) / 256, 256, 0, stream>>>(
+      partial, blocks, var, scale, eps, C, dscale, dbias, dmean, dvar);
   return (int)cudaGetLastError();
 }
 
@@ -193,10 +289,38 @@ extern "C" int vaegan_bn_act_dropout_fwd(const void* x, void* y, const float* me
   if (C <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, y, mean, var, scale, bias, n, C, slope, eps, dropout,
-                         threshold, keep_scale, seed, max_blocks, s);
+    return launch_fwd<float>(x, y, mean, var, scale, bias, n, C, slope, eps, dropout,
+                             threshold, keep_scale, seed, max_blocks, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, mean, var, scale, bias, n, C, slope, eps, dropout,
-                                 threshold, keep_scale, seed, max_blocks, s);
+    return launch_fwd<__nv_bfloat16>(x, y, mean, var, scale, bias, n, C, slope, eps,
+                                     dropout, threshold, keep_scale, seed, max_blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// `partial` holds blocks * 2 * C floats of scratch. `threads` * `vec_elems` must be a
+// multiple of C; `vec_elems` is 4 (threads <= 256) or 1 (threads <= 1024). The wrapper
+// picks them.
+extern "C" int vaegan_bn_act_dropout_bwd(const void* x, const void* g, void* dx,
+                                         float* partial, const float* mean, const float* var,
+                                         const float* scale, const float* bias, float* dscale,
+                                         float* dbias, float* dmean, float* dvar, long long n,
+                                         int C, int dtype, float slope, float eps, int dropout,
+                                         float threshold, float keep_scale,
+                                         unsigned long long seed, int threads, int vec_elems,
+                                         int blocks, void* stream) {
+  if (n <= 0 || C <= 0 || blocks <= 0 || threads <= 0 || threads > 1024 ||
+      (vec_elems != 4 && vec_elems != 1) || (vec_elems == 4 && threads > kThreads) ||
+      ((long long)threads * vec_elems) % C != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(x, g, dx, partial, mean, var, scale, bias, dscale, dbias, dmean,
+                             dvar, n, C, slope, eps, dropout, threshold, keep_scale, seed,
+                             threads, vec_elems, blocks, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, g, dx, partial, mean, var, scale, bias, dscale,
+                                     dbias, dmean, dvar, n, C, slope, eps, dropout,
+                                     threshold, keep_scale, seed, threads, vec_elems, blocks,
+                                     s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,11 +5,14 @@
 - ``sample``: decoder-only generation from z ~ N(0, I) spatial latents;
 - ``interpolate``: latent interpolation between the ``encode()`` means of two batches.
 
+- ``recalibrate_bn_stats``: re-estimate the generator's BN running statistics
+  from its final parameters.
+
 All run eval-mode semantics (BN running stats, dropout off, z = mu) under
 ``torch.inference_mode`` on the device the state's generator lives on. Images are
 (B, H, W, C) and latents (B, h, w, C), as in the JAX package; numpy arrays and
-tensors are both accepted and tensors are returned. The BN-statistics
-recalibration waits for the training slice, which brings train-mode fused BN.
+tensors are both accepted and tensors are returned. A state is a
+``GeneratorState`` or anything else with a ``generator`` (a ``TrainState``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from vaegan_tpu_torch.config import Config
-from vaegan_tpu_torch.models import UnsupervisedGeneratorNetwork
+from vaegan_tpu_torch.models import BatchNorm, Dropout, ResBlockVAE, UnsupervisedGeneratorNetwork
 from vaegan_tpu_torch.train.state import GeneratorState, resolve_device
 
 
@@ -110,6 +113,57 @@ def interpolate(cfg: Config, state: GeneratorState, x1, x2, steps: int = 8) -> t
     zs = (1.0 - ts) * z1[None] + ts * z2[None]          # (steps, B, h, w, c)
     imgs = gen.decode(zs.reshape((-1,) + tuple(z1.shape[1:])))
     return imgs.reshape((steps,) + tuple(x1.shape))
+
+
+@torch.no_grad()
+def recalibrate_bn_stats(cfg: Config, state, loader, num_batches: int = 50):
+    """Re-estimate the generator's BatchNorm running statistics from its FINAL
+    parameters (standing statistics, as SWA's ``update_bn``): ``num_batches``
+    train-mode forwards with dropout off and z = mu, each BN's batch moments
+    recovered exactly from its update rule, averaged over the batches (a mean,
+    not an EMA). Returns a copy of ``state`` whose generator (a copy) carries the
+    new statistics; no parameter changes and no random draw is made. Runs the
+    train-mode fused BN when the generator is fused. A re-iterable loader is
+    looped over as often as ``num_batches`` needs; an iterator is consumed once."""
+    dev = _device(state)
+    work = copy.deepcopy(state.generator)
+    for m in work.modules():           # dropout off, so the data flow is eval's
+        if isinstance(m, ResBlockVAE):
+            m.p = 0.0
+        elif isinstance(m, Dropout):
+            m.rate = 0.0
+    bns = {name: m for name, m in work.named_modules() if isinstance(m, BatchNorm)}
+    acc, n = None, 0
+    reiterable = not (hasattr(loader, "__next__") and iter(loader) is loader)
+    while n < num_batches:
+        before = n
+        for batch in loader:
+            x = _as_input(batch, dev)
+            for bn in bns.values():    # from 0, the update leaves momentum * batch
+                bn.running_mean.zero_()
+                bn.running_var.zero_()
+            eps = None
+            if cfg.generator.is_vae:
+                h, w, c = latent_shape(cfg, x.shape[1])
+                eps = torch.zeros((x.shape[0], h, w, c), device=dev)   # z = mu
+            work(x, train=True, eps=eps)
+            bm = {k: (bn.running_mean / bn.momentum, bn.running_var / bn.momentum)
+                  for k, bn in bns.items()}
+            acc = bm if acc is None else {
+                k: tuple(a + (b - a) / (n + 1) for a, b in zip(acc[k], bm[k])) for k in acc}
+            n += 1
+            if n >= num_batches:
+                break
+        if n == before or not reiterable:
+            break
+    if n == 0:
+        raise ValueError("recalibrate_bn_stats got an empty loader")
+    gen = copy.deepcopy(state.generator)
+    for name, m in gen.named_modules():
+        if name in acc:
+            m.running_mean.copy_(acc[name][0])
+            m.running_var.copy_(acc[name][1])
+    return state.replace(generator=gen)
 
 
 def mean_predictor_floor(batch, device="cuda") -> float:

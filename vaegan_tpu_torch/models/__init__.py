@@ -1,13 +1,23 @@
-from vaegan_tpu_torch.models.blocks import ResBlockVAE
-from vaegan_tpu_torch.models.layers import BatchNorm, Conv2D, Dropout, leaky_relu
+from vaegan_tpu_torch.models.blocks import ResBlockDiscriminator, ResBlockVAE
+from vaegan_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2D,
+    Dropout,
+    Linear,
+    inject_masks,
+    leaky_relu,
+)
 from vaegan_tpu_torch.models.networks import (
     Decoder,
+    Discriminator,
     Encoder,
     SpatialVAECodeProcessor,
     UnsupervisedGeneratorNetwork,
+    critic_pool_shape,
 )
 
 __all__ = [
-    "BatchNorm", "Conv2D", "Decoder", "Dropout", "Encoder", "ResBlockVAE",
-    "SpatialVAECodeProcessor", "UnsupervisedGeneratorNetwork", "leaky_relu",
+    "BatchNorm", "Conv2D", "Decoder", "Discriminator", "Dropout", "Encoder", "Linear",
+    "ResBlockDiscriminator", "ResBlockVAE", "SpatialVAECodeProcessor",
+    "UnsupervisedGeneratorNetwork", "critic_pool_shape", "inject_masks", "leaky_relu",
 ]

@@ -2,8 +2,10 @@
 
 ``vaegan_tpu_torch/csrc/<name>.cu`` becomes a shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into ``vaegan_tpu_torch/_build/``
-(git-ignored) under a name keyed on a hash of the source and the flags — an
-edited source builds anew, an unchanged one loads the library already there.
+(git-ignored) under a name keyed on a hash of the source, the ``csrc`` headers it
+includes and the flags — an edited source or header builds anew, an unchanged one
+loads the library already there. :func:`build_all` starts one ``nvcc`` per source,
+all at once.
 
 Nothing here runs at import: the CPU test suite imports every module on a
 machine with no ``nvcc``.
@@ -12,12 +14,15 @@ machine with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import functools
 import hashlib
 import os
 import shutil
+import re
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -43,6 +48,27 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+SOURCES = ("bn_act_dropout", "reparam_kl", "recon_loss_sums")
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_hash(source: Path) -> "hashlib._Hash":
+    """sha256 of the source and of every ``csrc`` header it includes, transitively."""
+    h = hashlib.sha256()
+    seen, todo = set(), [source]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo += [CSRC / m.decode() for m in _INCLUDE.findall(text)
+                 if (CSRC / m.decode()).is_file()]
+    return h
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built; returns
     the library's path. The compiler's report (registers, shared memory, spills
@@ -50,7 +76,7 @@ def build(name: str) -> Path:
     source = CSRC / f"{name}.cu"
     if not source.is_file():
         raise KeyError(f"no CUDA source csrc/{name}.cu")
-    h = hashlib.sha256(source.read_bytes())
+    h = _source_hash(source)
     h.update(" ".join(NVCC_FLAGS).encode())
     path = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if path.exists():
@@ -66,6 +92,14 @@ def build(name: str) -> Path:
                            f"{proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
     return path
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Build the given sources, one ``nvcc`` each, all started together;
+    returns ``{name: library path}``. Raises the first build's error."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,44 +1,73 @@
 """Fused kernels of the port (counterpart of ``vaegan_tpu/ops/pallas_fused.py``).
 
-``bn_act_dropout``: BatchNorm-normalize + LeakyReLU + inverted dropout in one
-pass, the hand-written CUDA kernel ``csrc/bn_act_dropout.cu`` (``sm_90a``).
-Beside it is its plain PyTorch version, ``bn_act_dropout_reference``, with the
-same arithmetic in the same order and the same random bits. The wrapper picks by
-the tensor's device: a CPU tensor goes to the plain version (that is how the CPU
-tests run), a CUDA tensor launches the kernel or raises — there is no fallback.
+Each TPU kernel of the JAX package is a hand-written CUDA kernel (``sm_90a``)
+under ``csrc/``, built at first use and bound with ctypes:
 
-Layout: ``x`` is an (N, C, H, W) tensor in ``torch.channels_last`` memory format,
-i.e. an NHWC buffer; the kernel sees it as the row-major (N*H*W, C) matrix the
-TPU kernel saw. The dropout mask is a pure function of (seed, flat NHWC index):
-Philox4x32-10 with key (seed lo, seed hi) and counter (index // 4 lo, hi, 0, 0)
-gives four 32-bit words, word ``index % 4`` belongs to the element, and the
-element is kept when ``float(bits >> 8) >= p * 2**24`` (the TPU kernel's rule).
+- ``bn_act_dropout``: BatchNorm-normalize + LeakyReLU + inverted dropout, forward
+  and backward (``csrc/bn_act_dropout.cu``);
+- ``reparam_kl``: z = mu + exp(lv / 2) * eps with eps drawn in the kernel, plus
+  the summed KL, forward and backward (``csrc/reparam_kl.cu``);
+- ``recon_loss_sums``: (sum |r - t|, sum (r - t)^2) in one pass
+  (``csrc/recon_loss_sums.cu``); its backward is plain PyTorch, as the JAX
+  package's is plain jnp.
 
-``LAUNCHES`` counts kernel launches per kernel name: one is added where the
-kernel is launched, and nowhere else.
+Beside each kernel wrapper (``*_forward``, ``*_backward``) is its plain PyTorch
+version (``*_reference``), with the same arithmetic in the same order and the
+same random bits. A wrapper picks by the tensor's device: a CPU tensor goes to
+the plain version (that is how the CPU tests run), a CUDA tensor launches the
+kernel or raises — there is no fallback. ``bn_act_dropout``, ``reparam_kl`` and
+``recon_loss_sums`` are the differentiable ``torch.autograd.Function``s the
+models call; their backwards are once-differentiable, so a grad-of-grad (the
+WGAN gradient penalty) cannot run through them.
+
+Layout: activations are (N, C, H, W) tensors in ``torch.channels_last`` memory
+format, i.e. NHWC buffers; a kernel sees the row-major (N*H*W, C) matrix the TPU
+kernel saw, and indexes random bits by the flat NHWC position. Random bits are
+Philox4x32-10 keyed on (seed lo, seed hi), with the counter's third word naming
+the stream:
+
+- dropout: counter (index // 4, 0), word ``index % 4``; the element is kept when
+  ``float(bits >> 8) >= p * 2**24`` (the TPU kernel's rule);
+- reparam noise: counter (index // 2, 1), words ``2 (index % 2)`` and
+  ``2 (index % 2) + 1`` as the Box-Muller pair (b1, b2):
+  ``u1 = ((b1 >> 8) + 1) / 2**24``, ``u2 = (b2 >> 8) / 2**24``,
+  ``eps = sqrt(-2 log u1) cos(2 pi u2)`` (the TPU kernel's rule).
+
+``LAUNCHES`` counts kernel launches per kernel name: one is added where a
+wrapper launches its kernel, and nowhere else. Channel and block sums are taken
+in a fixed order on the card (no float atomics), so a kernel gives the same bits
+run to run.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from vaegan_tpu_torch.ops import _build
 
-LAUNCHES: Dict[str, int] = {"bn_act_dropout": 0}
+LAUNCHES: Dict[str, int] = {"bn_act_dropout": 0, "bn_act_dropout_bwd": 0,
+                            "reparam_kl": 0, "reparam_kl_bwd": 0, "recon_loss_sums": 0}
 
-# the shared-memory table holds 3 f32 per channel within the default 48 KB
-MAX_CHANNELS = 4096
+# the backward folds a block's channel sums in shared memory: blockDim * 4 (or 1)
+# elements must span a multiple of C within 1024 threads
+MAX_CHANNELS = 1024
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_STREAM_DROPOUT, _STREAM_REPARAM = 0, 1
+_TWO_POW_M24 = 2.0 ** -24
+_TWO_PI = float(np.float32(2.0 * np.pi))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LC = ctypes.c_longlong
+_P = ctypes.c_void_p
 
 
 def reset_launches() -> None:
@@ -72,12 +101,17 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
+def _philox_words(count: int, stream: int, seed: int, device):
+    """The four words of counters (i, stream) for i in [0, count)."""
+    i = torch.arange(count, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(i)
+    return philox4x32_10(i & _MASK32, i >> 32, zero + stream, zero,
+                         seed & _MASK32, (seed >> 32) & _MASK32)
+
+
 def dropout_bits(numel: int, seed: int, device) -> torch.Tensor:
     """The 32-bit random word of every flat index in [0, numel), as int64."""
-    g = torch.arange((numel + 3) // 4, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(g)
-    words = philox4x32_10(g & _MASK32, g >> 32, zero, zero,
-                          seed & _MASK32, (seed >> 32) & _MASK32)
+    words = _philox_words((numel + 3) // 4, _STREAM_DROPOUT, seed, device)
     return torch.stack(words, dim=1).reshape(-1)[:numel]
 
 
@@ -98,6 +132,55 @@ def keep_mask(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     u24 = (dropout_bits(x.numel(), seed, x.device) >> 8).to(torch.float32)
     keep = u24 >= keep_threshold(p)
     return keep.view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+def reparam_noise(shape, seed: int, device) -> torch.Tensor:
+    """The reparameterization noise of an (N, C, H, W) channels_last tensor of
+    ``shape``: float32 N(0, 1), a pure function of (seed, flat NHWC index)."""
+    n, c, h, w = shape
+    numel = n * c * h * w
+    w0, w1, w2, w3 = _philox_words((numel + 1) // 2, _STREAM_REPARAM, seed, device)
+    b1 = torch.stack((w0, w2), dim=1).reshape(-1)[:numel]
+    b2 = torch.stack((w1, w3), dim=1).reshape(-1)[:numel]
+    u1 = ((b1 >> 8).to(torch.float32) + 1.0) * _TWO_POW_M24
+    u2 = (b2 >> 8).to(torch.float32) * _TWO_POW_M24
+    eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    return eps.view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# kernel binding
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(lib: str, name: str, argtypes: Tuple):
+    fn = getattr(_build.library(lib), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _device_kind(t: torch.Tensor, what: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what} runs on cuda or cpu tensors, got {t.device}")
+    return t.device.type
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {rc}")
+
+
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
 
 
 # ---------------------------------------------------------------------------
@@ -126,54 +209,316 @@ def _check(x, mean, var, scale, bias, seed, p) -> None:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
 
 
+def _ch(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
 def bn_act_dropout_reference(x, mean, var, scale, bias, seed: int, slope: float,
                              p: float, eps: float = 1e-5) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same steps in the same order,
-    each rounded to f32, and the same Philox mask."""
+    """Plain PyTorch version of the forward kernel: the same steps in the same
+    order, each rounded to f32, and the same Philox mask."""
     _check(x, mean, var, scale, bias, seed, p)
     inv = torch.rsqrt(var + eps)
-    mul = (inv * scale).view(1, -1, 1, 1)
-    a = (x.float() - mean.view(1, -1, 1, 1)) * mul + bias.view(1, -1, 1, 1)
+    mul = _ch(inv * scale)
+    a = (x.float() - _ch(mean)) * mul + _ch(bias)
     y = torch.where(a > 0, a, a * slope)
     if p > 0.0:
         y = torch.where(keep_mask(x, seed, p), y * keep_scale(p), torch.zeros((), device=x.device))
-    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    return _channels_last(y.to(x.dtype))
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.library("bn_act_dropout").vaegan_bn_act_dropout_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def bn_act_dropout(x, mean, var, scale, bias, seed: int, slope: float, p: float,
-                   eps: float = 1e-5) -> torch.Tensor:
+def bn_act_dropout_forward(x, mean, var, scale, bias, seed: int, slope: float, p: float,
+                           eps: float = 1e-5) -> torch.Tensor:
     """y = dropout_p(leaky_relu(scale * (x - mean) * rsqrt(var + eps) + bias, slope)).
 
     ``x``: (N, C, H, W) float32/bfloat16 in channels_last memory format;
     ``mean``/``var``/``scale``/``bias``: contiguous float32 (C,); ``seed``: int in
     [0, 2**64), the dropout stream is a pure function of (seed, flat NHWC index).
-    Forward only: the backward kernel comes with the training path.
     """
-    if x.device.type == "cpu":
+    if _device_kind(x, "bn_act_dropout") == "cpu":
         return bn_act_dropout_reference(x, mean, var, scale, bias, seed, slope, p, eps)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"bn_act_dropout runs on cuda or cpu tensors, got {x.device}")
     _check(x, mean, var, scale, bias, seed, p)
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_fwd", (_P,) * 6 + (
+        _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, _P))
     with torch.cuda.device(x.device):
-        rc = _kernel_fn()(
-            x.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), x.numel(), x.shape[1], _DTYPE_CODE[x.dtype], slope, eps,
-            int(p > 0.0), keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed,
-            sms * 8, torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bn_act_dropout kernel launch failed with CUDA error {rc}")
+        rc = fn(x.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), x.numel(), x.shape[1], _DTYPE_CODE[x.dtype], slope, eps,
+                int(p > 0.0), keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed,
+                _sms(x.device) * 8, _stream(x.device))
+    _raise_on(rc, "bn_act_dropout")
     LAUNCHES["bn_act_dropout"] += 1
     return y
+
+
+def bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed: int, slope: float,
+                                      p: float, eps: float = 1e-5):
+    """Plain PyTorch version of the backward kernel: the forward's mask replayed,
+    ga = leaky'(a) * mask * g / (1 - p), then ``(dx, dscale, dbias, dmean, dvar)``
+    with dx = ga * scale * inv, dscale = sum ga * xhat, dbias = sum ga,
+    dmean = -inv * scale * sum ga, dvar = -0.5 * scale * sum(ga * xhat) / (var + eps)."""
+    _check(x, mean, var, scale, bias, seed, p)
+    inv = torch.rsqrt(var + eps)
+    d = x.float() - _ch(mean)
+    a = d * _ch(inv * scale) + _ch(bias)
+    xhat = d * _ch(inv)
+    gl = g.to(x.dtype).float()
+    if p > 0.0:
+        gl = torch.where(keep_mask(x, seed, p), gl * keep_scale(p),
+                         torch.zeros((), device=x.device))
+    ga = torch.where(a > 0, gl, gl * slope)
+    dx = _channels_last(((ga * _ch(scale)) * _ch(inv)).to(x.dtype))
+    sum_ga = ga.sum(dim=(0, 2, 3))
+    sum_gx = (ga * xhat).sum(dim=(0, 2, 3))
+    dmean = (scale * sum_ga) * (-inv)
+    dvar = ((scale * sum_gx) * -0.5) / (var + eps)
+    return dx, sum_gx, sum_ga, dmean, dvar
+
+
+def _bwd_launch_shape(c: int, n: int, sms: int) -> Tuple[int, int, int]:
+    """(threads, elements per thread, blocks) of the backward kernel: a block's
+    threads * elements must span a multiple of C, so each thread always meets the
+    same channels and keeps their sums in registers."""
+    if 1024 % c == 0:
+        threads, vec = 256, 4
+    else:
+        threads, vec = c * (1024 // c), 1
+    blocks = max(1, min(-(-n // (threads * vec)), sms * 4))
+    return threads, vec, blocks
+
+
+def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: float,
+                            p: float, eps: float = 1e-5):
+    """The forward's gradient: ``(dx, dscale, dbias, dmean, dvar)`` for the
+    upstream gradient ``g`` of y (any memory format; made channels_last), with the
+    forward's dropout mask replayed from ``seed``. Channel sums are deterministic."""
+    g = _channels_last(g.to(x.dtype))
+    if _device_kind(x, "bn_act_dropout backward") == "cpu":
+        return bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed, slope,
+                                                 p, eps)
+    _check(x, mean, var, scale, bias, seed, p)
+    c = x.shape[1]
+    threads, vec, blocks = _bwd_launch_shape(c, x.numel(), _sms(x.device))
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    partial = torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device)
+    grads = torch.empty((4, c), dtype=torch.float32, device=x.device)
+    dscale, dbias, dmean, dvar = grads.unbind(0)
+    fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_bwd", (_P,) * 12 + (
+        _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _P))
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                dscale.data_ptr(), dbias.data_ptr(), dmean.data_ptr(), dvar.data_ptr(),
+                x.numel(), c, _DTYPE_CODE[x.dtype], slope, eps, int(p > 0.0),
+                keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed, threads, vec,
+                blocks, _stream(x.device))
+    _raise_on(rc, "bn_act_dropout backward")
+    LAUNCHES["bn_act_dropout_bwd"] += 1
+    return dx, dscale, dbias, dmean, dvar
+
+
+class _BnActDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mean, var, scale, bias, seed, slope, p, eps):
+        ctx.save_for_backward(x, mean, var, scale, bias)
+        ctx.args = (seed, slope, p, eps)
+        return bn_act_dropout_forward(x, mean, var, scale, bias, seed, slope, p, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, mean, var, scale, bias = ctx.saved_tensors
+        dx, dscale, dbias, dmean, dvar = bn_act_dropout_backward(
+            x, gy, mean, var, scale, bias, *ctx.args)
+        return dx, dmean, dvar, dscale, dbias, None, None, None, None
+
+
+def bn_act_dropout(x, mean, var, scale, bias, seed: int, slope: float, p: float,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable :func:`bn_act_dropout_forward`: the backward kernel gives
+    the gradients of x, mean, var, scale and bias (autograd carries dmean and dvar
+    into the batch statistics when they were computed from x)."""
+    return _BnActDropout.apply(x, mean, var, scale, bias, seed, slope, p, eps)
+
+
+# ---------------------------------------------------------------------------
+# reparam_kl
+# ---------------------------------------------------------------------------
+
+def _check_reparam(mu, lv, seed) -> None:
+    if mu.dim() != 4 or mu.shape != lv.shape:
+        raise ValueError(f"reparam_kl takes two (N, C, H, W) tensors of one shape, got "
+                         f"{tuple(mu.shape)} and {tuple(lv.shape)}")
+    if mu.dtype not in _DTYPE_CODE or lv.dtype != mu.dtype or lv.device != mu.device:
+        raise TypeError(f"reparam_kl takes float32 or bfloat16 mu and log_var of one dtype "
+                        f"and device, got {mu.dtype}/{lv.dtype} on {mu.device}/{lv.device}")
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed must be in [0, 2**64), got {seed}")
+
+
+def _blocks(n: int, device, per_sm: int) -> int:
+    return max(1, min(-(-n // 1024), _sms(device) * per_sm))
+
+
+def reparam_kl_reference(mu, lv, seed: int):
+    """Plain PyTorch version of the forward kernel: ``(z, kl)`` with the same
+    Philox noise and the same per-element arithmetic."""
+    _check_reparam(mu, lv, seed)
+    eps = reparam_noise(mu.shape, seed, mu.device)
+    m, l = mu.float(), lv.float()
+    z = _channels_last((m + torch.exp(0.5 * l) * eps).to(mu.dtype))
+    kl = -0.5 * torch.sum(((1.0 + l) - m * m) - torch.exp(l))
+    return z, kl
+
+
+def reparam_kl_forward(mu, lv, seed: int):
+    """``(z, kl)``: z = mu + exp(lv / 2) * eps with eps ~ N(0, 1) drawn in the
+    kernel from (seed, flat NHWC index), and the KL summed over batch and dims
+    (an f32 scalar). ``mu``/``lv``: (N, C, H, W) float32/bfloat16, made
+    channels_last."""
+    mu, lv = _channels_last(mu), _channels_last(lv)
+    if _device_kind(mu, "reparam_kl") == "cpu":
+        return reparam_kl_reference(mu, lv, seed)
+    _check_reparam(mu, lv, seed)
+    n = mu.numel()
+    blocks = _blocks(n, mu.device, 8)
+    z = torch.empty_like(mu, memory_format=torch.channels_last)
+    partial = torch.empty(blocks, dtype=torch.float32, device=mu.device)
+    kl = torch.empty((), dtype=torch.float32, device=mu.device)
+    fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_fwd", (_P,) * 5 + (
+        _LC, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, _P))
+    with torch.cuda.device(mu.device):
+        rc = fn(mu.data_ptr(), lv.data_ptr(), z.data_ptr(), partial.data_ptr(), kl.data_ptr(),
+                n, _DTYPE_CODE[mu.dtype], seed, blocks, _stream(mu.device))
+    _raise_on(rc, "reparam_kl")
+    LAUNCHES["reparam_kl"] += 1
+    return z, kl
+
+
+def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int):
+    """Plain PyTorch version of the backward kernel: ``(dmu, dlv)`` with the
+    forward's noise replayed; ``gkl`` None counts as 0."""
+    _check_reparam(mu, lv, seed)
+    eps = reparam_noise(mu.shape, seed, mu.device)
+    m, l, g = mu.float(), lv.float(), gz.float()
+    k = torch.zeros((), device=mu.device) if gkl is None else gkl.float()
+    dmu = g + k * m
+    dlv = ((g * 0.5) * torch.exp(0.5 * l)) * eps + (k * -0.5) * (1.0 - torch.exp(l))
+    return _channels_last(dmu.to(mu.dtype)), _channels_last(dlv.to(lv.dtype))
+
+
+def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int):
+    """The forward's gradient ``(dmu, dlv)`` for the cotangents ``gz`` of z and
+    ``gkl`` of the KL (a scalar tensor, or None for 0: the training step's loss
+    recomputes the KL, so this output is unused there)."""
+    mu, lv = _channels_last(mu), _channels_last(lv)
+    gz = _channels_last(gz.to(mu.dtype))
+    if gkl is not None:
+        gkl = gkl.detach().to(torch.float32).reshape(())
+    if _device_kind(mu, "reparam_kl backward") == "cpu":
+        return reparam_kl_backward_reference(mu, lv, gz, gkl, seed)
+    _check_reparam(mu, lv, seed)
+    n = mu.numel()
+    dmu = torch.empty_like(mu, memory_format=torch.channels_last)
+    dlv = torch.empty_like(lv, memory_format=torch.channels_last)
+    fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_bwd", (_P,) * 6 + (
+        _LC, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, _P))
+    with torch.cuda.device(mu.device):
+        rc = fn(mu.data_ptr(), lv.data_ptr(), gz.data_ptr(),
+                None if gkl is None else gkl.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n,
+                _DTYPE_CODE[mu.dtype], seed, _sms(mu.device) * 8, _stream(mu.device))
+    _raise_on(rc, "reparam_kl backward")
+    LAUNCHES["reparam_kl_bwd"] += 1
+    return dmu, dlv
+
+
+class _ReparamKL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mu, lv, seed):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(mu, lv)
+        ctx.seed = seed
+        return reparam_kl_forward(mu, lv, seed)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gz, gkl):
+        mu, lv = ctx.saved_tensors
+        if gz is None:
+            gz = torch.zeros_like(mu)
+        dmu, dlv = reparam_kl_backward(mu, lv, gz, gkl, ctx.seed)
+        return dmu, dlv, None
+
+
+def reparam_kl(mu, log_var, seed: int):
+    """Differentiable :func:`reparam_kl_forward`: ``(z, kl)``."""
+    return _ReparamKL.apply(mu, log_var, seed)
+
+
+# ---------------------------------------------------------------------------
+# recon_loss_sums
+# ---------------------------------------------------------------------------
+
+def _check_recon(r, t) -> None:
+    if r.shape != t.shape or r.dtype != t.dtype or r.device != t.device:
+        raise ValueError(f"recon_loss_sums takes two tensors of one shape, dtype and device, "
+                         f"got {tuple(r.shape)} {r.dtype} {r.device} and "
+                         f"{tuple(t.shape)} {t.dtype} {t.device}")
+    if r.dtype not in _DTYPE_CODE:
+        raise TypeError(f"recon_loss_sums takes float32 or bfloat16, got {r.dtype}")
+    if r.numel() == 0:
+        raise ValueError("recon_loss_sums takes non-empty tensors")
+
+
+def recon_loss_sums_reference(r, t) -> torch.Tensor:
+    """Plain PyTorch version: (sum |r - t|, sum (r - t)^2) in float32."""
+    _check_recon(r, t)
+    d = r.float() - t.float()
+    return torch.stack((d.abs().sum(), (d * d).sum()))
+
+
+def recon_loss_sums_forward(r, t) -> torch.Tensor:
+    """(sum |r - t|, sum (r - t)^2) as a float32 (2,) tensor, in one pass over
+    both (made contiguous in their given layout)."""
+    r, t = r.contiguous(), t.contiguous()
+    if _device_kind(r, "recon_loss_sums") == "cpu":
+        return recon_loss_sums_reference(r, t)
+    _check_recon(r, t)
+    n = r.numel()
+    blocks = _blocks(n, r.device, 4)
+    partial = torch.empty((blocks, 2), dtype=torch.float32, device=r.device)
+    out = torch.empty(2, dtype=torch.float32, device=r.device)
+    fn = _kernel_fn("recon_loss_sums", "vaegan_recon_loss_sums", (_P,) * 4 + (
+        _LC, ctypes.c_int, ctypes.c_int, _P))
+    with torch.cuda.device(r.device):
+        rc = fn(r.data_ptr(), t.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
+                _DTYPE_CODE[r.dtype], blocks, _stream(r.device))
+    _raise_on(rc, "recon_loss_sums")
+    LAUNCHES["recon_loss_sums"] += 1
+    return out
+
+
+class _ReconLossSums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, t):
+        ctx.save_for_backward(r, t)
+        return recon_loss_sums_forward(r, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        # plain PyTorch, as the JAX package's _recon_bwd is plain jnp:
+        # d/dr [g0 sum |d| + g1 sum d^2] = g0 sign(d) + 2 g1 d
+        r, t = ctx.saved_tensors
+        d = r.float() - t.float()
+        dr = g[0] * torch.sign(d) + g[1] * 2.0 * d
+        return (dr.to(r.dtype) if ctx.needs_input_grad[0] else None,
+                (-dr).to(t.dtype) if ctx.needs_input_grad[1] else None)
+
+
+def recon_loss_sums(recon, target) -> torch.Tensor:
+    """Differentiable :func:`recon_loss_sums_forward`; divide by the element
+    count for the mean-reduced L1 + MSE of the reference."""
+    return _ReconLossSums.apply(recon, target)

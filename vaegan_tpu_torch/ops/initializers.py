@@ -6,8 +6,10 @@ The reference's ``init_weights`` applies kaiming-normal to ``nn.Conv2d`` /
 ``isinstance(module, nn.Conv2d)`` misses ``ConvTranspose2d``, so under
 ``scheme="reference"`` upsample kernels keep torch's *default* init,
 kaiming-uniform with a=sqrt(5), whose fan-in torch reads from dim 1 of the
-(in, out, kh, kw) weight: ``out_channels * kh * kw``. ``scheme="clean"`` applies
-kaiming-normal everywhere.
+(in, out, kh, kw) weight: ``out_channels * kh * kw``. Spectral-norm-wrapped
+convs (the critic's) have their computed weight re-initialized but
+``weight_orig`` untouched, so their effective init is torch's default too.
+``scheme="clean"`` applies kaiming-normal everywhere.
 
 Weights are in torch layout: (O, I, KH, KW) for a conv, (I, O, KH, KW) for a
 transposed conv. Every draw takes an explicit ``torch.Generator``; the values
@@ -49,10 +51,10 @@ def torch_default_conv_(w: torch.Tensor, generator: torch.Generator) -> torch.Te
     return w.uniform_(-bound, bound, generator=generator)
 
 
-def conv_init(scheme: str, *, transpose: bool = False):
+def conv_init(scheme: str, *, transpose: bool = False, spectral: bool = False):
     """Initializer for a conv weight under the given scheme."""
     if scheme == "clean":
         return _kaiming_normal_transposed_ if transpose else kaiming_normal_
     if scheme == "reference":
-        return torch_default_conv_ if transpose else kaiming_normal_
+        return torch_default_conv_ if transpose or spectral else kaiming_normal_
     raise ValueError(f"unknown init scheme {scheme!r}")

@@ -30,7 +30,7 @@ import torch
 from vaegan_tpu_torch.config import Config
 from vaegan_tpu_torch.inference import _as_input, eval_reconstruct, latent_shape
 from vaegan_tpu_torch.models import UnsupervisedGeneratorNetwork
-from vaegan_tpu_torch.train.state import GeneratorState, build_models, resolve_device
+from vaegan_tpu_torch.train.state import GeneratorState, build_generator, resolve_device
 
 MANIFEST_NAME = "manifest.json"
 WEIGHTS_NAME = "generator.pt"
@@ -110,7 +110,7 @@ def load_bundle(bundle_dir: str, device="cuda") -> ServingBundle:
             f"bundle at {bundle_dir} has version {manifest['bundle_version']}; "
             f"this runtime supports <= {BUNDLE_VERSION}")
     cfg = Config.from_dict(manifest["config"])
-    gen = build_models(cfg, dev)
+    gen = build_generator(cfg, dev)
     sd = torch.load(os.path.join(bundle_dir, manifest["weights"]), map_location=dev,
                     weights_only=True)
     gen.load_state_dict(sd, strict=True)
