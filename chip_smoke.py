@@ -7,14 +7,19 @@ Phases, each of which exits non-zero on failure:
 
 1. environment: the card, its power limit, torch/CUDA versions; builds every CUDA
    kernel from ``vaegan_tpu_torch/csrc`` (one ``nvcc`` per source, started
-   together) and prints registers and spills per kernel. TF32 is switched off for
+   together) and prints registers and spills per kernel; counts each kernel's
+   hot-loop instructions per element in its SASS (``cuobjdump -sass``; the
+   fewest that a vector pass can run), the instruction side of every bound (over
+   SMs x 128 lanes x the maximum SM clock; the byte side is the data-sheet memory
+   rate), and fails if any kernel
+   holds a float atomic. TF32 is switched off for
    convolutions and matmuls for the parity phases; the port's float32 layers and
    train step pin IEEE float32 themselves, so phases 3 and 6 repeat their
    comparisons with PyTorch's default flags restored, and phases 4 and 7 time the
    default path users get;
 2. serving kernel against its plain PyTorch version: ``bn_act_dropout`` at each
    of the served model's fused-BN sites at batch 64, float32 and bfloat16,
-   dropout p = 0 and 0.5, timed with CUDA events beside its memory bound;
+   dropout p = 0 and 0.5, timed with CUDA events beside its bound;
 3. the served model: ``preset("vaegan_infer")`` (the notebook generator, 256²,
    float32, full width) with ``use_pallas="all"`` and seeded random weights
    answers reconstruct / encode / decode / sample / interpolate requests through
@@ -25,9 +30,13 @@ Phases, each of which exits non-zero on failure:
    images/s;
 5. training kernels against their plain versions at the notebook step's shapes
    (batch 4), float32 and bfloat16: ``bn_act_dropout`` backward at the 12 sites,
-   ``reparam_kl`` forward and backward, ``recon_loss_sums``; the dropout mask and
-   the reparameterization noise replayed bit for bit by the backwards, the sums
-   bitwise equal run to run, kernel / plain / yardstick times beside each bound;
+   ``reparam_kl`` forward and backward, ``recon_loss_sums``; dx and z bitwise the
+   plain versions', the dropout mask and the reparameterization noise replayed bit
+   for bit by the backwards; rows 2 and 3 (one launch each, a grid reduction
+   inside) run twenty times bitwise equal, one run beside a matrix product on a
+   side stream and one on a second stream at once, and show one kernel and no
+   other under torch.profiler (its device time printed beside the call's);
+   kernel / plain / yardstick times beside each bound (bytes and instructions);
 6. the training step: ``preset("notebook")`` (256², float32, full-width
    generator and 139.7 M-parameter critic, WGAN-GP, RMSprop, clamp) with
    ``use_pallas="all"`` takes six steps (four G+D, two critic-only) through
@@ -49,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -57,28 +67,147 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Data-sheet peaks (dense): HBM bytes/s and float32 (non-tensor-core) FLOP/s.
-CARD_PEAKS = {
-    "H100 PCIe": (2.0e12, 51.2e12),
-    "H100": (3.35e12, 66.9e12),      # SXM5 80 GB
+# Data-sheet memory rate, bytes/s: the byte side of every bound.
+CARD_BANDWIDTH = {
+    "H100 PCIe": 2.0e12,
+    "H100": 3.35e12,      # SXM5 80 GB
 }
+# thread-instructions an SM starts per clock (4 schedulers x 32 lanes): the
+# instruction side of every bound is the hot loop's SASS count over SMs x this x clock
+LANES_PER_SM = 128
 
 SEED = 0
 BATCH = 64
 SLOPE = 0.01
-# f32 ops per element of the fused pass: subtract, multiply, add, LeakyReLU multiply
-FLOPS_PER_ELEMENT = 4
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def card_peaks(name: str):
-    for key, peaks in CARD_PEAKS.items():
+def card_bandwidth(name: str):
+    for key, bw in CARD_BANDWIDTH.items():
         if key in name:
-            return peaks
-    raise SystemExit(f"chip_smoke: no data-sheet peaks for card {name!r}")
+            return bw
+    raise SystemExit(f"chip_smoke: no data-sheet memory rate for card {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# instructions per element, counted in the compiled kernels (cuobjdump -sass)
+# ---------------------------------------------------------------------------
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+BRANCH = re.compile(r"^(@!?U?P[T0-9]+\s+)?BRA(?:\.[A-Z]+)*\s+(!?U?P[T0-9]+,\s*)?(0x[0-9a-f]+)")
+WIDE_LOAD = re.compile(r"^(@\S+\s+)?LDG\.E\.(128|64)\b")
+DEAD_END = re.compile(r"^(EXIT|RET)\b")
+FLOAT_ATOMIC = re.compile(r"\b(RED|ATOM|ATOMG|ATOMS)\.\S*F(16x2|32|64)\b")
+# each kernel's hot loop reads these arrays with one wide access per 4 elements
+KERNEL_INPUTS = {"bn_act_dropout_fwd_kernel": 1, "bn_act_dropout_bwd_kernel": 2,
+                 "reparam_fwd_kernel": 2, "reparam_bwd_kernel": 3, "recon_sums_kernel": 2}
+
+
+def sass_functions(text):
+    """{mangled name: [(address, instruction)]} from ``cuobjdump -sass`` output."""
+    return {chunk.split("\n", 1)[0].strip():
+            [(int(a, 16), ins) for a, ins in SASS_LINE.findall(chunk)]
+            for chunk in re.split(r"\n\s*Function : ", text)[1:]}
+
+
+def _branch(ins):
+    """(target, conditional) of a BRA, else None."""
+    m = BRANCH.match(ins)
+    return (int(m.group(3), 16), bool(m.group(1) or m.group(2))) if m else None
+
+
+def _backward(address, ins):
+    b = _branch(ins)
+    return b is not None and b[0] <= address
+
+
+def hot_loop_instructions(code, inputs):
+    """Instructions per element on the hot path of a kernel's grid-stride loop, as a
+    lower bound. The loop is the backward branch whose body holds the most 16- or
+    8-byte global loads. Of the paths from its head to that branch, the count takes
+    the one with the most wide loads (the aligned vector path) and, of those, the
+    fewest instructions: every forward branch that can skip work (a slow path such
+    as cosf's Payne-Hanek reduction or sqrtf's special cases, a dropout branch
+    decided at run time) counts as skipping it, so no branch that is not taken can
+    raise the count. A branch out of the loop falls through; a nested loop's body
+    counts at most once. Elements per pass: 4 per wide load on the path over the
+    ``inputs`` arrays read."""
+    index = {a: i for i, (a, _) in enumerate(code)}
+    loops = []
+    for i, (a, ins) in enumerate(code):
+        if _backward(a, ins):
+            b = _branch(ins)
+            wide = sum(bool(WIDE_LOAD.match(x)) for _, x in code[index[b[0]]:i + 1])
+            if wide:
+                loops.append((-wide, i - index[b[0]], index[b[0]], i))
+    if not loops:
+        return None
+    _, _, head, end = min(loops)
+    # best[i]: (-wide loads, instructions) of the best path from i to the back branch
+    best = {end: (-int(bool(WIDE_LOAD.match(code[end][1]))), 1)}
+    for i in range(end - 1, head - 1, -1):
+        a, ins = code[i]
+        b = _branch(ins)
+        if b is not None and a < b[0] <= code[end][0]:
+            succ = [index[b[0]]] + ([i + 1] if b[1] else [])   # forward, inside the loop
+        elif b is not None and b[1] or b is None and not DEAD_END.match(ins):
+            succ = [i + 1]  # straight on; a conditional branch back or out falls through
+        else:
+            succ = []       # an unconditional jump back or out, an exit: no path on
+        paths = [best[j] for j in succ if j in best]
+        if paths:
+            w, n = min(paths)
+            best[i] = (w - bool(WIDE_LOAD.match(ins)), n + 1)
+    if head not in best or best[head][0] == 0:
+        return None
+    wide, executed = best[head]
+    return executed * inputs / (4 * -wide)
+
+
+def kernel_counts(libs, cuobjdump):
+    """From ``cuobjdump -sass`` of each built library: {(kernel, dtype, vec,
+    dropout): instructions per element} of every kernel with a vectorised loop
+    (vec and dropout None where the kernel has no such template argument), and the
+    names of the kernels that hold a float atomic."""
+    counts, atomics = {}, []
+    for lib in libs.values():
+        text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        for name, code in sass_functions(text).items():
+            if any(FLOAT_ATOMIC.search(x) for _, x in code):
+                atomics.append(name)
+            for kernel, inputs in KERNEL_INPUTS.items():
+                m = re.search(kernel + r"I(13__nv_bfloat16|f)(?:Li(\d)E)?(?:Lb(\d)E)?", name)
+                if m:
+                    break
+            else:
+                continue
+            n = hot_loop_instructions(code, inputs)
+            if n is not None:
+                dtype = "bfloat16" if m.group(1).startswith("13") else "float32"
+                counts[(kernel, dtype, int(m.group(2)) if m.group(2) else None,
+                        bool(int(m.group(3))) if m.group(3) else None)] = n
+    return counts, atomics
+
+
+class Bounds:
+    """The least time of a kernel's work on this card, the larger of two: the bytes
+    it must move (each input read once, each output written once) over the
+    data-sheet memory rate, and the instructions its hot loop runs per element
+    (:func:`kernel_counts`) times the elements over the instruction rate, SMs x 128
+    lanes x the SM's maximum clock."""
+
+    def __init__(self, bw, instr_rate, counts):
+        self.bw, self.instr_rate, self.counts = bw, instr_rate, counts
+
+    def __call__(self, nbytes, n, kernel, dtype, vec=None, dropout=None):
+        """(least ms, "bytes" or "operations", byte ms, instruction ms)."""
+        tb = nbytes / self.bw
+        ti = self.counts[(kernel, str(dtype)[6:], vec, dropout)] * n / self.instr_rate
+        return max(tb, ti) * 1e3, "bytes" if tb >= ti else "operations", tb * 1e3, ti * 1e3
 
 
 def time_cuda(torch, fn, reps=20, windows=5, warmup=3):
@@ -99,6 +228,42 @@ def time_cuda(torch, fn, reps=20, windows=5, warmup=3):
         e.synchronize()
         times.append(s.elapsed_time(e) / reps)
     return statistics.median(times)
+
+
+def profile_split(torch, fn, calls=20):
+    """{kernel name: (device ms per launch, launches recorded)} of every kernel that
+    ``fn(i)`` launches, under torch.profiler over ``calls`` calls after one warm-up
+    (the profiler may drop some of a run's device events, so a kernel's launches
+    recorded can fall short of its launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(\w+_kernel(<[^>]*>)?)", e.key)
+            name = m.group(1) if m else e.key[:80]
+            ms, count = out.get(name, (0.0, 0))
+            out[name] = (ms + e.self_device_time_total / 1e3, count + e.count)
+    return {name: (ms / count, count) for name, (ms, count) in out.items()}
+
+
+def split_text(split, calls=20):
+    return ", ".join(f"{name} {ms:.4f} ms a launch ({count} launches recorded in {calls} calls)"
+                     for name, (ms, count) in split.items())
+
+
+def one_kernel(what, split):
+    """Fail if the profile of a kernel's calls shows a second kernel (no check where
+    the profiler recorded no device time)."""
+    if len(split) > 1:
+        raise SystemExit(f"{what}: a call launches more than one kernel: {split_text(split)}")
 
 
 def time_host(torch, fn, reps, warmup=2):
@@ -137,7 +302,7 @@ def fused_sites(torch, gen, size, channels):
     return [s for pair in shapes for s in pair]
 
 
-def phase_kernel(torch, sites, bw, fp32_peak):
+def phase_kernel(torch, sites, bounds):
     from vaegan_tpu_torch.ops import fused
 
     log("== phase 2: bn_act_dropout kernel vs its plain version "
@@ -146,8 +311,11 @@ def phase_kernel(torch, sites, bw, fp32_peak):
         "|kernel - plain| <= 1e-6 + 1e-6 |plain|, bf16 <= 1 bf16 ulp of plain) ==")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "two_call_ms": 0.0,
-               "bound_by": "bytes", "max_abs_err": 0.0}
-    sums = {}   # (dtype, p) -> [kernel ms, plain ms, bound ms] summed over the sites
+               "bound_by": "bytes", "max_abs_err": 0.0, "bytes_ms": 0.0, "instr_ms": 0.0}
+    # (dtype, p) -> [kernel ms, plain ms, bound ms, byte bound ms] summed over the sites.
+    # This kernel's loop branches on the dropout flag at run time; the SASS count
+    # takes the shorter way, so at p = 0.5 its instruction bound is the p = 0 loop's.
+    sums = {}
     for i, (c, h, w) in enumerate(sites):
         mean = torch.randn(c, device="cuda", generator=g) * 0.3
         var = torch.rand(c, device="cuda", generator=g) * 1.5 + 0.5
@@ -187,17 +355,16 @@ def phase_kernel(torch, sites, bw, fp32_peak):
                     xs[i % len(xs)], *rest), windows=1, warmup=1)
                 numel = x.numel()
                 nbytes = 2 * numel * x.element_size() + 4 * c * 4
-                flops = (FLOPS_PER_ELEMENT + (1 if p > 0 else 0)) * numel
-                b_ms = max(nbytes / bw, flops / fp32_peak) * 1e3
-                bound_by = "bytes" if nbytes / bw >= flops / fp32_peak else "operations"
+                b_ms, bound_by, tb, ti = bounds(nbytes, numel, "bn_act_dropout_fwd_kernel", dtype)
                 log(f"site {i:2d} C={c:3d} HxW={h}x{w} {str(dtype)[6:]:8s} p={p}: "
                     f"max_abs_err={float(err.max()):.3e} out_of_tol={n_bad} "
                     f"masks_equal={masks_equal} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({bound_by}) GB/s={nbytes / k_ms / 1e6:.0f}")
+                    f"bound_ms={b_ms:.4f} ({bound_by}; bytes {tb:.4f}, instructions {ti:.4f}) "
+                    f"GB/s={nbytes / k_ms / 1e6:.0f}")
                 if n_bad or not masks_equal:
                     raise SystemExit(f"site {i}: kernel disagrees with its plain version")
-                acc = sums.setdefault((str(dtype)[6:], p), [0.0, 0.0, 0.0])
-                for j, v in enumerate((k_ms, p_ms, b_ms)):
+                acc = sums.setdefault((str(dtype)[6:], p), [0.0, 0.0, 0.0, 0.0])
+                for j, v in enumerate((k_ms, p_ms, b_ms, tb)):
                     acc[j] += v
                 if dtype == torch.float32:
                     summary["max_abs_err"] = max(summary["max_abs_err"], float(err.max()))
@@ -205,6 +372,8 @@ def phase_kernel(torch, sites, bw, fp32_peak):
                     summary["ms"] += k_ms
                     summary["plain_ms"] += p_ms
                     summary["bound_ms"] += b_ms
+                    summary["bytes_ms"] += tb
+                    summary["instr_ms"] += ti
                     if bound_by != "bytes":
                         summary["bound_by"] = "operations"
                 del y, r, yf, rf, err, bad, xs
@@ -216,9 +385,10 @@ def phase_kernel(torch, sites, bw, fp32_peak):
         summary["two_call_ms"] += two
         del x32
         torch.cuda.empty_cache()
-    for (dt, p), (k, pl, b) in sums.items():
+    for (dt, p), (k, pl, b, tb) in sums.items():
         log(f"sum over the {len(sites)} sites, {dt} p={p}: kernel {k:.4f} ms, plain {pl:.4f} ms, "
-            f"bound {b:.4f} ms ({100 * b / k:.1f}% of the bound reached)")
+            f"bound {b:.4f} ms, byte bound {tb:.4f} ms ({100 * tb / k:.1f}% of the byte bound "
+            "reached)")
     log(f"bn_act_dropout over the {len(sites)} sites of one batch-{BATCH} reconstruct (f32, p=0): "
         f"kernel {summary['ms']:.4f} ms, bound {summary['bound_ms']:.4f} ms, plain "
         f"{summary['plain_ms']:.4f} ms; F.leaky_relu(F.batch_norm(...)) as two PyTorch calls "
@@ -227,17 +397,7 @@ def phase_kernel(torch, sites, bw, fp32_peak):
 
 
 TRAIN_BATCH = 4
-# f32 operations per element, counted from the kernels' arithmetic (Philox and
-# transcendentals as one each): the backward's 11, the reparameterization's 16,
-# its backward's 13, the loss sums' 4
-OPS = {"bn_act_dropout_bwd": 11, "reparam_kl": 16, "reparam_kl_bwd": 13, "recon_loss_sums": 4}
-
-
-def bound(nbytes, ops, bw, fp32_peak):
-    """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` f32 operations."""
-    tb, to = nbytes / bw, ops / fp32_peak
-    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
-
+RUNS = 20   # runs of a reduction kernel that must agree bit for bit
 
 def rotation(torch, *tensors):
     """Tuples of copies of ``tensors`` to cycle through so that back-to-back timed
@@ -268,7 +428,28 @@ def check_close(what, got, ref, dtype, rel_scale=None):
     return float(err.max()) if err.numel() else 0.0
 
 
-def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
+def twenty_runs(torch, fn, first, busy):
+    """``fn()`` :data:`RUNS` times, each result against ``first`` bit for bit: run 6
+    shares the card with ``busy()`` on a side stream (another order of blocks), run
+    11 goes on the side stream at once with run 12 on this one (two launches in
+    flight, each with its own ticket counter)."""
+    side = torch.cuda.Stream()
+    outs = []
+    for i in range(RUNS):
+        if i in (5, 10):
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                if i == 5:
+                    busy()
+                else:
+                    outs.append(fn())
+                    continue
+        outs.append(fn())
+    torch.cuda.synchronize()
+    return all(all(torch.equal(a, b) for a, b in zip(o, first)) for o in outs)
+
+
+def phase_train_kernels(torch, sites, latent, bounds):
     """Rows 2-5 against their plain versions at the training step's shapes."""
     import torch.nn.functional as F
 
@@ -277,17 +458,26 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
     log(f"== phase 5: training kernels vs their plain versions (batch {TRAIN_BATCH}, the "
         "notebook step's shapes; kernel: median of 5 CUDA-event windows of 20 launches, inputs "
         "rotated through >= 256 MB; plain and yardstick: one window; tolerances: elementwise f32 "
-        "1e-6 + 1e-6|ref|, bf16 1 ulp; sums 1e-5 of max(1, max|ref|); eps 4e-6 absolute) ==")
+        "1e-6 + 1e-6|ref|, bf16 1 ulp; sums 1e-5 of max(1, max|ref|); eps 4e-6 absolute; rows 2 "
+        f"and 3 run {RUNS} times bitwise equal, one run beside a 4096^2 matrix product on a side "
+        "stream, one on a side stream at once with another) ==")
+    big = torch.randn(4096, 4096, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(9))
+    busy = lambda: big @ big  # noqa: E731
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
-               "yardstick_ms": 0.0, "max_abs_err": 0.0, "bound_by": "bytes"}
+               "yardstick_ms": 0.0, "max_abs_err": 0.0, "bound_by": "bytes", "bytes_ms": 0.0,
+               "instr_ms": 0.0}
            for k in ("bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd", "recon_loss_sums")}
+    bf16 = [0.0, 0.0]   # row 2 in bfloat16 over the sites: kernel ms, bound ms
 
     def note(name, k_ms, p_ms, b, err, y_ms=None):
         o = out[name]
         o["ms"] += k_ms
         o["plain_ms"] += p_ms
         o["bound_ms"] += b[0]
+        o["bytes_ms"] += b[2]
+        o["instr_ms"] += b[3]
         if b[1] != "bytes":
             o["bound_by"] = "operations"
         o["max_abs_err"] = max(o["max_abs_err"], err)
@@ -310,12 +500,13 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
             args = (mean, var, scale, bias, seed, SLOPE, p)
             k = fused.bn_act_dropout_backward(x, gy, *args)
             r = fused.bn_act_dropout_backward_reference(x, gy, *args)
-            again = fused.bn_act_dropout_backward(x, gy, *args)
             torch.cuda.synchronize()
             err = check_close(f"row 2 site {i} dx", k[0], r[0], dtype)
+            if not torch.equal(k[0], r[0]):
+                raise SystemExit(f"row 2 site {i}: dx is not bitwise the plain version's")
             for j, name in enumerate(("dscale", "dbias", "dmean", "dvar"), 1):
                 err = max(err, check_close(f"row 2 site {i} {name}", k[j], r[j], dtype, True))
-            det = all(torch.equal(a, b) for a, b in zip(k, again))
+            det = twenty_runs(torch, lambda: fused.bn_act_dropout_backward(x, gy, *args), k, busy)
             y = fused.bn_act_dropout(x, *args)
             dx1 = fused.bn_act_dropout_backward(x, torch.ones_like(y), *args)[0]
             replay = torch.equal(dx1 == 0, y == 0) and (
@@ -323,7 +514,10 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
             if not (det and replay):
                 raise SystemExit(f"row 2 site {i}: deterministic={det} mask_replayed={replay}")
             rot = rotation(torch, x, gy)
-            k_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_backward(*rot[n % len(rot)], *args))
+            call = lambda n: fused.bn_act_dropout_backward(*rot[n % len(rot)], *args)  # noqa: E731
+            k_ms = time_cuda(torch, call)
+            split = profile_split(torch, call)
+            one_kernel(f"row 2 site {i}", split)
             p_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_backward_reference(
                 *rot[n % len(rot)], *args), windows=1, warmup=1)
             # yardstick: what PyTorch's own autograd runs for BN -> LeakyReLU ->
@@ -343,15 +537,22 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
 
             y_ms = time_cuda(torch, yard, windows=1, warmup=1) if dtype == torch.float32 else 0.0
             n = x.numel()
-            b = bound(3 * n * x.element_size() + 8 * c * 4, OPS["bn_act_dropout_bwd"] * n, bw,
-                      fp32_peak)
+            launch = fused.bwd_launch_for(x, p)
+            b = bounds(3 * n * x.element_size() + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", dtype,
+                       launch.vec, p > 0)
             log(f"row 2 site {i:2d} C={c:3d} HxW={h}x{w} {str(dtype)[6:]:8s} p={p}: "
-                f"max_abs_err={err:.3e} deterministic={det} mask_replayed={replay} "
-                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
-                f"yardstick_ms={y_ms:.4f} GB/s={3 * n * x.element_size() / k_ms / 1e6:.0f}")
+                f"max_abs_err={err:.3e} dx_bitwise=True deterministic_x{RUNS}={det} "
+                f"mask_replayed={replay} "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes "
+                f"{b[2]:.4f}, instructions {b[3]:.4f}) yardstick_ms={y_ms:.4f} "
+                f"GB/s={3 * n * x.element_size() / k_ms / 1e6:.0f} "
+                f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
             if dtype == torch.float32:
                 note("bn_act_dropout_bwd", k_ms, p_ms, b, err, y_ms)
-            del k, r, again, y, dx1, rot, a, keep
+            else:
+                bf16[0] += k_ms
+                bf16[1] += b[0]
+            del k, r, y, dx1, rot, a, keep
         del x32, g32
         torch.cuda.empty_cache()
 
@@ -364,9 +565,10 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
         gz = cl(torch.randn(shape, device="cuda", generator=g)).to(dtype)
         gkl = torch.tensor(0.25, device="cuda")
         z, kl = fused.reparam_kl_forward(mu, lv, 77)
-        z2, kl2 = fused.reparam_kl_forward(mu, lv, 77)
         zr, klr = fused.reparam_kl_reference(mu, lv, 77)
         err3 = max(check_close("row 3 z", z, zr, dtype), check_close("row 3 kl", kl, klr, dtype, True))
+        if not torch.equal(z, zr):
+            raise SystemExit("row 3: z is not bitwise the plain version's")
         errs4 = []
         for gk in (None, gkl):
             k4 = fused.reparam_kl_backward(mu, lv, gz, gk, 77)
@@ -380,11 +582,12 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
         torch.cuda.synchronize()
         replay = torch.equal(e_fwd, e_bwd)
         e_err = float((e_fwd - e_plain).abs().max())
-        det = torch.equal(z, z2) and torch.equal(kl, kl2)
+        det = twenty_runs(torch, lambda: fused.reparam_kl_forward(mu, lv, 77), (z, kl), busy)
         e64 = e_fwd.double()
         mom = (float(e64.mean()), float(e64.var()), float((e64 ** 4).mean()))
-        log(f"row 3/4 {str(dtype)[6:]}: z max_abs_err={err3:.3e}, kl {float(kl)!r} vs plain "
-            f"{float(klr)!r}, deterministic={det}; backward max_abs_err={max(errs4):.3e}; eps "
+        log(f"row 3/4 {str(dtype)[6:]}: z bitwise equal, kl {float(kl)!r} vs plain "
+            f"{float(klr)!r}, deterministic_x{RUNS}={det}; backward max_abs_err="
+            f"{max(errs4):.3e}; eps "
             f"forward==backward bitwise={replay}, |eps - plain|max={e_err:.3e} (tolerance 4e-6), "
             f"mean={mom[0]:.2e} var={mom[1]:.5f} E[eps^4]={mom[2]:.4f} over {e64.numel()} draws")
         n_el = e64.numel()
@@ -394,23 +597,29 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
         if dtype == torch.float32:
             rot = rotation(torch, mu, lv)
             n = mu.numel()
-            k_ms = time_cuda(torch, lambda i: fused.reparam_kl_forward(*rot[i % len(rot)], 77))
+            call = lambda i: fused.reparam_kl_forward(*rot[i % len(rot)], 77)  # noqa: E731
+            k_ms = time_cuda(torch, call)
+            split = profile_split(torch, call)
+            one_kernel("row 3", split)
             p_ms = time_cuda(torch, lambda i: fused.reparam_kl_reference(*rot[i % len(rot)], 77),
                              windows=1, warmup=1)
-            b = bound(3 * n * 4 + 4, OPS["reparam_kl"] * n, bw, fp32_peak)
+            b = bounds(3 * n * 4 + 4, n, "reparam_fwd_kernel", dtype)
             note("reparam_kl", k_ms, p_ms, b, err3)
+            launch = fused.reparam_launch_for(mu)
             log(f"row 3 f32 {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"bound_ms={b[0]:.4f} ({b[1]})")
+                f"bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, instructions {b[3]:.4f}) "
+                f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
             rot = rotation(torch, mu, lv, gz)
             k_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward(*rot[i % len(rot)], None, 77))
             p_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward_reference(
                 *rot[i % len(rot)], None, 77), windows=1, warmup=1)
-            b = bound(5 * n * 4, OPS["reparam_kl_bwd"] * n, bw, fp32_peak)
+            b = bounds(5 * n * 4, n, "reparam_bwd_kernel", dtype)
             note("reparam_kl_bwd", k_ms, p_ms, b, max(errs4))
             log(f"row 4 f32 {shape} (gkl None, as on the step): kernel_ms={k_ms:.4f} "
-                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, instructions "
+                f"{b[3]:.4f})")
             del rot
-        del mu, lv, gz, z, z2, zr, zero, e_fwd, e_bwd, e_plain, e64
+        del mu, lv, gz, z, zr, zero, e_fwd, e_bwd, e_plain, e64
 
     # ---- row 5: recon_loss_sums over (4, 256, 256, 1) pairs
     for dtype in (torch.float32, torch.bfloat16):
@@ -433,15 +642,17 @@ def phase_train_kernels(torch, sites, latent, bw, fp32_peak):
             y_ms = time_cuda(torch, lambda i: (F.l1_loss(*rot[i % len(rot)], reduction="sum"),
                                                F.mse_loss(*rot[i % len(rot)], reduction="sum")),
                              windows=1, warmup=1)
-            b = bound(2 * n * 4 + 8, OPS["recon_loss_sums"] * n, bw, fp32_peak)
+            b = bounds(2 * n * 4 + 8, n, "recon_sums_kernel", dtype)
             note("recon_loss_sums", k_ms, p_ms, b, err, y_ms)
             log(f"row 5 f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} "
-                f"({b[1]}) yardstick F.l1_loss + F.mse_loss (two calls) {y_ms:.4f} ms")
+                f"({b[1]}; bytes {b[2]:.4f}, instructions {b[3]:.4f}) yardstick F.l1_loss + F.mse_loss "
+                f"(two calls) {y_ms:.4f} ms")
             del rot
     s = out["bn_act_dropout_bwd"]
     log(f"row 2 over the 12 sites of one batch-{TRAIN_BATCH} G step (f32): kernel {s['ms']:.4f} ms, "
         f"bound {s['bound_ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, yardstick (masks + "
-        f"native_batch_norm_backward, not one call) {s['yardstick_ms']:.4f} ms")
+        f"native_batch_norm_backward, not one call) {s['yardstick_ms']:.4f} ms; bf16: kernel "
+        f"{bf16[0]:.4f} ms, bound {bf16[1]:.4f} ms")
     torch.cuda.empty_cache()
     return out
 
@@ -667,8 +878,7 @@ def phase_train_numbers(torch, vt, cfg_all, state, batches, card_line):
                              ("bn_act_dropout_bwd", "bn_act_dropout_bwd"),
                              ("reparam_kl", "reparam_fwd"), ("reparam_kl_bwd", "reparam_bwd"),
                              ("recon_loss_sums", "recon_sums")):
-            ms = sum(k[0] for k in kernels if pattern in k[2] or
-                     (tag == "reparam_kl" and "reparam_kl_finish" in k[2]))
+            ms = sum(k[0] for k in kernels if pattern in k[2])
             log(f"  {tag}: {ms:.4f} ms of the step's device time ({100 * ms / busy:.2f}%)")
     return t4, t16
 
@@ -676,21 +886,18 @@ def phase_train_numbers(torch, vt, cfg_all, state, batches, card_line):
 def ptxas_summary(report: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: the
     registers, shared memory and spills of each entry function."""
-    import re
-
     out, name = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            for short in ("bn_act_dropout_fwd_kernel", "bn_act_dropout_bwd_finish_kernel",
-                          "bn_act_dropout_bwd_kernel", "reparam_fwd_kernel", "reparam_bwd_kernel",
-                          "reparam_kl_finish_kernel", "recon_sums_finish_kernel",
-                          "recon_sums_kernel"):
+            for short in ("recon_sums_finish_kernel", *KERNEL_INPUTS):
                 if short in name:
-                    kind = ("<bf16" if "nv_bfloat16" in name else "<f32" if "If" in name else "<")
-                    vec = ",4>" if "Li4E" in name else ",1>" if "Li1E" in name else ">"
-                    name = short + (kind + vec if kind != "<" else "")
+                    templated = name.split(short)[1].startswith("I")
+                    args = ["bf16" if "nv_bfloat16" in name else "f32"] if templated else []
+                    args += [v for tag, v in (("Li4E", "4"), ("Li1E", "1"), ("Lb1E", "dropout"),
+                                              ("Lb0E", "no dropout")) if tag in name]
+                    name = short + (f"<{', '.join(args)}>" if args else "")
                     break
         elif "spill stores" in line and name:
             spills = line.split(":", 1)[-1].strip()
@@ -724,8 +931,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
-    bw, fp32_peak = card_peaks(kind)
-    log(f"data-sheet peaks used for bounds: {bw / 1e12:.2f} TB/s, {fp32_peak / 1e12:.1f} TFLOP/s f32")
+    bw = card_bandwidth(kind)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    instr_rate = sms * LANES_PER_SM * float(clock) * 1e6
+    log(f"bounds: data-sheet memory rate {bw / 1e12:.2f} TB/s; instruction rate {sms} SMs x "
+        f"{LANES_PER_SM} lanes x {clock} MHz (max SM clock) = {instr_rate / 1e12:.2f} T "
+        "instructions/s, over each kernel's hot-loop instructions per element (SASS)")
     tf32_defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -740,8 +954,17 @@ def main() -> int:
         build.append(f"-- {name}: {os.path.relpath(lib, HERE)} (compiler report: {lib}.log)")
         with open(f"{lib}.log") as f:
             build += [f"   {line}" for line in ptxas_summary(f.read())]
+    counts, atomics = kernel_counts(libs, os.path.join(os.path.dirname(_build.find_nvcc()),
+                                                       "cuobjdump"))
+    build.append("instructions per element on each kernel's hot path (cuobjdump -sass): " +
+                 ", ".join(f"{k[0]}<{', '.join(str(a) for a in k[1:] if a is not None)}> {v:.2f}"
+                           for k, v in sorted(counts.items(), key=str)))
+    build.append(f"float atomics in the kernels: {atomics or 'none'}")
     for line in build:
         log(line)
+    if atomics:
+        raise SystemExit("a kernel holds a float atomic: its sums would change from run to run")
+    bounds = Bounds(bw, instr_rate, counts)
 
     # ---------------------------------------------------------------- models
     cfg = vt.preset("vaegan_infer")
@@ -767,7 +990,7 @@ def main() -> int:
         raise SystemExit(f"expected 12 fused BN sites per reconstruct, found {len(sites)}")
 
     # ---------------------------------------------------------------- phase 2
-    summary = phase_kernel(torch, sites, bw, fp32_peak)
+    summary = phase_kernel(torch, sites, bounds)
 
     # ---------------------------------------------------------------- phase 3
     log(f"== phase 3: served model vaegan_infer, {size}x{size}, float32, use_pallas='all' ==")
@@ -911,7 +1134,7 @@ def main() -> int:
             log(f"  {ms:9.3f} ms  x{count:<3d} {name[:110]}")
 
     # ---------------------------------------------------------------- phases 5-7
-    train_kernels = phase_train_kernels(torch, sites, vt.latent_shape(cfg), bw, fp32_peak)
+    train_kernels = phase_train_kernels(torch, sites, vt.latent_shape(cfg), bounds)
     cfg_train, train_state, batches, train_launches = phase_train_step(torch, vt, tf32_defaults)
     t4, t16 = phase_train_numbers(torch, vt, cfg_train, train_state, batches, card_line)
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
@@ -928,6 +1151,7 @@ def main() -> int:
         "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
         "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
         "bound_by": summary["bound_by"], "library_ms": None,
+        "bound_bytes_ms": summary["bytes_ms"], "bound_instr_ms": summary["instr_ms"],
     }]
     for name, source, line in (("bn_act_dropout_bwd", "bn_act_dropout.cu", 95),
                                ("reparam_kl", "reparam_kl.cu", 244),
@@ -938,7 +1162,8 @@ def main() -> int:
                      "replaces": f"vaegan_tpu/ops/pallas_fused.py:{line}",
                      "launches": train_launches[name], "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                     "bound_bytes_ms": k["bytes_ms"], "bound_instr_ms": k["instr_ms"]})
     for line in build:      # again here: the start of a long log may be cut off
         log(line)
     log(card_line)
@@ -949,4 +1174,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) != 1:
+        sys.exit("usage: chip_smoke.py")
     sys.exit(main())

@@ -329,7 +329,9 @@ def test_recon_loss_sums_matches_jax_and_its_grad():
     np.testing.assert_allclose(dt.numpy(), np.asarray(jdt), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("bad", ["reparam_shape", "reparam_dtype", "recon_dtype", "bwd_channels"])
+@pytest.mark.parametrize("bad", ["reparam_shape", "reparam_dtype", "recon_dtype", "bwd_channels",
+                                 "bwd_grad_shape", "reparam_grad_shape", "reparam_gkl_shape",
+                                 "reparam_seed"])
 def test_new_wrappers_reject(bad):
     mu, lv = _mu_lv()
     with pytest.raises((ValueError, TypeError)):
@@ -339,6 +341,17 @@ def test_new_wrappers_reject(bad):
             fused.reparam_kl_forward(nchw(mu), nchw(lv).double(), 0)
         elif bad == "recon_dtype":
             fused.recon_loss_sums_forward(t(mu), t(lv).double())
+        elif bad == "bwd_grad_shape":
+            # the kernel reads x.numel() elements of g
+            x, mean, var, scale, bias = inputs(4)
+            fused.bn_act_dropout_backward(nchw(x), nchw(x)[:1], t(mean), t(var), t(scale),
+                                          t(bias), 0, SLOPE, 0.0)
+        elif bad == "reparam_grad_shape":
+            fused.reparam_kl_backward(nchw(mu), nchw(lv), nchw(mu)[:1], None, 0)
+        elif bad == "reparam_gkl_shape":
+            fused.reparam_kl_backward(nchw(mu), nchw(lv), nchw(mu), torch.ones(2), 0)
+        elif bad == "reparam_seed":
+            fused.reparam_kl_forward(nchw(mu), nchw(lv), -1)
         else:
             x = torch.zeros(1, fused.MAX_CHANNELS + 1, 1, 1).contiguous(
                 memory_format=torch.channels_last)
@@ -353,3 +366,71 @@ def test_cpu_tensors_launch_no_kernel():
     z.sum().backward()
     fused.recon_loss_sums(t(mu), t(lv))
     assert fused.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# launch shapes of the one-launch grid reductions (csrc/grid_reduce.cuh)
+# ---------------------------------------------------------------------------
+
+def _check_grid(shape, n, per_block, max_clusters):
+    """Whole clusters, at least one, at most ``max_clusters``, and no cluster more
+    than the elements need."""
+    assert shape.blocks % fused.CLUSTER == 0 and shape.blocks >= fused.CLUSTER
+    assert shape.clusters == shape.blocks // fused.CLUSTER <= max_clusters
+    assert shape.clusters == 1 or (shape.clusters - 1) * fused.CLUSTER * per_block < n
+
+
+@pytest.mark.parametrize("max_clusters", [1, 66])
+@pytest.mark.parametrize("n_per_c", [1, 300, 4 * 256 * 256])
+@pytest.mark.parametrize("c", [1, 64, 128, 256, 96, 3])
+def test_bwd_launch_shape(c, n_per_c, max_clusters):
+    """C of the step's sites (1, 64, 128, 256) and two that do not divide 1024,
+    n from below one block to a full site: a block's slots span a multiple of C,
+    and so does the grid's stride, so each thread slot meets the same channels on
+    every pass; the scratch holds one row of 2C sums per cluster."""
+    n = c * n_per_c
+    shape = fused._bwd_launch_shape(c, n, max_clusters)
+    assert (shape.threads * shape.vec) % c == 0
+    assert shape.vec in (1, 4) and shape.threads <= (256 if shape.vec == 4 else 1024)
+    assert (shape.blocks * shape.threads * shape.vec) % c == 0
+    _check_grid(shape, n, shape.threads * shape.vec, max_clusters)
+    rows = fused._reduction_scratch(shape, 2 * c, "cpu")
+    assert rows.shape == (shape.blocks // fused.CLUSTER, 2 * c) and rows.dtype == torch.float32
+
+
+@pytest.mark.parametrize("max_clusters", [1, 99])
+@pytest.mark.parametrize("n", [1, 1023, 1024 * fused.CLUSTER + 1, 4 * 256 * 64 * 64])
+def test_reparam_launch_shape(n, max_clusters):
+    shape = fused._reparam_launch_shape(n, max_clusters)
+    assert (shape.threads, shape.vec) == (256, 4)
+    _check_grid(shape, n, 1024, max_clusters)
+    assert fused._reduction_scratch(shape, 1, "cpu").shape == (shape.clusters, 1)
+
+
+@pytest.mark.parametrize("answer", [62, 0, -2])
+def test_max_clusters_is_the_occupancy_query_or_raises(monkeypatch, answer):
+    """The grid's cap is what ``cudaOccupancyMaxActiveClusters`` answers; no cluster
+    fitting, or a CUDA error (a negative code), raises."""
+    calls = []
+
+    def kernel_fn(lib, name, argtypes):
+        return lambda *args: calls.append(args) or answer
+
+    monkeypatch.setattr(fused, "_kernel_fn", kernel_fn)
+    args = ("test_lib", f"test_query_{answer}", "test_device", 64, 0, 1)
+    if answer > 0:
+        assert fused._max_clusters(*args) == answer
+        assert fused._max_clusters(*args) == answer and calls == [(64, 0, 1)]  # asked once
+    else:
+        with pytest.raises(RuntimeError):
+            fused._max_clusters(*args)
+
+
+def test_ticket_counter_per_stream(monkeypatch):
+    """One zeroed int32 counter per (device, stream): launches on one stream share
+    it, since they never overlap; two streams, which may, never do."""
+    monkeypatch.setattr(fused, "_TICKETS", {})
+    a = fused._ticket("cpu", 7)
+    assert a.dtype == torch.int32 and a.shape == (1,) and int(a) == 0
+    assert fused._ticket(torch.device("cpu"), 7) is a
+    assert fused._ticket("cpu", 8) is not a

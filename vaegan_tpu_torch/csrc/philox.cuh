@@ -1,5 +1,6 @@
 // Shared device helpers of the port's kernels: Philox4x32-10, f32/bf16 loads and
-// stores, and a fixed-order block reduction.
+// stores (one 16-byte or 8-byte access per four values), and a fixed-order block
+// reduction.
 //
 // Random bits. Every random word of the port is Philox4x32-10 (Salmon et al., SC'11)
 // keyed on (seed lo, seed hi); the counter's third word names the stream, so one seed
@@ -57,32 +58,59 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
+// Four values as one vector access: raw4<T> holds them as loaded (16 bytes of f32, or
+// 8 of bf16), unpack4 widens them to f32 (a bf16 is the high half of its f32).
+template <typename T>
+struct Raw4;
+template <>
+struct Raw4<float> {
+  using type = float4;
+};
+template <>
+struct Raw4<__nv_bfloat16> {
+  using type = uint2;
+};
+template <typename T>
+using raw4 = typename Raw4<T>::type;
+
+__device__ __forceinline__ float4 load_raw4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ uint2 load_raw4(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+__device__ __forceinline__ void unpack4(float4 q, float (&v)[4]) {
   v[0] = q.x;
   v[1] = q.y;
   v[2] = q.z;
   v[3] = q.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const __nv_bfloat162 a = q[0];
-  const __nv_bfloat162 b = q[1];
-  v[0] = __low2float(a);
-  v[1] = __high2float(a);
-  v[2] = __low2float(b);
-  v[3] = __high2float(b);
+__device__ __forceinline__ void unpack4(uint2 q, float (&v)[4]) {
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xFFFF0000u);
+}
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
+  unpack4(load_raw4(p), v);
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v[0], v[1]);
-  q[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(v[0]) | (bf16_bits(v[1]) << 16),
+                                            bf16_bits(v[2]) | (bf16_bits(v[3]) << 16));
 }
 
 // Four elements starting at `base` (masked past n; vector access when `vec`).

@@ -21,14 +21,26 @@
 // (seed, element index), so the backward replays it bit for bit and the plain PyTorch
 // version in vaegan_tpu_torch/ops/fused.py computes the same words.
 //
-// What bounds it: memory. The forward reads mu and lv and writes z (12 bytes an element
-// in f32) with ~25 flops and half a Philox call, the backward reads three arrays and
-// writes two; both sit far below the ridge. Each thread owns 4 consecutive elements
-// with vector loads when aligned, a grid-stride loop keeps every SM streaming, and the
-// KL sum is deterministic: a fixed shared-memory tree per block, one partial per block,
-// and a second one-thread kernel that adds the partials in block order (no float
-// atomics; the TPU's sequential-grid accumulation would race as a straight port).
+// What bounds it: memory and instruction count, about equally. The forward reads mu and
+// lv and writes z (12 bytes an element in f32); per element it also runs half a
+// Philox4x32-10 call (ten rounds of 32-bit multiplies), an accurate logf and cosf, a
+// sqrtf and two expf: on the order of a hundred and more instructions, whose
+// time on 132 SMs x 128 lanes is close to the bytes' time (chip_smoke.py counts them
+// from the compiled code). The backward reads three arrays and writes two.
+//
+// What the design does about it: each thread owns 4 consecutive elements (both Philox
+// calls of its group before the transcendentals, for independent work), with vector
+// loads when aligned; the loop over whole aligned groups is one body without branches
+// of its own (the tail runs after it); the grid is the number of blocks that fit on the
+// card at once, so no second wave runs at part occupancy. The KL sum is deterministic
+// and takes the same launch: a fixed shared-memory tree per block, then
+// grid_reduce.cuh (per cluster in rank order, then the last cluster folds the cluster
+// sums in a fixed tree). No float atomics; the TPU's sequential-grid accumulation would
+// race as a straight port. (The first design, one partial per block and a one-thread
+// kernel that added them, spent 17.6 us of a 45.9 us call in that kernel on an H100
+// 80GB HBM3, PERF.md.)
 
+#include "grid_reduce.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -57,40 +69,51 @@ __device__ __forceinline__ void noise4(long long base, uint32_t k0, uint32_t k1,
   e[3] = box_muller(b.z, b.w);
 }
 
+// Forward: z, and the KL summed over the grid in the same launch (grid_reduce.cuh).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) reparam_fwd_kernel(
     const T* __restrict__ mu, const T* __restrict__ lv, T* __restrict__ z,
-    float* __restrict__ partial, long long n, uint32_t k0, uint32_t k1, int vec) {
+    float* __restrict__ rows, unsigned int* ticket, float* __restrict__ kl, long long n,
+    uint32_t k0, uint32_t k1, int vec) {
   __shared__ float sh[kThreads];
+  __shared__ float row[1];
   float acc = 0.f;
-  const long long groups = (n + 3) >> 2;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
-       g += stride) {
-    const long long base = g << 2;
+  // the 4 elements from `base`; `full`: all in range and aligned for vector access,
+  // so the hot loop below has no branch of its own
+  auto group = [&](long long base, auto full) {
+    constexpr bool kFull = decltype(full)::value;
     float m[4], l[4], e[4];
-    load_group(mu, base, n, vec, m);
-    load_group(lv, base, n, vec, l);
+    if constexpr (kFull) {
+      load4(mu + base, m);
+      load4(lv + base, l);
+    } else {
+      load_group(mu, base, n, false, m);
+      load_group(lv, base, n, false, l);
+    }
     noise4(base, k0, k1, e);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float eh = expf(__fmul_rn(0.5f, l[j]));
       const float t = __fsub_rn(__fsub_rn(__fadd_rn(1.0f, l[j]), __fmul_rn(m[j], m[j])),
                                 expf(l[j]));
-      if (base + j < n) acc = __fadd_rn(acc, t);
+      if (kFull || base + j < n) acc = __fadd_rn(acc, t);
       m[j] = __fadd_rn(m[j], __fmul_rn(eh, e[j]));
     }
-    store_group(z, base, n, vec, m);
+    if constexpr (kFull) {
+      store4(z + base, m);
+    } else {
+      store_group(z, base, n, false, m);
+    }
+  };
+  const long long stride = (long long)gridDim.x * blockDim.x * 4;
+  long long base = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (vec) {
+    for (; base + 4 <= n; base += stride) group(base, std::true_type{});
   }
+  for (; base < n; base += stride) group(base, std::false_type{});
   const float s = block_sum(acc, sh);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
-}
-
-__global__ void reparam_kl_finish_kernel(const float* __restrict__ partial, int blocks,
-                                         float* __restrict__ kl) {
-  double s = 0.0;
-  for (int b = 0; b < blocks; ++b) s += (double)partial[b];
-  kl[0] = (float)(-0.5 * s);
+  if (threadIdx.x == 0) row[0] = s;
+  grid_reduce(row, 1, rows, ticket, sh, [&](int, float total) { kl[0] = -0.5f * total; });
 }
 
 template <typename T>
@@ -134,17 +157,17 @@ int grid_for(long long n, int max_blocks) {
   return (int)(blocks < max_blocks ? blocks : max_blocks);
 }
 
+constexpr size_t kFwdSmem = 0;  // static shared memory only
+
 template <typename T>
-int launch_fwd(const void* mu, const void* lv, void* z, float* partial, float* kl,
-               long long n, unsigned long long seed, int blocks, cudaStream_t stream) {
+int launch_fwd(const void* mu, const void* lv, void* z, float* rows, unsigned int* ticket,
+               float* kl, long long n, unsigned long long seed, int blocks, int cluster,
+               cudaStream_t stream) {
   const int vec = aligned<T>(mu) && aligned<T>(lv) && aligned<T>(z);
-  reparam_fwd_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(mu), static_cast<const T*>(lv), static_cast<T*>(z), partial, n,
-      (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), vec);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  reparam_kl_finish_kernel<<<1, 1, 0, stream>>>(partial, blocks, kl);
-  return (int)cudaGetLastError();
+  return launch_clustered(reparam_fwd_kernel<T>, blocks, kThreads, kFwdSmem, cluster, stream,
+                          static_cast<const T*>(mu), static_cast<const T*>(lv),
+                          static_cast<T*>(z), rows, ticket, kl, n,
+                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), vec);
 }
 
 template <typename T>
@@ -164,18 +187,35 @@ int launch_bwd(const void* mu, const void* lv, const void* gz, const float* gkl,
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // Launches on `stream`, does not synchronise, allocates nothing; returns the
-// cudaGetLastError() code of the launch (0 = success). `partial` holds
-// min(ceil(n / 1024), max_blocks) floats of scratch, `kl` one.
-extern "C" int vaegan_reparam_kl_fwd(const void* mu, const void* lv, void* z, float* partial,
-                                     float* kl, long long n, int dtype,
-                                     unsigned long long seed, int max_blocks, void* stream) {
-  if (n <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = grid_for(n, max_blocks);
+// cudaGetLastError() code of the launch (0 = success).
+//
+// Forward, one launch of `blocks` blocks (a multiple of `cluster`, at most 8) of 256
+// threads: `rows` holds blocks / cluster floats of scratch, `ticket` one counter that
+// is 0 and that no other launch uses meanwhile (grid_reduce.cuh), `kl` one float.
+extern "C" int vaegan_reparam_kl_fwd(const void* mu, const void* lv, void* z, float* rows,
+                                     unsigned int* ticket, float* kl, long long n, int dtype,
+                                     unsigned long long seed, int blocks, int cluster,
+                                     void* stream) {
+  if (n <= 0 || cluster < 1 || cluster > (int)kClusterMax || blocks <= 0 ||
+      blocks % cluster != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(mu, lv, z, partial, kl, n, seed, blocks, s);
+  if (dtype == 0)
+    return launch_fwd<float>(mu, lv, z, rows, ticket, kl, n, seed, blocks, cluster, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(mu, lv, z, partial, kl, n, seed, blocks, s);
+    return launch_fwd<__nv_bfloat16>(mu, lv, z, rows, ticket, kl, n, seed, blocks, cluster, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// How many clusters of the forward kernel fit on the current device at once; minus
+// the CUDA error code on failure.
+extern "C" int vaegan_reparam_kl_fwd_max_clusters(int dtype, int cluster) {
+  if (cluster < 1 || cluster > (int)kClusterMax) return -(int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return max_active_clusters(reparam_fwd_kernel<float>, kThreads, kFwdSmem, cluster);
+  if (dtype == 1)
+    return max_active_clusters(reparam_fwd_kernel<__nv_bfloat16>, kThreads, kFwdSmem, cluster);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // gkl: device f32 scalar, or null for a cotangent of 0.

@@ -36,14 +36,19 @@ the stream:
 ``LAUNCHES`` counts kernel launches per kernel name: one is added where a
 wrapper launches its kernel, and nowhere else. Channel and block sums are taken
 in a fixed order on the card (no float atomics), so a kernel gives the same bits
-run to run.
+run to run. The ``bn_act_dropout`` backward and the ``reparam_kl`` forward
+reduce over their grid in the same launch (``csrc/grid_reduce.cuh``): they run
+in thread-block clusters of :data:`CLUSTER` blocks, write one row of sums per
+cluster to scratch, and the last cluster to draw a ticket from a counter in
+device memory adds the rows. The counter is kept per CUDA stream
+(:func:`_ticket`), since launches on one stream never overlap.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -183,6 +188,79 @@ def _channels_last(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous(memory_format=torch.channels_last)
 
 
+def _check_cotangent(what: str, name: str, g: torch.Tensor, like: torch.Tensor) -> None:
+    """A backward kernel reads as many elements of the cotangent as its input has,
+    on the input's device."""
+    if g.shape != like.shape or g.device != like.device:
+        raise ValueError(f"{what}: {name} must have the shape {tuple(like.shape)} and the "
+                         f"device {like.device} of its input, got {tuple(g.shape)} on {g.device}")
+
+
+# ---------------------------------------------------------------------------
+# one-launch grid reductions (csrc/grid_reduce.cuh)
+# ---------------------------------------------------------------------------
+
+# blocks per thread-block cluster: the portable maximum on Hopper
+CLUSTER = 8
+
+
+class LaunchShape(NamedTuple):
+    """A kernel launch of ``blocks`` blocks (a multiple of :data:`CLUSTER`) of
+    ``threads`` threads with ``vec`` elements per thread slot."""
+    threads: int
+    vec: int
+    blocks: int
+
+    @property
+    def clusters(self) -> int:
+        return self.blocks // CLUSTER
+
+
+def _cluster_grid(n: int, per_block: int, max_clusters: int) -> int:
+    """Blocks for ``n`` elements at ``per_block`` elements a block per pass: whole
+    clusters, no more than the elements need and at most ``max_clusters`` (the
+    clusters that fit on the card at once, so the grid runs as one wave), at
+    least one cluster (blocks with nothing to do add zeros)."""
+    return CLUSTER * max(1, min(-(-n // (per_block * CLUSTER)), max_clusters))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(lib: str, name: str, device_index, *args) -> int:
+    """How many clusters of a kernel fit on the current device at once
+    (``cudaOccupancyMaxActiveClusters``, at least 1), asked once per device and
+    kernel."""
+    fn = _kernel_fn(lib, name, (ctypes.c_int,) * len(args))
+    n = fn(*args)
+    if n < 0:
+        raise RuntimeError(f"{name} failed with CUDA error {-n}")
+    if n == 0:
+        raise RuntimeError(f"{name}: no cluster of the kernel fits on the device")
+    return n
+
+
+def _reduction_scratch(shape: LaunchShape, width: int, device) -> torch.Tensor:
+    """Global scratch of a one-launch reduction: one row of ``width`` floats per
+    cluster."""
+    return torch.empty((shape.clusters, width), dtype=torch.float32, device=device)
+
+
+# (device, stream) -> int32 ticket counter of the grid reductions on that stream
+_TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def _ticket(device, stream: int) -> torch.Tensor:
+    """The ticket counter of the one-launch reductions on ``stream`` of
+    ``device``. It is zeroed once, when made, on that stream; every kernel that
+    draws tickets from it leaves it at 0, so the next launch needs no memset.
+    Kernels on one stream run one after another and share a counter; kernels on
+    two streams may run at once, so each stream has its own."""
+    key = (str(torch.device(device)), stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
 # ---------------------------------------------------------------------------
 # bn_act_dropout
 # ---------------------------------------------------------------------------
@@ -276,45 +354,63 @@ def bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed: int, s
     return dx, sum_gx, sum_ga, dmean, dvar
 
 
-def _bwd_launch_shape(c: int, n: int, sms: int) -> Tuple[int, int, int]:
-    """(threads, elements per thread, blocks) of the backward kernel: a block's
-    threads * elements must span a multiple of C, so each thread always meets the
-    same channels and keeps their sums in registers."""
+def _bwd_block(c: int) -> Tuple[int, int]:
+    """(threads, elements per thread) of the backward kernel: a block's threads *
+    elements must span a multiple of C, so each thread always meets the same
+    channels and keeps their sums in registers."""
     if 1024 % c == 0:
-        threads, vec = 256, 4
-    else:
-        threads, vec = c * (1024 // c), 1
-    blocks = max(1, min(-(-n // (threads * vec)), sms * 4))
-    return threads, vec, blocks
+        return 256, 4
+    return c * (1024 // c), 1
+
+
+def _bwd_launch_shape(c: int, n: int, max_clusters: int) -> LaunchShape:
+    """The backward kernel's launch for C channels and n elements, at most
+    ``max_clusters`` clusters."""
+    threads, vec = _bwd_block(c)
+    return LaunchShape(threads, vec, _cluster_grid(n, threads * vec, max_clusters))
+
+
+def bwd_launch_for(x: torch.Tensor, p: float) -> LaunchShape:
+    """The backward kernel's launch for the CUDA tensor ``x`` at dropout ``p``."""
+    c = x.shape[1]
+    threads, vec = _bwd_block(c)
+    with torch.cuda.device(x.device):
+        fits = _max_clusters("bn_act_dropout", "vaegan_bn_act_dropout_bwd_max_clusters",
+                             x.device.index, c, _DTYPE_CODE[x.dtype], int(p > 0.0), threads,
+                             vec, CLUSTER)
+    return _bwd_launch_shape(c, x.numel(), fits)
 
 
 def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: float,
                             p: float, eps: float = 1e-5):
     """The forward's gradient: ``(dx, dscale, dbias, dmean, dvar)`` for the
     upstream gradient ``g`` of y (any memory format; made channels_last), with the
-    forward's dropout mask replayed from ``seed``. Channel sums are deterministic."""
+    forward's dropout mask replayed from ``seed``. One kernel launch; channel sums
+    are deterministic."""
+    _check_cotangent("bn_act_dropout backward", "g", g, x)
     g = _channels_last(g.to(x.dtype))
     if _device_kind(x, "bn_act_dropout backward") == "cpu":
         return bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed, slope,
                                                  p, eps)
     _check(x, mean, var, scale, bias, seed, p)
     c = x.shape[1]
-    threads, vec, blocks = _bwd_launch_shape(c, x.numel(), _sms(x.device))
-    dx = torch.empty_like(x, memory_format=torch.channels_last)
-    partial = torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device)
-    grads = torch.empty((4, c), dtype=torch.float32, device=x.device)
-    dscale, dbias, dmean, dvar = grads.unbind(0)
-    fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_bwd", (_P,) * 12 + (
-        _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _P))
+    shape = bwd_launch_for(x, p)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                dscale.data_ptr(), dbias.data_ptr(), dmean.data_ptr(), dvar.data_ptr(),
-                x.numel(), c, _DTYPE_CODE[x.dtype], slope, eps, int(p > 0.0),
-                keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed, threads, vec,
-                blocks, _stream(x.device))
+        dx = torch.empty_like(x, memory_format=torch.channels_last)
+        rows = _reduction_scratch(shape, 2 * c, x.device)
+        grads = torch.empty((4, c), dtype=torch.float32, device=x.device)
+        dscale, dbias, dmean, dvar = grads.unbind(0)
+        stream = _stream(x.device)
+        fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_bwd", (_P,) * 13 + (
+            _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _P))
+        rc = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows.data_ptr(),
+                _ticket(x.device, stream).data_ptr(), mean.data_ptr(), var.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+                dmean.data_ptr(), dvar.data_ptr(), x.numel(), c, _DTYPE_CODE[x.dtype], slope,
+                eps, int(p > 0.0), keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed,
+                shape.threads, shape.vec, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "bn_act_dropout backward")
     LAUNCHES["bn_act_dropout_bwd"] += 1
     return dx, dscale, dbias, dmean, dvar
@@ -374,25 +470,40 @@ def reparam_kl_reference(mu, lv, seed: int):
     return z, kl
 
 
+def _reparam_launch_shape(n: int, max_clusters: int) -> LaunchShape:
+    """The forward kernel's launch for n elements (256 threads of 4 elements a
+    block), at most ``max_clusters`` clusters."""
+    return LaunchShape(256, 4, _cluster_grid(n, 1024, max_clusters))
+
+
+def reparam_launch_for(mu: torch.Tensor) -> LaunchShape:
+    """The forward kernel's launch for the CUDA tensor ``mu``."""
+    with torch.cuda.device(mu.device):
+        fits = _max_clusters("reparam_kl", "vaegan_reparam_kl_fwd_max_clusters",
+                             mu.device.index, _DTYPE_CODE[mu.dtype], CLUSTER)
+    return _reparam_launch_shape(mu.numel(), fits)
+
+
 def reparam_kl_forward(mu, lv, seed: int):
     """``(z, kl)``: z = mu + exp(lv / 2) * eps with eps ~ N(0, 1) drawn in the
     kernel from (seed, flat NHWC index), and the KL summed over batch and dims
-    (an f32 scalar). ``mu``/``lv``: (N, C, H, W) float32/bfloat16, made
-    channels_last."""
+    (an f32 scalar) in the same launch. ``mu``/``lv``: (N, C, H, W)
+    float32/bfloat16, made channels_last."""
     mu, lv = _channels_last(mu), _channels_last(lv)
     if _device_kind(mu, "reparam_kl") == "cpu":
         return reparam_kl_reference(mu, lv, seed)
     _check_reparam(mu, lv, seed)
-    n = mu.numel()
-    blocks = _blocks(n, mu.device, 8)
-    z = torch.empty_like(mu, memory_format=torch.channels_last)
-    partial = torch.empty(blocks, dtype=torch.float32, device=mu.device)
-    kl = torch.empty((), dtype=torch.float32, device=mu.device)
-    fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_fwd", (_P,) * 5 + (
-        _LC, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, _P))
+    shape = reparam_launch_for(mu)
     with torch.cuda.device(mu.device):
-        rc = fn(mu.data_ptr(), lv.data_ptr(), z.data_ptr(), partial.data_ptr(), kl.data_ptr(),
-                n, _DTYPE_CODE[mu.dtype], seed, blocks, _stream(mu.device))
+        z = torch.empty_like(mu, memory_format=torch.channels_last)
+        rows = _reduction_scratch(shape, 1, mu.device)
+        kl = torch.empty((), dtype=torch.float32, device=mu.device)
+        stream = _stream(mu.device)
+        fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_fwd", (_P,) * 6 + (
+            _LC, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, _P))
+        rc = fn(mu.data_ptr(), lv.data_ptr(), z.data_ptr(), rows.data_ptr(),
+                _ticket(mu.device, stream).data_ptr(), kl.data_ptr(), mu.numel(),
+                _DTYPE_CODE[mu.dtype], seed, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "reparam_kl")
     LAUNCHES["reparam_kl"] += 1
     return z, kl
@@ -415,8 +526,12 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int):
     ``gkl`` of the KL (a scalar tensor, or None for 0: the training step's loss
     recomputes the KL, so this output is unused there)."""
     mu, lv = _channels_last(mu), _channels_last(lv)
+    _check_cotangent("reparam_kl backward", "gz", gz, mu)
     gz = _channels_last(gz.to(mu.dtype))
     if gkl is not None:
+        if gkl.numel() != 1 or gkl.device != mu.device:
+            raise ValueError(f"reparam_kl backward: gkl must be one value on {mu.device}, got "
+                             f"shape {tuple(gkl.shape)} on {gkl.device}")
         gkl = gkl.detach().to(torch.float32).reshape(())
     if _device_kind(mu, "reparam_kl backward") == "cpu":
         return reparam_kl_backward_reference(mu, lv, gz, gkl, seed)
