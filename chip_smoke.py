@@ -19,7 +19,7 @@ Phases, each of which exits non-zero on failure:
    default path users get;
 2. serving kernel against its plain PyTorch version: ``bn_act_dropout`` at each
    of the served model's fused-BN sites at batch 64, float32 and bfloat16,
-   dropout p = 0 and 0.5, timed with CUDA events beside its bound;
+   dropout p = 0 and 0.5, bitwise equal, timed with CUDA events beside its bound;
 3. the served model: ``preset("vaegan_infer")`` (the notebook generator, 256²,
    float32, full width) with ``use_pallas="all"`` and seeded random weights
    answers reconstruct / encode / decode / sample / interpolate requests through
@@ -29,14 +29,16 @@ Phases, each of which exits non-zero on failure:
 4. serving numbers: reconstruct images/s at batch 64, batch-1 latency, sample
    images/s;
 5. training kernels against their plain versions at the notebook step's shapes
-   (batch 4), float32 and bfloat16: ``bn_act_dropout`` backward at the 12 sites,
-   ``reparam_kl`` forward and backward, ``recon_loss_sums``; dx and z bitwise the
-   plain versions', the dropout mask and the reparameterization noise replayed bit
-   for bit by the backwards; rows 2 and 3 (one launch each, a grid reduction
+   (batch 4), float32 and bfloat16: ``bn_act_dropout`` forward and backward at
+   the 12 sites (each at the p the step runs it with), ``reparam_kl`` forward and
+   backward, ``recon_loss_sums`` (also at batch 16); y, dx and z bitwise the plain
+   versions', the dropout mask and the reparameterization noise replayed bit for
+   bit by the backwards; rows 2, 3 and 5 (one launch each, a grid reduction
    inside) run twenty times bitwise equal, one run beside a matrix product on a
    side stream and one on a second stream at once, and show one kernel and no
    other under torch.profiler (its device time printed beside the call's);
-   kernel / plain / yardstick times beside each bound (bytes and instructions);
+   kernel / plain / yardstick times beside each bound (bytes and instructions),
+   and for row 5 the launch floor (an empty kernel on the same grid);
 6. the training step: ``preset("notebook")`` (256², float32, full-width
    generator and 139.7 M-parameter critic, WGAN-GP, RMSprop, clamp) with
    ``use_pallas="all"`` takes six steps (four G+D, two critic-only) through
@@ -56,6 +58,7 @@ The second-to-last line is a JSON object describing each kernel; the last line i
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -307,14 +310,12 @@ def phase_kernel(torch, sites, bounds):
 
     log("== phase 2: bn_act_dropout kernel vs its plain version "
         f"(batch {BATCH}; kernel: median of 5 CUDA-event windows of 20 back-to-back "
-        "launches after 3 warm-up; plain: one window of 20 calls; tolerance f32 "
-        "|kernel - plain| <= 1e-6 + 1e-6 |plain|, bf16 <= 1 bf16 ulp of plain) ==")
+        "launches after 3 warm-up; plain: one window of 20 calls; y bitwise the plain "
+        "version's) ==")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "two_call_ms": 0.0,
                "bound_by": "bytes", "max_abs_err": 0.0, "bytes_ms": 0.0, "instr_ms": 0.0}
-    # (dtype, p) -> [kernel ms, plain ms, bound ms, byte bound ms] summed over the sites.
-    # This kernel's loop branches on the dropout flag at run time; the SASS count
-    # takes the shorter way, so at p = 0.5 its instruction bound is the p = 0 loop's.
+    # (dtype, p) -> [kernel ms, plain ms, bound ms, byte bound ms] summed over the sites
     sums = {}
     for i, (c, h, w) in enumerate(sites):
         mean = torch.randn(c, device="cuda", generator=g) * 0.3
@@ -335,33 +336,29 @@ def phase_kernel(torch, sites, bounds):
                     raise SystemExit(f"site {i}: kernel output has the wrong layout or dtype")
                 yf, rf = y.float(), r.float()
                 err = (yf - rf).abs()
-                if dtype == torch.float32:
-                    bad = err > 1e-6 + 1e-6 * rf.abs()
-                else:
-                    bad = err > bf16_ulp(torch, rf)
-                n_bad = int(bad.sum())
+                bitwise = torch.equal(y, r)
                 masks_equal = True
                 if p > 0:
                     keep = fused.keep_mask(x, seed, p)
-                    masks_equal = (int(((yf != 0) & ~keep).sum()) == 0
-                                   and int(((yf == 0) != (rf == 0)).sum()) == 0)
+                    masks_equal = int(((yf != 0) & ~keep).sum()) == 0
                     kept = float(keep.float().mean())
                     if not 0.45 <= kept <= 0.55:
                         raise SystemExit(f"site {i}: keep rate {kept} outside [0.45, 0.55]")
-                xs = [r[0] for r in rotation(torch, x)]
+                xs = [r[0] for r in rotation(x)]
                 rest = args[1:]
                 k_ms = time_cuda(torch, lambda i: fused.bn_act_dropout(xs[i % len(xs)], *rest))
                 p_ms = time_cuda(torch, lambda i: fused.bn_act_dropout_reference(
                     xs[i % len(xs)], *rest), windows=1, warmup=1)
                 numel = x.numel()
                 nbytes = 2 * numel * x.element_size() + 4 * c * 4
-                b_ms, bound_by, tb, ti = bounds(nbytes, numel, "bn_act_dropout_fwd_kernel", dtype)
+                b_ms, bound_by, tb, ti = bounds(nbytes, numel, "bn_act_dropout_fwd_kernel", dtype,
+                                                None, p > 0)
                 log(f"site {i:2d} C={c:3d} HxW={h}x{w} {str(dtype)[6:]:8s} p={p}: "
-                    f"max_abs_err={float(err.max()):.3e} out_of_tol={n_bad} "
+                    f"max_abs_err={float(err.max()):.3e} bitwise={bitwise} "
                     f"masks_equal={masks_equal} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"bound_ms={b_ms:.4f} ({bound_by}; bytes {tb:.4f}, instructions {ti:.4f}) "
                     f"GB/s={nbytes / k_ms / 1e6:.0f}")
-                if n_bad or not masks_equal:
+                if not (bitwise and masks_equal):
                     raise SystemExit(f"site {i}: kernel disagrees with its plain version")
                 acc = sums.setdefault((str(dtype)[6:], p), [0.0, 0.0, 0.0, 0.0])
                 for j, v in enumerate((k_ms, p_ms, b_ms, tb)):
@@ -376,8 +373,8 @@ def phase_kernel(torch, sites, bounds):
                     summary["instr_ms"] += ti
                     if bound_by != "bytes":
                         summary["bound_by"] = "operations"
-                del y, r, yf, rf, err, bad, xs
-        xs = [r[0] for r in rotation(torch, x32)]
+                del y, r, yf, rf, err, xs
+        xs = [r[0] for r in rotation(x32)]
         two = time_cuda(torch, lambda i: torch.nn.functional.leaky_relu(
             torch.nn.functional.batch_norm(xs[i % len(xs)], mean, var, scale, bias, False, 0.0,
                                            1e-5), SLOPE), windows=1, warmup=1)
@@ -399,14 +396,15 @@ def phase_kernel(torch, sites, bounds):
 TRAIN_BATCH = 4
 RUNS = 20   # runs of a reduction kernel that must agree bit for bit
 
-def rotation(torch, *tensors):
+def rotation(*tensors):
     """Tuples of copies of ``tensors`` to cycle through so that back-to-back timed
     launches find their inputs in device memory, not in the 50 MB L2, as the
     bound assumes."""
     size = sum(t.numel() * t.element_size() for t in tensors)
     n = max(1, -(-256 * 2 ** 20 // size))
-    fmt = lambda t: t.clone(memory_format=torch.channels_last) if t.dim() == 4 else t.clone()  # noqa: E731
-    return [tensors] + [tuple(fmt(t) for t in tensors) for _ in range(n - 1)]
+    # each copy keeps its original's strides: a (B, 256, 256, 1) image made
+    # channels_last would not be contiguous, and the wrapper would copy it first
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
 
 
 def check_close(what, got, ref, dtype, rel_scale=None):
@@ -458,9 +456,9 @@ def phase_train_kernels(torch, sites, latent, bounds):
     log(f"== phase 5: training kernels vs their plain versions (batch {TRAIN_BATCH}, the "
         "notebook step's shapes; kernel: median of 5 CUDA-event windows of 20 launches, inputs "
         "rotated through >= 256 MB; plain and yardstick: one window; tolerances: elementwise f32 "
-        "1e-6 + 1e-6|ref|, bf16 1 ulp; sums 1e-5 of max(1, max|ref|); eps 4e-6 absolute; rows 2 "
-        f"and 3 run {RUNS} times bitwise equal, one run beside a 4096^2 matrix product on a side "
-        "stream, one on a side stream at once with another) ==")
+        "1e-6 + 1e-6|ref|, bf16 1 ulp; sums 1e-5 of max(1, max|ref|); eps 4e-6 absolute; rows "
+        f"2, 3 and 5 run {RUNS} times bitwise equal, one run beside a 4096^2 matrix product on a "
+        "side stream, one on a side stream at once with another) ==")
     big = torch.randn(4096, 4096, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(9))
     busy = lambda: big @ big  # noqa: E731
@@ -468,8 +466,10 @@ def phase_train_kernels(torch, sites, latent, bounds):
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
                "yardstick_ms": 0.0, "max_abs_err": 0.0, "bound_by": "bytes", "bytes_ms": 0.0,
                "instr_ms": 0.0}
-           for k in ("bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd", "recon_loss_sums")}
-    bf16 = [0.0, 0.0]   # row 2 in bfloat16 over the sites: kernel ms, bound ms
+           for k in ("bn_act_dropout", "bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd",
+                     "recon_loss_sums")}
+    # rows 1 and 2 in bfloat16 over the sites: kernel ms, bound ms
+    bf16 = {"bn_act_dropout": [0.0, 0.0], "bn_act_dropout_bwd": [0.0, 0.0]}
 
     def note(name, k_ms, p_ms, b, err, y_ms=None):
         o = out[name]
@@ -485,6 +485,43 @@ def phase_train_kernels(torch, sites, latent, bounds):
             o["yardstick_ms"] += y_ms
 
     cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    launch_floor = fused._kernel_fn("recon_loss_sums", "vaegan_recon_loss_sums_floor",
+                                    (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    # ---- row 1: bn_act_dropout forward at the 12 sites of a generator step, each
+    # site at the p the step runs it with; each site's bound from its own instance
+    for i, (c, h, w) in enumerate(sites):
+        p = 0.5 if i % 2 == 0 else 0.0          # bn1 drops at 0.5, bn2 at 0
+        vecs = (torch.randn(c, device="cuda", generator=g) * 0.3,
+                torch.rand(c, device="cuda", generator=g) + 0.5,
+                torch.rand(c, device="cuda", generator=g) + 0.5,
+                torch.randn(c, device="cuda", generator=g) * 0.1)
+        x32 = cl(torch.randn(TRAIN_BATCH, c, h, w, device="cuda", generator=g))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            args = (*vecs, 8765 + i, SLOPE, p)
+            y = fused.bn_act_dropout_forward(x, *args)
+            r = fused.bn_act_dropout_reference(x, *args)
+            torch.cuda.synchronize()
+            if not torch.equal(y, r):
+                raise SystemExit(f"row 1 site {i}: y is not bitwise the plain version's")
+            rot = rotation(x)
+            k_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_forward(rot[n % len(rot)][0], *args))
+            p_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_reference(
+                rot[n % len(rot)][0], *args), windows=1, warmup=1)
+            n = x.numel()
+            b = bounds(2 * n * x.element_size() + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", dtype,
+                       None, p > 0)
+            log(f"row 1 site {i:2d} C={c:3d} HxW={h}x{w} {str(dtype)[6:]:8s} p={p}: y bitwise "
+                f"equal, kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; "
+                f"bytes {b[2]:.4f}, instructions {b[3]:.4f})")
+            if dtype == torch.float32:
+                note("bn_act_dropout", k_ms, p_ms, b, 0.0)
+            else:
+                bf16["bn_act_dropout"][0] += k_ms
+                bf16["bn_act_dropout"][1] += b[0]
+            del y, r, rot
+        del x32
+
     # ---- row 2: bn_act_dropout backward at the 12 sites of a generator step
     for i, (c, h, w) in enumerate(sites):
         p = 0.5 if i % 2 == 0 else 0.0          # bn1 drops at 0.5, bn2 at 0
@@ -513,7 +550,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
                 p == 0 or torch.equal(y != 0, fused.keep_mask(x, seed, p)))
             if not (det and replay):
                 raise SystemExit(f"row 2 site {i}: deterministic={det} mask_replayed={replay}")
-            rot = rotation(torch, x, gy)
+            rot = rotation(x, gy)
             call = lambda n: fused.bn_act_dropout_backward(*rot[n % len(rot)], *args)  # noqa: E731
             k_ms = time_cuda(torch, call)
             split = profile_split(torch, call)
@@ -550,8 +587,8 @@ def phase_train_kernels(torch, sites, latent, bounds):
             if dtype == torch.float32:
                 note("bn_act_dropout_bwd", k_ms, p_ms, b, err, y_ms)
             else:
-                bf16[0] += k_ms
-                bf16[1] += b[0]
+                bf16["bn_act_dropout_bwd"][0] += k_ms
+                bf16["bn_act_dropout_bwd"][1] += b[0]
             del k, r, y, dx1, rot, a, keep
         del x32, g32
         torch.cuda.empty_cache()
@@ -595,7 +632,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
                 and abs(mom[1] - 1) < 5 * (2 / n_el) ** 0.5):
             raise SystemExit("reparam_kl: noise replay, determinism or moments failed")
         if dtype == torch.float32:
-            rot = rotation(torch, mu, lv)
+            rot = rotation(mu, lv)
             n = mu.numel()
             call = lambda i: fused.reparam_kl_forward(*rot[i % len(rot)], 77)  # noqa: E731
             k_ms = time_cuda(torch, call)
@@ -609,7 +646,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             log(f"row 3 f32 {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, instructions {b[3]:.4f}) "
                 f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
-            rot = rotation(torch, mu, lv, gz)
+            rot = rotation(mu, lv, gz)
             k_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward(*rot[i % len(rot)], None, 77))
             p_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward_reference(
                 *rot[i % len(rot)], None, 77), windows=1, warmup=1)
@@ -621,38 +658,56 @@ def phase_train_kernels(torch, sites, latent, bounds):
             del rot
         del mu, lv, gz, z, zr, zero, e_fwd, e_bwd, e_plain, e64
 
-    # ---- row 5: recon_loss_sums over (4, 256, 256, 1) pairs
-    for dtype in (torch.float32, torch.bfloat16):
-        r_ = torch.randn(TRAIN_BATCH, 256, 256, 1, device="cuda", generator=g).to(dtype)
-        t_ = torch.rand(TRAIN_BATCH, 256, 256, 1, device="cuda", generator=g).to(dtype)
-        s1, s2 = fused.recon_loss_sums_forward(r_, t_), fused.recon_loss_sums_forward(r_, t_)
-        sr = fused.recon_loss_sums_reference(r_, t_)
-        err = check_close("row 5 sums", s1, sr, dtype, True)
-        det = torch.equal(s1, s2)
-        log(f"row 5 {str(dtype)[6:]}: sums {s1.tolist()} vs plain {sr.tolist()}, "
-            f"max_abs_err={err:.3e}, deterministic={det}")
-        if not det:
-            raise SystemExit("recon_loss_sums: two runs differ")
-        if dtype == torch.float32:
-            rot = rotation(torch, r_, t_)
+    # ---- row 5: recon_loss_sums over (B, 256, 256, 1) pairs: one G step at batch 4 (the
+    # kernels line's figures) and at batch 16
+    for batch in (TRAIN_BATCH, 16):
+        for dtype in (torch.float32, torch.bfloat16):
+            r_ = torch.randn(batch, 256, 256, 1, device="cuda", generator=g).to(dtype)
+            t_ = torch.rand(batch, 256, 256, 1, device="cuda", generator=g).to(dtype)
+            s = fused.recon_loss_sums_forward(r_, t_)
+            sr = fused.recon_loss_sums_reference(r_, t_)
+            err = check_close(f"row 5 b{batch} sums", s, sr, dtype, True)
+            det = twenty_runs(torch, lambda: (fused.recon_loss_sums_forward(r_, t_),), (s,), busy)
+            if not det:
+                raise SystemExit(f"row 5 b{batch}: {RUNS} runs are not bitwise equal")
+            rot = rotation(r_, t_)
             n = r_.numel()
-            k_ms = time_cuda(torch, lambda i: fused.recon_loss_sums_forward(*rot[i % len(rot)]))
+            call = lambda i: fused.recon_loss_sums_forward(*rot[i % len(rot)])  # noqa: E731
+            k_ms = time_cuda(torch, call)
+            split = profile_split(torch, call)
+            one_kernel(f"row 5 b{batch}", split)
+            launch = fused.recon_launch_for(r_)
+
+            def floor(i):
+                rc = launch_floor(launch.blocks, fused.CLUSTER, fused._stream(r_.device))
+                if rc:
+                    raise SystemExit(f"the launch-floor kernel failed with CUDA error {rc}")
+
+            floor_ms = time_cuda(torch, floor)
             p_ms = time_cuda(torch, lambda i: fused.recon_loss_sums_reference(*rot[i % len(rot)]),
                              windows=1, warmup=1)
             y_ms = time_cuda(torch, lambda i: (F.l1_loss(*rot[i % len(rot)], reduction="sum"),
                                                F.mse_loss(*rot[i % len(rot)], reduction="sum")),
                              windows=1, warmup=1)
-            b = bounds(2 * n * 4 + 8, n, "recon_sums_kernel", dtype)
-            note("recon_loss_sums", k_ms, p_ms, b, err, y_ms)
-            log(f"row 5 f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} "
-                f"({b[1]}; bytes {b[2]:.4f}, instructions {b[3]:.4f}) yardstick F.l1_loss + F.mse_loss "
-                f"(two calls) {y_ms:.4f} ms")
+            b = bounds(2 * n * r_.element_size() + 8, n, "recon_sums_kernel", dtype)
+            log(f"row 5 b{batch} {str(dtype)[6:]} n={n}: sums {s.tolist()} vs plain {sr.tolist()}, "
+                f"max_abs_err={err:.3e}, deterministic_x{RUNS}={det}, kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, instructions "
+                f"{b[3]:.4f}) launch floor (an empty kernel, the same grid) {floor_ms:.4f} ms; "
+                f"yardstick F.l1_loss + F.mse_loss (two calls) {y_ms:.4f} ms; "
+                f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
+            if batch == TRAIN_BATCH and dtype == torch.float32:
+                note("recon_loss_sums", k_ms, p_ms, b, err, y_ms)
+                out["recon_loss_sums"]["floor_ms"] = floor_ms
             del rot
-    s = out["bn_act_dropout_bwd"]
-    log(f"row 2 over the 12 sites of one batch-{TRAIN_BATCH} G step (f32): kernel {s['ms']:.4f} ms, "
-        f"bound {s['bound_ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, yardstick (masks + "
-        f"native_batch_norm_backward, not one call) {s['yardstick_ms']:.4f} ms; bf16: kernel "
-        f"{bf16[0]:.4f} ms, bound {bf16[1]:.4f} ms")
+    for name, row in (("1", "bn_act_dropout"), ("2", "bn_act_dropout_bwd")):
+        s = out[row]
+        log(f"row {name} over the 12 sites of one batch-{TRAIN_BATCH} G step (f32): kernel "
+            f"{s['ms']:.4f} ms, bound {s['bound_ms']:.4f} ms ({s['bound_by']}; bytes "
+            f"{s['bytes_ms']:.4f}, instructions {s['instr_ms']:.4f}), plain {s['plain_ms']:.4f} ms; "
+            f"bf16: kernel {bf16[row][0]:.4f} ms, bound {bf16[row][1]:.4f} ms")
+    log(f"row 2 yardstick (masks + native_batch_norm_backward, not one call): "
+        f"{out['bn_act_dropout_bwd']['yardstick_ms']:.4f} ms")
     torch.cuda.empty_cache()
     return out
 
@@ -891,7 +946,7 @@ def ptxas_summary(report: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            for short in ("recon_sums_finish_kernel", *KERNEL_INPUTS):
+            for short in (*KERNEL_INPUTS, "recon_floor_kernel"):
                 if short in name:
                     templated = name.split(short)[1].startswith("I")
                     args = ["bf16" if "nv_bfloat16" in name else "f32"] if templated else []
@@ -1141,17 +1196,22 @@ def main() -> int:
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s")
 
+    # row 1's top-level figures are the training path's, as its launches are; both
+    # paths' figures stand beside them
     src = "vaegan_tpu_torch/csrc/"
+    train_row1 = train_kernels["bn_act_dropout"]
     rows = [{
         "name": "bn_act_dropout", "route": "cuda", "source": src + "bn_act_dropout.cu",
         "replaces": "vaegan_tpu/ops/pallas_fused.py:80",
         "launches": train_launches["bn_act_dropout"],
         "launches_by_path": {"serving": main_path_launches,
                              "training": train_launches["bn_act_dropout"]},
-        "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
-        "bound_by": summary["bound_by"], "library_ms": None,
-        "bound_bytes_ms": summary["bytes_ms"], "bound_instr_ms": summary["instr_ms"],
+        "ms_by_path": {"serving": summary["ms"], "training": train_row1["ms"]},
+        "bound_by_path": {"serving": summary["bound_ms"], "training": train_row1["bound_ms"]},
+        "max_abs_err": summary["max_abs_err"], "ms": train_row1["ms"],
+        "plain_ms": train_row1["plain_ms"], "bound_ms": train_row1["bound_ms"],
+        "bound_by": train_row1["bound_by"], "library_ms": None,
+        "bound_bytes_ms": train_row1["bytes_ms"], "bound_instr_ms": train_row1["instr_ms"],
     }]
     for name, source, line in (("bn_act_dropout_bwd", "bn_act_dropout.cu", 95),
                                ("reparam_kl", "reparam_kl.cu", 244),
@@ -1164,6 +1224,8 @@ def main() -> int:
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "bound_bytes_ms": k["bytes_ms"], "bound_instr_ms": k["instr_ms"]})
+    # the least any one-launch kernel on row 5's grid takes: an empty kernel's time
+    rows[-1]["launch_floor_ms"] = train_kernels["recon_loss_sums"]["floor_ms"]
     for line in build:      # again here: the start of a long log may be cut off
         log(line)
     log(card_line)

@@ -92,3 +92,86 @@ def test_hot_loop_count_is_a_lower_bound():
 ])
 def test_float_atomics_are_told_from_integer_ones(ins, is_float):
     assert bool(chip_smoke.FLOAT_ATOMIC.search(ins)) == is_float
+
+
+# The forward kernel of row 1 as two instances, without and with dropout (a
+# template argument): the same loop, the dropout one with two more instructions.
+FWD_INSTANCES = """
+        Function : _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelIfLb0EEEvPKT_PS1_PKfS6_S6_S6_xiffffjji
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
+        /*0020*/                   FMUL R4, R4, R9 ;                     /* 0x0000000904047220 */
+        /*0030*/                   STG.E.128 desc[UR4][R12.64], R4 ;     /* 0x000000040c007986 */
+        /*0040*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
+        /*0050*/                   EXIT ;                                /* 0x000000000000794d */
+        ..........
+        Function : _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelIfLb1EEEvPKT_PS1_PKfS6_S6_S6_xiffffjji
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
+        /*0020*/                   IMAD.HI.U32 R6, R4, 0x1, RZ ;         /* 0x0000000104067827 */
+        /*0030*/                   FMUL R4, R4, R9 ;                     /* 0x0000000904047220 */
+        /*0040*/                   FSEL R4, R4, RZ, P1 ;                 /* 0x000000ff04047208 */
+        /*0050*/                   STG.E.128 desc[UR4][R12.64], R4 ;     /* 0x000000040c007986 */
+        /*0060*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
+        /*0070*/                   EXIT ;                                /* 0x000000000000794d */
+        ..........
+"""
+
+
+def test_each_dropout_instance_has_its_own_count(monkeypatch):
+    """``kernel_counts`` keys each instance of row 1's forward on its dropout
+    argument, so a p = 0.5 site's bound reads the p = 0.5 loop (6 instructions a
+    pass of 4 elements) and a p = 0 site's the p = 0 loop (4)."""
+    import subprocess
+    import torch
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: subprocess.CompletedProcess(
+        a, 0, stdout=FWD_INSTANCES))
+    counts, atomics = chip_smoke.kernel_counts({"bn_act_dropout": "lib.so"}, "cuobjdump")
+    key = ("bn_act_dropout_fwd_kernel", "float32", None)
+    assert counts == {key + (False,): pytest.approx(4 / 4), key + (True,): pytest.approx(6 / 4)}
+    assert atomics == []
+    bounds = chip_smoke.Bounds(bw=1e12, instr_rate=1e9, counts=counts)
+    n = 1000
+    for dropout, per_element in ((False, 1.0), (True, 1.5)):
+        ms, by, _, instr_ms = bounds(8, n, "bn_act_dropout_fwd_kernel", torch.float32, None, dropout)
+        assert by == "operations" and instr_ms == ms == pytest.approx(per_element * n / 1e9 * 1e3)
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117recon_sums_kernelIfEEvPKT_S3_PfPjS4_xi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117recon_sums_kernelIfEEvPKT_S3_PfPjS4_xi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 1032 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelI13__nv_bfloat16Lb1EEEvPKT_PS2_PKfS7_S7_S7_xiffffjji' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelI13__nv_bfloat16Lb1EEEvPKT_PS2_PKfS7_S7_S7_xiffffjji
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+"""
+
+
+def test_ptxas_summary_names_each_kernel_by_its_instance():
+    assert chip_smoke.ptxas_summary(PTXAS_REPORT) == [
+        "recon_sums_kernel<f32>: Used 30 registers, used 1 barriers, 1032 bytes smem; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "bn_act_dropout_fwd_kernel<bf16, dropout>: Used 40 registers, used 1 barriers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    ]
+
+
+def test_rotation_copies_keep_each_inputs_strides():
+    """The timed inputs' copies keep the original's layout: row 5's one-channel
+    (B, H, W, 1) images stay contiguous (a channels_last copy of one is not, and
+    the wrapper would copy it inside every timed call), activations stay
+    channels_last."""
+    import torch
+
+    img = torch.zeros(64, 512, 512, 1)                                         # 64 MB
+    act = torch.zeros(2, 64, 256, 512).contiguous(memory_format=torch.channels_last)  # 64 MB
+    rot = chip_smoke.rotation(img, act)
+    assert len(rot) == 2 and rot[0][0] is img
+    copy_img, copy_act = rot[1]
+    assert copy_img.is_contiguous() and copy_img.stride() == img.stride()
+    assert copy_act.is_contiguous(memory_format=torch.channels_last)
+    assert copy_act.stride() == act.stride()

@@ -312,21 +312,42 @@ def test_reparam_kl_cotangent_none_counts_as_zero():
 # row 5: recon_loss_sums
 # ---------------------------------------------------------------------------
 
-def test_recon_loss_sums_matches_jax_and_its_grad():
-    """Sums against ``pallas_fused.recon_loss_sums`` (its jnp fallback) at 1e-6
-    relative, and the plain-PyTorch backward against its ``jax.vjp``."""
+# n = 189 (not a multiple of 4, below one block's pass), 1000 (below 1024) and
+# 49,149 (ragged, three clusters of the kernel's grid at a width of one channel)
+RECON_SHAPES = [(3, 9, 7, 1), (2, 20, 25, 1), (3, 127, 129, 1)]
+
+
+@pytest.mark.parametrize("shape", RECON_SHAPES, ids=lambda s: f"n{int(np.prod(s))}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_recon_loss_sums_matches_jax_and_its_grad(dtype, shape):
+    """Sums against ``pallas_fused.recon_loss_sums`` (its jnp fallback) on the same
+    values, and the plain-PyTorch backward against its ``jax.vjp``. Both sides
+    upcast to f32, so the sums differ only in the order of addition: 1e-6 relative
+    in either dtype. The gradients: f32 1e-6; bf16 one bf16 ulp (both round the
+    same f32 gradient to bf16)."""
     rng = np.random.default_rng(2)
-    r = rng.normal(size=(3, 9, 7, 1)).astype(np.float32)
-    tt = rng.normal(size=(3, 9, 7, 1)).astype(np.float32)
+    r = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    tt = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jr, jt = (jnp.asarray(a.float().numpy()).astype(jdtype) for a in (r, tt))
     ct = np.asarray([0.7, -1.3], np.float32)
-    want, vjp = jax.vjp(pf.recon_loss_sums, jnp.asarray(r), jnp.asarray(tt))
-    jdr, jdt = vjp(jnp.asarray(ct))
-    rt, tt_ = t(r).requires_grad_(True), t(tt).requires_grad_(True)
+    want, vjp = jax.vjp(pf.recon_loss_sums, jr, jt)
+    jdr, jdt = (np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(ct)))
+    rt, tt_ = r.clone().requires_grad_(True), tt.clone().requires_grad_(True)
     got = fused.recon_loss_sums(rt, tt_)
+    assert got.dtype == torch.float32 and got.shape == (2,)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6)
     dr, dt = torch.autograd.grad(got, (rt, tt_), t(ct))
-    np.testing.assert_allclose(dr.numpy(), np.asarray(jdr), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(dt.numpy(), np.asarray(jdt), rtol=1e-6, atol=1e-6)
+    assert dr.dtype == dtype and dt.dtype == dtype
+    for g, want_g in ((dr, jdr), (dt, jdt)):
+        g = g.float().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, want_g, rtol=1e-6, atol=1e-6)
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want_g), 1e-30))) - 7)
+            assert np.all(np.abs(g - want_g) <= ulp)
+    if int(np.prod(shape)) > 2 ** 15:
+        assert fused._recon_launch_shape(int(np.prod(shape)), 132).clusters == 3
 
 
 @pytest.mark.parametrize("bad", ["reparam_shape", "reparam_dtype", "recon_dtype", "bwd_channels",
@@ -405,6 +426,17 @@ def test_reparam_launch_shape(n, max_clusters):
     assert (shape.threads, shape.vec) == (256, 4)
     _check_grid(shape, n, 1024, max_clusters)
     assert fused._reduction_scratch(shape, 1, "cpu").shape == (shape.clusters, 1)
+
+
+@pytest.mark.parametrize("max_clusters", [1, 132])
+@pytest.mark.parametrize("n", [1, 2047, 2048 * fused.CLUSTER + 1, 4 * 256 * 256, 16 * 256 * 256])
+def test_recon_launch_shape(n, max_clusters):
+    """recon_loss_sums: 256 threads of 8 elements a pass, one row of two sums per
+    cluster."""
+    shape = fused._recon_launch_shape(n, max_clusters)
+    assert (shape.threads, shape.vec) == (256, 8)
+    _check_grid(shape, n, 256 * 8, max_clusters)
+    assert fused._reduction_scratch(shape, 2, "cpu").shape == (shape.clusters, 2)
 
 
 @pytest.mark.parametrize("answer", [62, 0, -2])

@@ -24,11 +24,11 @@
 //    (seed, element index) with the forward's Philox words (philox.cuh, stream 0);
 //  - each thread owns 4 consecutive elements, loaded and stored as one 16-byte (f32) or
 //    8-byte (bf16) vector when aligned; a grid-stride loop over a grid sized to the SM
-//    count keeps every SM streaming; the ragged tail is masked (no padding of M). In the
-//    backward, dropout is a template parameter and the loop over whole aligned groups
-//    runs apart from the ragged tail; in f32 it is software-pipelined (the next group's
-//    loads are in flight during this group's math), in bf16 unrolled by two without
-//    dropout;
+//    count keeps every SM streaming; the ragged tail is masked (no padding of M).
+//    Dropout is a template parameter in both directions. In the backward, the loop
+//    over whole aligned groups runs apart from the ragged tail; in f32 it is
+//    software-pipelined (the next group's loads are in flight during this group's
+//    math), in bf16 unrolled by two without dropout;
 //  - the channel of an element is its flat index mod C, so any C works (C = 1 and 64
 //    are on the model's path; the TPU kernel took only C % 128 == 0);
 //  - the arithmetic uses the explicitly rounded intrinsics (__fsub_rn, __fmul_rn,
@@ -57,12 +57,14 @@ using namespace vaegan;
 
 constexpr int kThreads = 256;
 
-template <typename T>
+// Forward; DROPOUT applies the mask (p > 0), a template argument so that each instance's
+// loop is one path.
+template <typename T, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
     const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ mean,
     const float* __restrict__ var, const float* __restrict__ scale,
     const float* __restrict__ bias, long long n, int C, float slope, float eps,
-    int dropout, float threshold, float keep_scale, uint32_t k0, uint32_t k1, int vec) {
+    float threshold, float keep_scale, uint32_t k0, uint32_t k1, int vec) {
   extern __shared__ float sh[];
   float* s_mean = sh;
   float* s_mul = sh + C;
@@ -83,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
     float v[4];
     load_group(x, base, n, vec, v);
     uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (dropout) r = philox_words(g, kStreamDropout, k0, k1);
+    if constexpr (DROPOUT) r = philox_words(g, kStreamDropout, k0, k1);
     const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
     int c = (int)(base % C);
 #pragma unroll
@@ -91,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
       const float a =
           __fadd_rn(__fmul_rn(__fsub_rn(v[j], s_mean[c]), s_mul[c]), s_bias[c]);
       float l = a > 0.f ? a : __fmul_rn(a, slope);
-      if (dropout) {
+      if constexpr (DROPOUT) {
         l = __uint2float_rn(bits[j] >> 8) >= threshold ? __fmul_rn(l, keep_scale) : 0.f;
       }
       v[j] = l;
@@ -289,10 +291,11 @@ int launch_fwd(const void* x, void* y, const float* mean, const float* var,
   const size_t align = 4 * sizeof(T);
   const int vec = ((uintptr_t)x % align == 0) && ((uintptr_t)y % align == 0);
   const size_t smem = 3 * (size_t)C * sizeof(float);
-  bn_act_dropout_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  auto kernel = dropout ? bn_act_dropout_fwd_kernel<T, true> : bn_act_dropout_fwd_kernel<T, false>;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), mean, var, scale, bias, n, C, slope,
-      eps, dropout, threshold, keep_scale, (uint32_t)(seed & 0xFFFFFFFFull),
-      (uint32_t)(seed >> 32), vec);
+      eps, threshold, keep_scale, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32),
+      vec);
   return (int)cudaGetLastError();
 }
 

@@ -36,9 +36,10 @@ the stream:
 ``LAUNCHES`` counts kernel launches per kernel name: one is added where a
 wrapper launches its kernel, and nowhere else. Channel and block sums are taken
 in a fixed order on the card (no float atomics), so a kernel gives the same bits
-run to run. The ``bn_act_dropout`` backward and the ``reparam_kl`` forward
-reduce over their grid in the same launch (``csrc/grid_reduce.cuh``): they run
-in thread-block clusters of :data:`CLUSTER` blocks, write one row of sums per
+run to run. The ``bn_act_dropout`` backward, the ``reparam_kl`` forward and
+``recon_loss_sums`` reduce over their grid in the same launch
+(``csrc/grid_reduce.cuh``): they run in thread-block clusters of
+:data:`CLUSTER` blocks, write one row of sums per
 cluster to scratch, and the last cluster to draw a ticket from a counter in
 device memory adds the rows. The counter is kept per CUDA stream
 (:func:`_ticket`), since launches on one stream never overlap.
@@ -455,10 +456,6 @@ def _check_reparam(mu, lv, seed) -> None:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
 
 
-def _blocks(n: int, device, per_sm: int) -> int:
-    return max(1, min(-(-n // 1024), _sms(device) * per_sm))
-
-
 def reparam_kl_reference(mu, lv, seed: int):
     """Plain PyTorch version of the forward kernel: ``(z, kl)`` with the same
     Philox noise and the same per-element arithmetic."""
@@ -595,22 +592,36 @@ def recon_loss_sums_reference(r, t) -> torch.Tensor:
     return torch.stack((d.abs().sum(), (d * d).sum()))
 
 
+def _recon_launch_shape(n: int, max_clusters: int) -> LaunchShape:
+    """The kernel's launch for n elements (256 threads of 8 elements a block per
+    pass), at most ``max_clusters`` clusters."""
+    return LaunchShape(256, 8, _cluster_grid(n, 256 * 8, max_clusters))
+
+
+def recon_launch_for(r: torch.Tensor) -> LaunchShape:
+    """The kernel's launch for the CUDA tensor ``r``."""
+    with torch.cuda.device(r.device):
+        fits = _max_clusters("recon_loss_sums", "vaegan_recon_loss_sums_max_clusters",
+                             r.device.index, _DTYPE_CODE[r.dtype], CLUSTER)
+    return _recon_launch_shape(r.numel(), fits)
+
+
 def recon_loss_sums_forward(r, t) -> torch.Tensor:
     """(sum |r - t|, sum (r - t)^2) as a float32 (2,) tensor, in one pass over
-    both (made contiguous in their given layout)."""
+    both (made contiguous in their given layout) and one launch."""
     r, t = r.contiguous(), t.contiguous()
     if _device_kind(r, "recon_loss_sums") == "cpu":
         return recon_loss_sums_reference(r, t)
     _check_recon(r, t)
-    n = r.numel()
-    blocks = _blocks(n, r.device, 4)
-    partial = torch.empty((blocks, 2), dtype=torch.float32, device=r.device)
-    out = torch.empty(2, dtype=torch.float32, device=r.device)
-    fn = _kernel_fn("recon_loss_sums", "vaegan_recon_loss_sums", (_P,) * 4 + (
-        _LC, ctypes.c_int, ctypes.c_int, _P))
+    shape = recon_launch_for(r)
     with torch.cuda.device(r.device):
-        rc = fn(r.data_ptr(), t.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
-                _DTYPE_CODE[r.dtype], blocks, _stream(r.device))
+        rows = _reduction_scratch(shape, 2, r.device)
+        out = torch.empty(2, dtype=torch.float32, device=r.device)
+        stream = _stream(r.device)
+        fn = _kernel_fn("recon_loss_sums", "vaegan_recon_loss_sums", (_P,) * 5 + (
+            _LC, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P))
+        rc = fn(r.data_ptr(), t.data_ptr(), rows.data_ptr(), _ticket(r.device, stream).data_ptr(),
+                out.data_ptr(), r.numel(), _DTYPE_CODE[r.dtype], shape.blocks, CLUSTER, stream)
     _raise_on(rc, "recon_loss_sums")
     LAUNCHES["recon_loss_sums"] += 1
     return out
