@@ -49,7 +49,21 @@ Phases, each of which exits non-zero on failure:
    step's backward pins IEEE float32; a TF32 step is shown to miss that
    tolerance), and against the CPU at 64², batch 2;
 7. training numbers: step ms and images/s at batch 4 and 16, the top device
-   kernels of a profiled step, the device-busy share, each kernel's share.
+   kernels of a profiled step, the device-busy share, each kernel's share;
+8. the training loop: ``vt.train`` on the notebook preset (full width,
+   ``use_pallas="all"``) over 32 synthetic images (2 epochs, 16 steps; a grid, a
+   checkpoint and a flush every 4 steps, the NaN guard on). First the feeds: the
+   ``hbm_cache`` loader and ``DataLoader`` + ``device_prefetch`` give bitwise
+   equal batches (once with the consumer lagging), the native NIfTI decoder
+   (built from ``csrc/nifti_reader.cc`` with the host compiler) agrees with the
+   Python one on 16 files at 300x300 within 1e-6, and a ``CachedDataset``
+   epoch equals its decode. Then the loop with its launch counts per step
+   (phase 6's plus the sampler's forward on grid steps), finite metrics, 4
+   grids and the last 3 checkpoints; the sampler leaves the state bitwise as it
+   was; a run stopped at step 8 and resumed matches the uninterrupted run's
+   losses, and a checkpoint round trip is bitwise. Numbers: loop images/s with
+   each feed beside the bare step's, the device-busy share of 4 profiled loop
+   steps, host syncs per step outside the metric flush.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +81,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -395,6 +410,15 @@ def phase_kernel(torch, sites, bounds):
 
 TRAIN_BATCH = 4
 RUNS = 20   # runs of a reduction kernel that must agree bit for bit
+# kernel launches of one notebook train step, G+D (True) and critic-only (False)
+STEP_LAUNCHES = {
+    True: {"bn_act_dropout": 12, "bn_act_dropout_bwd": 12, "reparam_kl": 1,
+           "reparam_kl_bwd": 1, "recon_loss_sums": 1},
+    False: {"bn_act_dropout": 12, "bn_act_dropout_bwd": 0, "reparam_kl": 1,
+            "reparam_kl_bwd": 0, "recon_loss_sums": 0}}
+# the loop's sampler: one train-mode generator forward on a grid step
+SAMPLER_LAUNCHES = {"bn_act_dropout": 12, "bn_act_dropout_bwd": 0, "reparam_kl": 1,
+                    "reparam_kl_bwd": 0, "recon_loss_sums": 0}
 
 def rotation(*tensors):
     """Tuples of copies of ``tensors`` to cycle through so that back-to-back timed
@@ -804,10 +828,7 @@ def phase_train_step(torch, vt, tf32_defaults):
                for _ in range(3)]
     steps = {g: vt.make_train_step(cfg_all, g) for g in (True, False)}
     plan = (True, True, False, True, False, True)
-    want = {True: {"bn_act_dropout": 12, "bn_act_dropout_bwd": 12, "reparam_kl": 1,
-                   "reparam_kl_bwd": 1, "recon_loss_sums": 1},
-            False: {"bn_act_dropout": 12, "bn_act_dropout_bwd": 0, "reparam_kl": 1,
-                    "reparam_kl_bwd": 0, "recon_loss_sums": 0}}
+    want = STEP_LAUNCHES
     torch.cuda.synchronize()
     fused.reset_launches()
     totals = dict(fused.LAUNCHES)
@@ -936,6 +957,370 @@ def phase_train_numbers(torch, vt, cfg_all, state, batches, card_line):
             ms = sum(k[0] for k in kernels if pattern in k[2])
             log(f"  {tag}: {ms:.4f} ms of the step's device time ({100 * ms / busy:.2f}%)")
     return t4, t16
+
+
+LOOP_IMAGES = 32          # 8 batches of 4 an epoch
+NIFTI_FILES, NIFTI_SIDE = 16, 300
+
+
+def loop_config(vt, tmp, **train):
+    """The notebook preset at full width with ``use_pallas="all"``, fed 32
+    synthetic "texture" images from an ``hbm_cache`` loader, with phase 8's
+    cadences (a grid, a checkpoint and a flush every 4 steps, the NaN guard on)
+    and its folders under ``tmp``."""
+    cfg = vt.preset("notebook")
+    return cfg.replace(
+        data=cfg.data.replace(synthetic=True, synthetic_size=LOOP_IMAGES,
+                              synthetic_style="texture", batch_size=TRAIN_BATCH, hbm_cache=True),
+        train=cfg.train.replace(**{
+            "use_pallas": "all", "n_epochs": 2, "sample_interval": 4, "checkpoint_every": 4,
+            "log_every": 4, "nan_check": True, "sample_dir": os.path.join(tmp, "samples"),
+            "checkpoint_dir": os.path.join(tmp, "ck"), **train}))
+
+
+def launch_logger(fused, metrics_logger):
+    """A MetricsLogger that also notes, at each step's ``log``, the kernel launches
+    since the previous step's (the sampler's before a grid step, then the step's)."""
+
+    class LaunchLogger(metrics_logger):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.per_step, self._last = [], dict(fused.LAUNCHES)
+
+        def log(self, *a):
+            now = dict(fused.LAUNCHES)
+            self.per_step.append({k: now[k] - self._last[k] for k in now})
+            self._last = now
+            super().log(*a)
+
+    return LaunchLogger
+
+
+def state_tree(torch, state):
+    """Copies of everything a train state carries, for bitwise comparison."""
+    def clone(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().clone()
+        if isinstance(t, dict):
+            return {k: clone(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [clone(v) for v in t]
+        return t
+
+    return clone({"generator": state.generator.state_dict(), "critic": state.critic.state_dict(),
+                  "opt_g": state.opt_g.state_dict(), "opt_d": state.opt_d.state_dict(),
+                  "step": state.step, "g_metrics": state.g_metrics, "g_ema": state.g_ema})
+
+
+def tree_diff(torch, a, b, path=""):
+    """The paths at which two :func:`state_tree` copies differ (bit for bit)."""
+    if isinstance(a, torch.Tensor):
+        return [] if isinstance(b, torch.Tensor) and torch.equal(a, b) else [path]
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [path]
+        return [d for k in a for d in tree_diff(torch, a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in tree_diff(torch, x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def metrics_close(a, b, rel=2e-4, atol=1e-5):
+    """Keys of metric dicts ``a`` / ``b`` that differ by more than ``rel`` of |b| + ``atol``."""
+    return sorted(k for k in b if not abs(a[k] - b[k]) <= atol + rel * abs(b[k]))
+
+
+def phase_feed(torch, vt, cfg, tmp, card_line):
+    """Phase 8.1: the loop's feeds give the same batches; the NIfTI decoders agree."""
+    import numpy as np
+
+    from vaegan_tpu_torch.data import nifti, pipeline
+    from vaegan_tpu_torch.ops import _build
+
+    want = [b.clone() for b in pipeline.make_loader(cfg.data, seed=cfg.train.seed, device="cuda")]
+    for lag in (0, 2_000_000):
+        # lag: a ~1 ms sleep kernel on the consumer's stream before each read, so
+        # the host runs ahead and frees batches the card has not read yet (the
+        # allocator must not hand their memory to the next copies)
+        host_loader = pipeline.make_loader(cfg.data.replace(hbm_cache=False), seed=cfg.train.seed)
+        got = []
+        for b in pipeline.device_prefetch(iter(host_loader), "cuda", depth=2):
+            if lag:
+                torch.cuda._sleep(lag)
+            got.append(b.clone())
+        torch.cuda.synchronize()
+        same = len(got) == len(want) == LOOP_IMAGES // TRAIN_BATCH and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        log(f"feed: one epoch of the hbm_cache loader vs DataLoader + device_prefetch(depth=2)"
+            f"{' with the consumer lagging' if lag else ''}: {len(got)} batches of "
+            f"{tuple(want[0].shape)}, bitwise equal={same}")
+        if not same:
+            raise SystemExit("the host feed's batches differ from the hbm_cache loader's")
+
+    t0 = time.perf_counter()
+    try:
+        lib = _build.build_host()
+    except (OSError, RuntimeError) as e:
+        raise SystemExit(f"the native NIfTI decoder did not build:\n{e}")
+    log(f"native NIfTI decoder built from {os.path.relpath(_build.HOST_SOURCE, HERE)} in "
+        f"{time.perf_counter() - t0:.2f} s: {os.path.relpath(lib, HERE)}")
+    d = os.path.join(tmp, "nii")
+    os.makedirs(d)
+    rng = np.random.default_rng(SEED)
+    for i in range(NIFTI_FILES):
+        img = rng.normal(size=(NIFTI_SIDE, NIFTI_SIDE)).astype(np.float32) * 100 + 50
+        nifti.write_nifti(os.path.join(d, f"hand_{i:03d}.nii" + (".gz" if i % 2 else "")), img)
+    ds = pipeline.NiftiDataset(d, cfg.data.image_size, num_workers=cfg.data.num_workers)
+    if not nifti.have_native():
+        raise SystemExit(f"the native NIfTI decoder did not load: {nifti.native_error()}")
+    t0 = time.perf_counter()
+    native = ds.load_batch(range(NIFTI_FILES))
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = np.stack([nifti.load_image(os.path.join(d, f), cfg.data.image_size, use_native=False)
+                       for f in ds.filenames])
+    t_python = time.perf_counter() - t0
+    err = float(np.abs(native - python).max())
+    log(f"NIfTI: {NIFTI_FILES} files {NIFTI_SIDE}x{NIFTI_SIDE} (half gzipped) -> "
+        f"{cfg.data.image_size}x{cfg.data.image_size}: native batch decode {t_native * 1e3:.1f} ms, "
+        f"Python decoder {t_python * 1e3:.1f} ms, max_abs_err {err:.3e} (tolerance 1e-6) "
+        f"[{card_line}]")
+    if not err <= 1e-6:
+        raise SystemExit("the native and Python NIfTI decoders disagree")
+    cached = pipeline.CachedDataset(ds, cache_path=os.path.join(tmp, "nii_cache.npy"))
+    feed = pipeline.DataLoader(cached, batch_size=TRAIN_BATCH, shuffle=False, prefetch_batches=2)
+    got = list(pipeline.device_prefetch(iter(feed), "cuda", depth=2))
+    ok = len(got) == NIFTI_FILES // TRAIN_BATCH and all(
+        torch.equal(b.cpu(), torch.from_numpy(native[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]))
+        for i, b in enumerate(got))
+    log(f"CachedDataset: one epoch of {len(got)} batches through device_prefetch equals the "
+        f"native decode bitwise={ok}")
+    if not ok:
+        raise SystemExit("the cached NIfTI epoch differs from its decode")
+
+
+def phase_loop(torch, vt, card_line, t4):
+    """Phase 8: the notebook training loop on the card through ``vt.train``."""
+    import shutil
+    import warnings
+
+    from vaegan_tpu_torch.checkpoint import CheckpointManager
+    from vaegan_tpu_torch.data import pipeline
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.train import loop
+    from vaegan_tpu_torch.utils.metrics import MetricsLogger, StdoutSink
+
+    tmp = tempfile.mkdtemp(prefix="vaegan_loop_")
+    last = [time.perf_counter()]
+
+    def lap() -> str:
+        """Seconds since the previous lap: where phase 8's time goes."""
+        now = time.perf_counter()
+        out, last[0] = f"({now - last[0]:.1f} s)", now
+        return out
+
+    try:
+        cfg = loop_config(vt, tmp)
+        log(f"== phase 8: training loop, preset('notebook') {cfg.data.image_size}x"
+            f"{cfg.data.image_size} batch {TRAIN_BATCH} float32, use_pallas='all', "
+            f"{LOOP_IMAGES} synthetic 'texture' images, 2 epochs, a grid / checkpoint / flush "
+            "every 4 steps, NaN guard on ==")
+        phase_feed(torch, vt, cfg, tmp, card_line)
+        log(f"feeds checked {lap()}")
+
+        # ---- the main path: vt.train(cfg), counts from 0 just before, read just after
+        steps = cfg.train.n_epochs * LOOP_IMAGES // TRAIN_BATCH
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        logger = launch_logger(fused, MetricsLogger)(sinks=[StdoutSink()],
+                                                     flush_every=cfg.train.log_every)
+        state, logger = vt.train(cfg, logger=logger)
+        torch.cuda.synchronize()
+        loop_launches = dict(fused.LAUNCHES)
+        history = [m for m in logger.history if "_wall_s" not in m]
+        grids = sorted(os.listdir(cfg.train.sample_dir), key=lambda f: int(f.split(".")[0]))
+        kept = CheckpointManager(cfg.train.checkpoint_dir).all_steps()
+        bad_steps = []
+        for i, got in enumerate(logger.per_step):
+            want = dict(STEP_LAUNCHES[True])
+            if i % cfg.train.sample_interval == 0:
+                want = {k: v + SAMPLER_LAUNCHES[k] for k, v in want.items()}
+            if got != want:
+                bad_steps.append((i, got, want))
+        finite = all(v == v and abs(v) != float("inf") for m in history for v in m.values())
+        log(f"loop: {state.step} steps, launches {loop_launches}; per step as phase 6's plus the "
+            f"sampler's on grid steps: {not bad_steps}; metrics finite={finite}; grids {grids}; "
+            f"checkpoints kept {kept}; {logger.history[-1]['_images_per_sec']:.2f} images/s over "
+            f"the run with its grids and saves [{card_line}] {lap()}")
+        if bad_steps or not finite or state.step != steps or len(history) != steps:
+            raise SystemExit(f"loop: wrong launches {bad_steps[:2]}, a non-finite metric or a "
+                             "missing step")
+        if grids != [f"{i}.png" for i in range(0, steps, cfg.train.sample_interval)]:
+            raise SystemExit(f"loop: grids {grids}")
+        if kept != [8, 12, 16]:
+            raise SystemExit(f"loop: checkpoints {kept}, want the last 3 of 4, 8, 12, 16")
+        missing = [k for k, v in loop_launches.items() if v == 0]
+        if missing:
+            raise SystemExit(f"loop: kernels {missing} never launched on the main path")
+
+        # ---- the sampler leaves the state as it was and replays the step's forward
+        batch = next(iter(pipeline.make_loader(cfg.data, seed=SEED, device="cuda")))
+        before = state_tree(torch, state)
+        imgs = loop.make_sampler(cfg)(state, batch, 4321)
+        changed = tree_diff(torch, state_tree(torch, state), before)
+        seen = []
+        hook = state.generator.register_forward_hook(lambda m, i, o: seen.append(o[0].detach()))
+        vt.make_train_step(cfg, True)(state, batch, 4321)
+        hook.remove()
+        err, scale = float((imgs - seen[0]).abs().max()), float(seen[0].abs().max())
+        log(f"sampler: state bitwise unchanged={not changed}; its images vs the step's gen_imgs "
+            f"max_abs_err {err:.3e}, max|ref| {scale:.3e}, tolerance {1e-4 * scale:.3e} "
+            f"(cuDNN's run-to-run order, as phase 3) {lap()}")
+        if changed or not err <= 1e-4 * scale:
+            raise SystemExit(f"sampler: changed {changed[:4]} or images out of tolerance")
+        del state, before
+        torch.cuda.empty_cache()
+
+        # ---- resume: stopped at 8 and resumed to 16, against the uninterrupted run.
+        # With cuDNN's default algorithms two runs of this loop part after a few
+        # steps (run-to-run rounding, amplified by the game from random weights at
+        # full width; the figure against the main run is printed), so both runs
+        # here take cuDNN's deterministic algorithms: then an exact resume gives
+        # the uninterrupted run's losses bit for bit
+        flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            ucfg = loop_config(vt, tmp, checkpoint_dir=None,
+                               sample_dir=os.path.join(tmp, "samples_whole"))
+            _, ulog = vt.train(ucfg, logger=MetricsLogger(sinks=[], flush_every=4))
+            rcfg = loop_config(vt, tmp, checkpoint_dir=os.path.join(tmp, "ck_resume"),
+                               checkpoint_every=steps // 2,
+                               sample_dir=os.path.join(tmp, "samples_resume"))
+            vt.train(rcfg.replace(train=rcfg.train.replace(max_steps=steps // 2)),
+                     logger=MetricsLogger(sinks=[], flush_every=4))
+            resumed, rlog = vt.train(rcfg, resume=True,
+                                     logger=MetricsLogger(sinks=[], flush_every=4))
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        whole = [m for m in ulog.history if "_wall_s" not in m][steps // 2:]
+        rhist = [m for m in rlog.history if "_wall_s" not in m]
+        off = {i + steps // 2 + 1: metrics_close(m, ref) for i, (m, ref) in enumerate(zip(rhist, whole))}
+
+        def worst(got, ref):
+            return max(abs(m[k] - r[k]) / (1e-5 + 2e-4 * abs(r[k]))
+                       for m, r in zip(got, ref) for k in r)
+
+        log(f"resume (cudnn.deterministic): stopped at step {steps // 2}, resumed to "
+            f"{resumed.step}: {len(rhist)} steps run; losses of steps {steps // 2 + 1}-{steps} "
+            f"against the uninterrupted run: bitwise equal={rhist == whole}, largest difference "
+            f"{worst(rhist, whole):.3f} of the tolerance, 2e-4 relative + 1e-5 a metric (phase 6's "
+            f"run-to-run figure for one step). For scale, the uninterrupted deterministic run "
+            f"against the main run (default algorithms) over the same steps: "
+            f"{worst(whole, history[steps // 2:]):.3e} of it {lap()}")
+        if resumed.step != steps or len(rhist) != steps // 2 or any(off.values()):
+            raise SystemExit(f"resume: out of tolerance at {[(s, k) for s, k in off.items() if k]}")
+        mgr = CheckpointManager(rcfg.train.checkpoint_dir)
+        template = vt.create_train_state(rcfg, device="cuda", seed=SEED + 1)
+        t0 = time.perf_counter()
+        mgr.save(resumed, force=True)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr.restore(template)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        diff = tree_diff(torch, state_tree(torch, template), state_tree(torch, resumed))
+        size = os.path.getsize(os.path.join(rcfg.train.checkpoint_dir, f"{resumed.step}.pt"))
+        log(f"checkpoint round trip (step {mgr.latest_step()}, parameters, BN and spectral "
+            f"buffers, both RMSprop states, G metrics): bitwise equal={not diff}; "
+            f"{size / 2 ** 30:.2f} GiB, save {t_save:.2f} s, restore {t_restore:.2f} s [{card_line}] "
+            f"{lap()}")
+        if diff:
+            raise SystemExit(f"the restored state differs at {diff[:4]}")
+        del template
+        torch.cuda.empty_cache()
+
+        # ---- numbers (no claim): loop images/s, device busy share, syncs per step
+        quiet = dict(sample_interval=cfg.train.sample_interval, checkpoint_dir=None,
+                     nan_check=False)
+        dev_loader = pipeline.make_loader(cfg.data, seed=SEED, device="cuda")
+        rates = {}
+        for feed in ("hbm_cache", "host"):
+            fcfg = loop_config(vt, tmp, max_steps=8, **quiet)
+            if feed == "host":
+                fcfg = fcfg.replace(data=fcfg.data.replace(hbm_cache=False))
+            _, flog = vt.train(fcfg, loader=dev_loader if feed == "hbm_cache" else None,
+                               state=resumed, logger=MetricsLogger(sinks=[], flush_every=4))
+            rates[feed] = flog.history[-1]["_images_per_sec"]
+        log(f"loop images/s at batch {TRAIN_BATCH} (8 steps, a grid and a flush every 4): "
+            f"hbm_cache {rates['hbm_cache']:.2f}, host feed {rates['host']:.2f}; the bare step "
+            f"(phase 7) {TRAIN_BATCH / t4:.2f}; loop overhead over the step "
+            f"{(TRAIN_BATCH / rates['hbm_cache'] - t4) * 1e3:.1f} ms a step (hbm_cache) "
+            f"[{card_line}] {lap()}")
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        pcfg = loop_config(vt, tmp, max_steps=4, **quiet)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            vt.train(pcfg, loader=dev_loader, state=resumed,
+                     logger=MetricsLogger(sinks=[], flush_every=4))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        log(f"profiled loop window of 4 steps (one grid): wall {wall_ms:.3f} ms (profiler on), "
+            f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) [{card_line}] {lap()}")
+
+        # "setup": switching the mode on and off (a warning of its own is counted there)
+        where, syncs = ["setup"], {"setup": 0, "loop": 0, "flush": 0}
+
+        class PhaseLogger(MetricsLogger):
+            def flush(self):
+                where[0] = "flush"
+                try:
+                    super().flush()
+                finally:
+                    where[0] = "loop"
+
+        sites, texts = set(), {}
+
+        def note(message, *a, **k):
+            if "synchroniz" in str(message):
+                syncs[where[0]] += 1
+                texts.setdefault(where[0], str(message)[:120])
+                if where[0] == "loop":   # the innermost frames that led to it
+                    frames = [f for f in traceback.extract_stack()[:-1]
+                              if "warnings" not in os.path.basename(f.filename)][-3:]
+                    sites.add(" <- ".join(f"{os.path.basename(f.filename)}:{f.lineno} ({f.line})"
+                                          for f in reversed(frames)))
+
+        scfg = loop_config(vt, tmp, max_steps=8, log_every=8, sample_interval=0,
+                           checkpoint_dir=None, nan_check=False)
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                where[0] = "loop"
+                vt.train(scfg, loader=dev_loader, state=resumed,
+                         logger=PhaseLogger(sinks=[], flush_every=8))
+            finally:
+                where[0] = "setup"
+                torch.cuda.set_sync_debug_mode(0)
+        log(f"host syncs over 8 loop steps (torch.cuda.set_sync_debug_mode('warn'), no grids, "
+            f"no saves, one flush): {syncs['loop']} outside the flush "
+            f"({syncs['loop'] / 8:.2f} a step) at {sorted(sites)}, {syncs['flush']} in it, "
+            f"{syncs['setup']} from switching the mode on; first warning of each: {texts} "
+            f"[{card_line}] {lap()}")
+        del resumed, dev_loader
+        torch.cuda.empty_cache()
+        return loop_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def ptxas_summary(report: str):
@@ -1192,20 +1577,27 @@ def main() -> int:
     train_kernels = phase_train_kernels(torch, sites, vt.latent_shape(cfg), bounds)
     cfg_train, train_state, batches, train_launches = phase_train_step(torch, vt, tf32_defaults)
     t4, t16 = phase_train_numbers(torch, vt, cfg_train, train_state, batches, card_line)
+    del cfg_train, train_state, batches
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 8
+    loop_launches = phase_loop(torch, vt, card_line, t4)
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s")
 
-    # row 1's top-level figures are the training path's, as its launches are; both
-    # paths' figures stand beside them
+    # launches: the training loop's (this slice's main path; it runs the step's
+    # kernels at the step's shapes, so row 1's top-level figures are the training
+    # path's); each path's launches, and row 1's serving figures, stand beside them
     src = "vaegan_tpu_torch/csrc/"
     train_row1 = train_kernels["bn_act_dropout"]
     rows = [{
         "name": "bn_act_dropout", "route": "cuda", "source": src + "bn_act_dropout.cu",
         "replaces": "vaegan_tpu/ops/pallas_fused.py:80",
-        "launches": train_launches["bn_act_dropout"],
+        "launches": loop_launches["bn_act_dropout"],
         "launches_by_path": {"serving": main_path_launches,
-                             "training": train_launches["bn_act_dropout"]},
+                             "training": train_launches["bn_act_dropout"],
+                             "loop": loop_launches["bn_act_dropout"]},
         "ms_by_path": {"serving": summary["ms"], "training": train_row1["ms"]},
         "bound_by_path": {"serving": summary["bound_ms"], "training": train_row1["bound_ms"]},
         "max_abs_err": summary["max_abs_err"], "ms": train_row1["ms"],
@@ -1220,7 +1612,10 @@ def main() -> int:
         k = train_kernels[name]
         rows.append({"name": name, "route": "cuda", "source": src + source,
                      "replaces": f"vaegan_tpu/ops/pallas_fused.py:{line}",
-                     "launches": train_launches[name], "max_abs_err": k["max_abs_err"],
+                     "launches": loop_launches[name],
+                     "launches_by_path": {"training": train_launches[name],
+                                          "loop": loop_launches[name]},
+                     "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "bound_bytes_ms": k["bytes_ms"], "bound_instr_ms": k["instr_ms"]})

@@ -175,3 +175,64 @@ def test_rotation_copies_keep_each_inputs_strides():
     assert copy_img.is_contiguous() and copy_img.stride() == img.stride()
     assert copy_act.is_contiguous(memory_format=torch.channels_last)
     assert copy_act.stride() == act.stride()
+
+
+def test_loop_config_is_the_notebook_at_full_width(tmp_path):
+    """Phase 8 trains the notebook preset uncut: 256², batch 4, float32, the
+    full-width generator and critic, every kernel on, fed from the card."""
+    import vaegan_tpu_torch as vt
+
+    cfg = chip_smoke.loop_config(vt, str(tmp_path), max_steps=3)
+    ref = vt.preset("notebook")
+    assert cfg.generator == ref.generator and cfg.discriminator == ref.discriminator
+    assert cfg.loss == ref.loss and cfg.optim == ref.optim
+    assert (cfg.data.image_size, cfg.data.batch_size, cfg.train.dtype) == (256, 4, "float32")
+    assert cfg.data.hbm_cache and cfg.data.synthetic_size == chip_smoke.LOOP_IMAGES
+    t = cfg.train
+    assert (t.use_pallas, t.n_epochs, t.sample_interval, t.checkpoint_every, t.log_every,
+            t.nan_check, t.max_steps) == ("all", 2, 4, 4, 4, True, 3)
+    assert t.sample_dir.startswith(str(tmp_path)) and t.checkpoint_dir.startswith(str(tmp_path))
+
+
+def test_launch_logger_notes_each_steps_launches():
+    """The launches between two ``log`` calls are the sampler's (before a grid
+    step) and the step's."""
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.utils.metrics import MetricsLogger
+
+    fused.reset_launches()
+    logger = chip_smoke.launch_logger(fused, MetricsLogger)(sinks=[])
+    for extra in (13, 0):
+        fused.LAUNCHES["bn_act_dropout"] += 12 + extra
+        fused.LAUNCHES["recon_loss_sums"] += 1
+        logger.log(0, 1, 0, 2, {})
+    fused.reset_launches()
+    assert [s["bn_act_dropout"] for s in logger.per_step] == [25, 12]
+    assert [s["recon_loss_sums"] for s in logger.per_step] == [1, 1]
+    assert chip_smoke.SAMPLER_LAUNCHES["bn_act_dropout_bwd"] == 0
+
+
+def test_state_trees_are_compared_bit_for_bit():
+    from types import SimpleNamespace
+
+    import torch
+
+    state = SimpleNamespace(
+        generator=torch.nn.Linear(2, 2), critic=torch.nn.Linear(2, 1),
+        opt_g=torch.optim.SGD([torch.nn.Parameter(torch.ones(1))], lr=0.1),
+        opt_d=torch.optim.SGD([torch.nn.Parameter(torch.ones(1))], lr=0.1),
+        step=4, g_metrics={"g_loss": torch.tensor(1.0)}, g_ema=None)
+    tree = chip_smoke.state_tree(torch, state)
+    assert set(tree) == {"generator", "critic", "opt_g", "opt_d", "step", "g_metrics", "g_ema"}
+    with torch.no_grad():
+        state.generator.bias[0] += 1.0
+    assert chip_smoke.tree_diff(torch, tree, chip_smoke.state_tree(torch, state)) == [
+        ".generator.bias"]
+    a = {"w": torch.ones(3), "opt": {"state": [{"step": torch.tensor(2.0)}], "lr": 3e-4}}
+    c = {"w": torch.ones(3), "opt": {"state": [{"step": torch.tensor(2.0)}], "lr": 3e-4}}
+    assert chip_smoke.tree_diff(torch, a, c) == []
+    c["w"][1] = torch.nextafter(torch.tensor(1.0), torch.tensor(2.0))
+    c["opt"]["lr"] = 1e-3
+    assert chip_smoke.tree_diff(torch, a, c) == [".w", ".opt.lr"]
+    assert chip_smoke.metrics_close({"d": 1.0001, "g": 5.0}, {"d": 1.0, "g": 5.0}) == []
+    assert chip_smoke.metrics_close({"d": 1.001, "g": 5.0}, {"d": 1.0, "g": 5.0}) == ["d"]

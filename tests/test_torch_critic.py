@@ -25,6 +25,10 @@ from vaegan_tpu_torch.interop import from_jax_variables
 from vaegan_tpu_torch.models import Dropout, ResBlockDiscriminator, critic_pool_shape, layers
 from vaegan_tpu_torch.ops.spectral_norm import spectral_normalize
 
+# the suite runs files in parallel workers; one intra-op thread each keeps
+# torch from taking every core from the other workers
+torch.set_num_threads(1)
+
 SIZE, BATCH = 32, 2
 
 

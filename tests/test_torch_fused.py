@@ -14,6 +14,10 @@ from vaegan_tpu.ops.norm import batch_stats as jax_batch_stats
 from vaegan_tpu_torch.ops import fused
 from vaegan_tpu_torch.ops.norm import batch_stats
 
+# the suite runs files in parallel workers; one intra-op thread each keeps
+# torch from taking every core from the other workers
+torch.set_num_threads(1)
+
 SLOPE = 0.01
 
 

@@ -21,6 +21,10 @@ import vaegan_tpu_torch as vt
 from vaegan_tpu_torch.models import BatchNorm, Dropout
 from vaegan_tpu_torch.ops import fused
 
+# the suite runs files in parallel workers; one intra-op thread each keeps
+# torch from taking every core from the other workers
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 SIZE = 16
 

@@ -33,6 +33,27 @@ def test_the_scan_sees_the_package():
     assert len(FILES) >= 15
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ("losses.py", "train/step.py", "train/optim.py", "ops/spectral_norm.py",
-                   "models/networks.py", "interop.py"):
+                   "models/networks.py", "interop.py", "data/nifti.py", "data/pipeline.py",
+                   "data/fetch.py", "train/loop.py", "checkpoint.py", "api.py",
+                   "utils/imaging.py", "utils/metrics.py", "utils/profiling.py"):
         assert f"vaegan_tpu_torch/{module}" in names, module
     assert "torch" in imported_roots(ROOT / "vaegan_tpu_torch" / "ops" / "fused.py")
+
+
+def test_importing_the_package_loads_no_jax():
+    """Every module of the port, imported in a fresh interpreter, pulls in
+    neither jax nor the JAX package (a transitive import would not show in the
+    scan above)."""
+    import subprocess
+    import sys
+
+    modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                     for p in FILES if p.parent != ROOT)
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"

@@ -14,6 +14,10 @@ from vaegan_tpu.train.state import create_train_state
 import vaegan_tpu_torch as vt
 from vaegan_tpu_torch import serving
 
+# the suite runs files in parallel workers; one intra-op thread each keeps
+# torch from taking every core from the other workers
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 SIZE = 16
 

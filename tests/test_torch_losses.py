@@ -17,6 +17,10 @@ from vaegan_tpu_torch import losses
 from vaegan_tpu_torch.config import OptimConfig
 from vaegan_tpu_torch.train.optim import build_optimizer, role_lr
 
+# the suite runs files in parallel workers; one intra-op thread each keeps
+# torch from taking every core from the other workers
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(0)
 A = RNG.normal(size=(3, 8, 8, 2)).astype(np.float32)
 B = RNG.normal(size=(3, 8, 8, 2)).astype(np.float32)

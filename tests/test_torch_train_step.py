@@ -48,6 +48,10 @@ import vaegan_tpu_torch as vt
 from vaegan_tpu_torch.interop import from_jax_variables
 from vaegan_tpu_torch.train import fused_draws, make_train_step
 
+# the suite runs files in parallel workers; one intra-op thread each keeps
+# torch from taking every core from the other workers
+torch.set_num_threads(1)
+
 SIZE, BATCH, LR = 32, 2, 3e-4
 G_STEPS = (True, False, True, False)
 MODES = {"all-vs-losses": ("all", "losses"), "off-vs-off": ("off", "off")}

@@ -18,6 +18,10 @@ import vaegan_tpu_torch as vt
 from vaegan_tpu_torch.config import Config, DataConfig, GeneratorConfig
 from vaegan_tpu_torch.ops import initializers as I
 
+# the suite runs files in parallel workers; one intra-op thread each keeps
+# torch from taking every core from the other workers
+torch.set_num_threads(1)
+
 
 def jax_generator_variables(gcfg: dict, size=16):
     gen = JGenerator(cfg=JGeneratorConfig(**gcfg))

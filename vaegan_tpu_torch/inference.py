@@ -4,6 +4,8 @@
   only quantitative metric;
 - ``sample``: decoder-only generation from z ~ N(0, I) spatial latents;
 - ``interpolate``: latent interpolation between the ``encode()`` means of two batches.
+- ``save_visual_evidence``: the reconstruction panel, a sample grid and the
+  interpolation strips as PNGs.
 
 - ``recalibrate_bn_stats``: re-estimate the generator's BN running statistics
   from its final parameters.
@@ -113,6 +115,54 @@ def interpolate(cfg: Config, state: GeneratorState, x1, x2, steps: int = 8) -> t
     zs = (1.0 - ts) * z1[None] + ts * z2[None]          # (steps, B, h, w, c)
     imgs = gen.decode(zs.reshape((-1,) + tuple(z1.shape[1:])))
     return imgs.reshape((steps,) + tuple(x1.shape))
+
+
+def save_visual_evidence(cfg: Config, state: GeneratorState, batch, out_dir,
+                         generator: Optional[torch.Generator] = None,
+                         prefix: str = "") -> dict:
+    """Write the reference's qualitative deliverables as PNGs:
+
+    - ``{prefix}recon_panel.png``: originals on top, eval-mode reconstructions
+      below (one column per image, up to 8);
+    - ``{prefix}samples.png``: a 5x5 grid decoded from z ~ N(0, I), drawn from
+      ``generator`` (default: a device generator seeded 0);
+    - ``{prefix}interpolation.png``: latent interpolation strips between pairs
+      of the batch's images (one row of 8 steps per pair), when it has two.
+
+    Returns ``{name: path}`` for the files written.
+    """
+    from pathlib import Path
+
+    from vaegan_tpu_torch.utils.imaging import save_image_grid
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    dev = _device(state)
+    batch = _as_input(batch, dev)
+    n = min(8, batch.shape[0])
+    written = {}
+
+    recon, _ = reconstruct(cfg, state, batch[:n])
+    p = out / f"{prefix}recon_panel.png"
+    save_image_grid(torch.cat([batch[:n], recon.float()]), str(p), nrow=n)
+    written["recon_panel"] = str(p)
+
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    smp = sample(cfg, state, generator, n=25, image_size=batch.shape[1])
+    p = out / f"{prefix}samples.png"
+    save_image_grid(smp, str(p), nrow=5)
+    written["samples"] = str(p)
+
+    if n >= 2:
+        k = min(4, n // 2)  # k strips of 8 steps each
+        strips = interpolate(cfg, state, batch[:k], batch[k:2 * k], steps=8)
+        # (steps, k, H, W, C) -> one row per pair
+        imgs = strips.transpose(0, 1).reshape((-1,) + tuple(strips.shape[2:]))
+        p = out / f"{prefix}interpolation.png"
+        save_image_grid(imgs, str(p), nrow=8)
+        written["interpolation"] = str(p)
+    return written
 
 
 @torch.no_grad()

@@ -1,0 +1,272 @@
+"""Training loop (port of ``vaegan_tpu/train/loop.py``; the reference's
+``train_network_wgan``), in the JAX loop's event order:
+
+- the sample folder is wiped at the start of a fresh run (kept on resume);
+- the critic updates every batch, the generator every ``n_critics``-th batch of
+  each epoch (``i`` restarts each epoch); under lazy GP (``gp_every > 1``) the
+  penalty runs on every ``gp_every``-th global step;
+- every ``sample_interval`` batches a 5x5 grid of the step's own generated
+  images is written as ``{batches_done}.png``, regenerated BEFORE the step from
+  the same seed (:func:`make_sampler`), so no image leaves the card on other
+  steps;
+- metric dicts stay on the device (:class:`MetricsLogger`); the NaN guard reads
+  them at the flush cadence only;
+- checkpoints every ``checkpoint_every`` steps and at the end; ``resume``
+  continues from the latest one, replaying the loader's shuffle stream instead
+  of decoding completed batches.
+
+The host syncs of a run are the metric flush, the NaN guard at that cadence,
+the grid write and the checkpoint save; a step itself never waits for the card.
+
+Per-step seeds. The JAX loop draws a step's randomness from
+``fold_in(key(seed), global_step)``. The port's step takes an int (it seeds a
+CPU ``torch.Generator`` for the fused kernels' seeds and one on the device for
+the rest), and :func:`step_seed` gives it: splitmix64's finalizer over
+``seed * 2**32 + global_step`` (both taken modulo 2**32). It is a pure function
+of ``(cfg.train.seed, global_step)``, so a resumed run draws what an
+uninterrupted run draws, and on the CPU the two are equal bit for bit. The bits
+are not ``fold_in``'s: the port's draws are Philox and torch's generators.
+"""
+
+from __future__ import annotations
+
+import shutil
+import time
+from pathlib import Path
+from typing import Callable, Iterable, Optional, Tuple
+
+import torch
+
+from vaegan_tpu_torch.config import Config
+from vaegan_tpu_torch.data.pipeline import device_prefetch, make_loader
+from vaegan_tpu_torch.models.layers import precision
+from vaegan_tpu_torch.train.state import DTYPES, TrainState, create_train_state, resolve_device
+from vaegan_tpu_torch.train.step import (
+    check_supported,
+    lazy_gp_enabled,
+    make_step_variants,
+    make_train_step,
+)
+from vaegan_tpu_torch.utils.metrics import MetricsLogger
+
+_M64 = (1 << 64) - 1
+
+
+class TrainingDiverged(RuntimeError):
+    """Raised by the opt-in NaN guard (``cfg.train.nan_check``)."""
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The int seed of global step ``global_step`` of a run seeded ``seed``."""
+    x = (((seed & 0xFFFFFFFF) << 32) | (global_step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
+    x &= _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def make_sampler(cfg: Config) -> Callable:
+    """``sample(state, batch, seed)`` -> the ``gen_imgs`` that ``step(state,
+    batch, seed)`` is about to train on.
+
+    The step seeds a CPU generator (the fused kernels' seeds) and a device
+    generator (masks, noise) from ``seed``, and its generator forward is their
+    first consumer; the sampler seeds the same two and runs the same train-mode
+    forward, so it replays that forward draw for draw. Train-mode BN writes its
+    running statistics in place, so the sampler runs on clones of the
+    generator's buffers and puts the originals back: the state is left bitwise
+    as it was. The fused kernels it launches are counted in ``fused.LAUNCHES``
+    like any other launch.
+    """
+    dtype = DTYPES[cfg.train.dtype]
+
+    @torch.no_grad()
+    def sample(state: TrainState, batch: torch.Tensor, seed: int) -> torch.Tensor:
+        gen = state.generator
+        saved = [(m, dict(m._buffers)) for m in gen.modules() if m._buffers]
+        try:
+            for m, bufs in saved:
+                for k, v in bufs.items():
+                    if v is not None:
+                        m._buffers[k] = v.clone()
+            seeds = torch.Generator().manual_seed(seed)
+            rng = torch.Generator(device=batch.device).manual_seed(seed)
+            with precision(dtype):
+                out = gen(batch, train=True, generator=rng, seeds=seeds)
+        finally:
+            for m, bufs in saved:
+                m._buffers.update(bufs)
+        return out[0] if cfg.generator.is_vae else out
+
+    return sample
+
+
+def _device(state: TrainState) -> torch.device:
+    return next(state.generator.parameters()).device
+
+
+def train(
+    cfg: Config,
+    loader: Optional[Iterable] = None,
+    state: Optional[TrainState] = None,
+    logger: Optional[MetricsLogger] = None,
+    step_fns: Optional[object] = None,
+    resume: bool = False,
+    device="cuda",
+) -> Tuple[TrainState, MetricsLogger]:
+    """Run ``cfg.train.n_epochs`` of training; returns ``(final_state, logger)``.
+
+    ``device``: where a new state and the default loader live (``"cuda"`` unless
+    the caller asks for ``"cpu"``); a given ``state`` decides it instead.
+    ``step_fns``: step overrides, either a ``(step_with_g, step_d_only)`` tuple
+    or a dict keyed by ``(do_g_update, do_gp)`` (required when
+    ``cfg.train.gp_every > 1``); each is ``step(state, batch, seed) -> (state,
+    metrics)``. ``resume``: restore the latest checkpoint under
+    ``cfg.train.checkpoint_dir`` and continue after its step.
+    ``cfg.train.rng_impl`` names a JAX PRNG and is ignored (see
+    :func:`step_seed`).
+    """
+    check_supported(cfg)
+    tcfg = cfg.train
+    dev = resolve_device(device) if state is None else _device(state)
+    if loader is None:
+        loader = make_loader(cfg.data, seed=tcfg.seed, device=dev)
+    if state is None:
+        state = create_train_state(cfg, device=dev)
+    if logger is None:
+        logger = MetricsLogger(flush_every=tcfg.log_every)
+
+    lazy_gp = lazy_gp_enabled(cfg)
+    if step_fns is None:
+        steps = make_step_variants(cfg, lambda do_g, do_gp, scale: make_train_step(
+            cfg, do_g, do_gp=do_gp, gp_lambda_scale=scale))
+    elif isinstance(step_fns, dict):
+        steps = step_fns
+    else:
+        if lazy_gp:
+            raise ValueError(
+                "cfg.train.gp_every > 1 requires step_fns keyed by "
+                "(do_g_update, do_gp), got a 2-tuple")
+        step_g, step_d = step_fns
+        steps = {(True, True): step_g, (False, True): step_d}
+    need = {(True, True), (False, True)} | (
+        {(True, False), (False, False)} if lazy_gp else set())
+    missing = need - set(steps)
+    if missing:
+        raise ValueError(
+            f"step_fns is missing (do_g_update, do_gp) variants {sorted(missing)} "
+            f"required by this config (gp_every={tcfg.gp_every})")
+
+    ckpt = None
+    start_step = 0
+    if tcfg.checkpoint_dir:
+        from vaegan_tpu_torch.checkpoint import CheckpointManager
+        ckpt = CheckpointManager(tcfg.checkpoint_dir)
+        if resume and ckpt.latest_step() is not None:
+            # None: the probe could not read the checkpoint; trust the flags and
+            # let restore() check the structure
+            saved_ema = ckpt.saved_has_g_ema()
+            if saved_ema is True and state.g_ema is None:
+                raise ValueError(
+                    f"checkpoint at {tcfg.checkpoint_dir} carries a generator "
+                    "EMA; pass the same ema_decay (--ema-decay) to resume")
+            if saved_ema is False and state.g_ema is not None:
+                # a checkpoint from before EMA tracking: restore without it and
+                # start the average from the restored params
+                state = ckpt.restore(state.replace(g_ema=None))
+                state.g_ema = {k: p.detach().clone()
+                               for k, p in state.generator.named_parameters()}
+            else:
+                state = ckpt.restore(state)
+            start_step = state.step
+
+    sample_dir = Path(tcfg.sample_dir)
+    if start_step == 0:
+        # a fresh run wipes the folder like the reference; a resumed one keeps the
+        # interrupted run's grids, which the skipped steps would not write again
+        shutil.rmtree(sample_dir, ignore_errors=True)
+    sample_dir.mkdir(parents=True, exist_ok=True)
+    sampler = make_sampler(cfg)
+
+    n_batches = len(loader) if hasattr(loader, "__len__") else -1
+    global_step = 0
+    nan_checked = 0
+    budget_hit = False
+    t0 = time.time()
+    for epoch in range(tcfg.n_epochs):
+        if budget_hit:
+            break
+        # resume without decoding: whole completed epochs replay only the
+        # shuffle stream, a partial one opens at its batch offset (a loader
+        # without these hooks is decoded and skipped)
+        skip_in_epoch = 0
+        if global_step < start_step and n_batches > 0:
+            if global_step + n_batches <= start_step and hasattr(loader, "skip_epoch"):
+                loader.skip_epoch()
+                global_step += n_batches
+                continue
+            skip_in_epoch = min(start_step - global_step, n_batches)
+        batch_offset = 0
+        if skip_in_epoch and hasattr(loader, "iter_batches"):
+            source = loader.iter_batches(skip_in_epoch)
+            global_step += skip_in_epoch
+            batch_offset = skip_in_epoch
+        else:
+            source = iter(loader)
+        it = device_prefetch(source, dev, depth=cfg.data.prefetch)
+        for i, batch in enumerate(it, start=batch_offset):
+            if global_step < start_step:  # decode-and-skip fallback
+                global_step += 1
+                continue
+            if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
+                # checked BEFORE a step: a resumed run already at its budget
+                # must not run (and save) another one
+                budget_hit = True
+                break
+            seed = step_seed(tcfg.seed, global_step)
+            do_g = (i % tcfg.n_critics) == 0
+            batches_done = epoch * n_batches + i if n_batches > 0 else global_step
+            sample_imgs = (sampler(state, batch, seed)
+                           if tcfg.sample_interval > 0
+                           and batches_done % tcfg.sample_interval == 0 else None)
+            do_gp = (not lazy_gp) or (global_step % tcfg.gp_every == 0)
+            state, metrics = steps[(do_g, do_gp)](state, batch, seed)
+            logger.log(epoch, tcfg.n_epochs, i, n_batches, metrics)
+            if tcfg.nan_check and (global_step + 1) % logger.flush_every == 0:
+                logger.flush()
+                window = logger.history[nan_checked:]
+                nan_checked = len(logger.history)
+                bad = sorted({k for m in window for k, v in m.items()
+                              if v != v or abs(v) == float("inf")})
+                if bad:
+                    raise TrainingDiverged(
+                        f"non-finite metrics {bad} within the last flush window "
+                        f"(ending epoch {epoch} batch {i}, step {global_step}); "
+                        f"last checkpoint: {ckpt.latest_step() if ckpt else None}")
+
+            if sample_imgs is not None:
+                from vaegan_tpu_torch.utils.imaging import save_image_grid
+                save_image_grid(sample_imgs[:25], str(sample_dir / f"{batches_done}.png"),
+                                nrow=5)
+            if (ckpt is not None and tcfg.checkpoint_every > 0
+                    and (global_step + 1) % tcfg.checkpoint_every == 0):
+                ckpt.save(state)
+            global_step += 1
+            if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
+                budget_hit = True
+                break
+
+    logger.flush()
+    if ckpt is not None:
+        # no force: a step the periodic save already wrote is kept
+        ckpt.save(state)
+        ckpt.wait()
+    elapsed = time.time() - t0
+    executed = global_step - start_step
+    logger.history.append({
+        "_wall_s": elapsed,
+        "_steps": executed,
+        "_steps_per_sec": executed / max(elapsed, 1e-9),
+        "_images_per_sec": executed * cfg.data.batch_size / max(elapsed, 1e-9),
+    })
+    return state, logger

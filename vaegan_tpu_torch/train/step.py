@@ -49,6 +49,20 @@ from vaegan_tpu_torch.train.state import DTYPES, G_METRICS, TrainState
 Metrics = Dict[str, torch.Tensor]
 
 
+def check_supported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port cannot train
+    yet (the loop calls it before it touches the sample folder or a checkpoint)."""
+    if cfg.optim.scheme == "three":
+        raise NotImplementedError(
+            "optim.scheme='three': the Larsen three-optimizer step is still to be "
+            "ported (ROADMAP.md)")
+    if cfg.train.grad_accum > 1:
+        raise NotImplementedError("grad_accum > 1 is still to be ported (ROADMAP.md)")
+    if cfg.train.critic_batching != "separate":
+        raise NotImplementedError(f"critic_batching={cfg.train.critic_batching!r} is still "
+                                  "to be ported (ROADMAP.md); use 'separate'")
+
+
 def lazy_gp_enabled(cfg: Config) -> bool:
     """Whether ``cfg.train.gp_every > 1`` engages the lazy-GP schedule: only the
     two-optimizer WGAN step with an active penalty has a GP term to amortize."""
@@ -196,11 +210,7 @@ def make_train_step(cfg: Config, do_g_update: bool,
     from the config here. ``inject``: see the module docstring; ``g_masks`` with
     ``use_pallas="all"`` raises, because the fused kernel draws its own masks.
     """
-    if cfg.train.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is still to be ported (ROADMAP.md)")
-    if cfg.train.critic_batching != "separate":
-        raise NotImplementedError(f"critic_batching={cfg.train.critic_batching!r} is still "
-                                  "to be ported (ROADMAP.md); use 'separate'")
+    check_supported(cfg)
     inject = dict(inject or {})
     if "g_masks" in inject and pallas_mode(cfg.train.use_pallas) == "all":
         raise ValueError(
