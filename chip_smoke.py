@@ -63,7 +63,19 @@ Phases, each of which exits non-zero on failure:
    was; a run stopped at step 8 and resumed matches the uninterrupted run's
    losses, and a checkpoint round trip is bitwise. Numbers: loop images/s with
    each feed beside the bare step's, the device-busy share of 4 profiled loop
-   steps, host syncs per step outside the metric flush.
+   steps, host syncs per step outside the metric flush;
+9. the Larsen three-optimizer step: ``preset("vaegan_paper")`` (96², batch 4,
+   float32, the notebook critic fused at its 7 BN sites: BCE with no penalty)
+   with ``use_pallas="all"``. Rows 1-2 at each critic site (slope 0.2, p = 0)
+   bitwise against their plain versions and timed beside their bounds; six
+   ``make_paper_train_step`` steps with exact launch counts; the fused step
+   against the ``use_pallas="off"`` step with the masks of both generator
+   forwards (x~ and the prior decode) and the critic's injected, under both flag
+   settings; step ms and images/s and a profiled step; ``vt.train`` of the
+   preset stopped at step 4 and resumed to 6 (grids, checkpoints, launches per
+   step: the paper path); ``grad_accum=2`` of each scheme on duplicated
+   microbatches at dropout 0 against the full-batch step, and one accumulating
+   notebook step with its launches counted (the accum path, all five kernels).
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -419,6 +431,17 @@ STEP_LAUNCHES = {
 # the loop's sampler: one train-mode generator forward on a grid step
 SAMPLER_LAUNCHES = {"bn_act_dropout": 12, "bn_act_dropout_bwd": 0, "reparam_kl": 1,
                     "reparam_kl_bwd": 0, "recon_loss_sums": 0}
+# one vaegan_paper step (critic fused, no GP). Forwards: the generator's 12
+# sites, the prior decode's 6, the critic's 7 in each of 3 forwards. Backwards:
+# each group's autograd.grad crosses the sites on its way to its parameters:
+# encoder 7 (critic on x~) + 6 (decoder on x~) + 6 (encoder); decoder 7 + 7
+# (critic on x~ and x_p) + 6 + 6 (decoder on x~ and x_p); critic 21
+PAPER_LAUNCHES = {"bn_act_dropout": 39, "bn_act_dropout_bwd": 66, "reparam_kl": 1,
+                  "reparam_kl_bwd": 1, "recon_loss_sums": 0}
+# one grad_accum=2 notebook G+D step: two generator forwards a microbatch (pass 1
+# without a graph, pass 2 with), one backward a microbatch in pass 2
+ACCUM_LAUNCHES = {"bn_act_dropout": 48, "bn_act_dropout_bwd": 24, "reparam_kl": 4,
+                  "reparam_kl_bwd": 2, "recon_loss_sums": 2}
 
 def rotation(*tensors):
     """Tuples of copies of ``tensors`` to cycle through so that back-to-back timed
@@ -751,12 +774,13 @@ def record_grads(state):
     return store
 
 
-def critic_draws(torch, critic, batch, rng, device):
-    """Injected critic Dropout2d masks for the four forwards and the GP alphas."""
+def critic_draws(torch, critic, batch, rng, device, forwards=("real", "fake", "interp", "gen")):
+    """Injected critic Dropout2d masks for the given forwards (default: the
+    two-optimizer step's four) and the GP alphas."""
     from vaegan_tpu_torch.models import ResBlockDiscriminator
 
     inj = {}
-    for fwd in ("real", "fake", "interp", "gen"):
+    for fwd in forwards:
         inj[f"d_masks_{fwd}"] = {
             f"{n}.dropout": (torch.rand((batch, m.conv1.weight_orig.shape[0], 1, 1), generator=rng)
                              >= 0.5).to(device)
@@ -915,9 +939,6 @@ def phase_train_step(torch, vt, tf32_defaults):
 
 def phase_train_numbers(torch, vt, cfg_all, state, batches, card_line):
     """Step time and images/s at batch 4 and 16, and where a step's device time goes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     log(f"== phase 7: training numbers on {card_line} (float32, PyTorch's default flags) ==")
     step = vt.make_train_step(cfg_all, True)
     counter = iter(range(10 ** 6))
@@ -933,9 +954,21 @@ def phase_train_numbers(torch, vt, cfg_all, state, batches, card_line):
         f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card_line}]")
     del big, x16
     torch.cuda.empty_cache()
+    profile_step(torch, lambda: step(state, batches[1], next(counter)),
+                 f"one batch-{TRAIN_BATCH} G step", card_line)
+    return t4, t16
+
+
+def profile_step(torch, fn, what, card_line):
+    """One call of ``fn`` under torch.profiler: its wall time, the device-busy
+    share, the top 10 device kernels, each port kernel's share, and the host
+    side: the top 8 operators by self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batches[1], next(counter))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -945,18 +978,23 @@ def phase_train_numbers(torch, vt, cfg_all, state, batches, card_line):
     busy = sum(k[0] for k in kernels)
     if busy == 0:
         log("profiler: no device time recorded")
-    else:
-        log(f"profile of one batch-{TRAIN_BATCH} G step: wall {wall_ms:.3f} ms (profiler on), "
-            f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) [{card_line}]")
-        for ms, count, name in kernels[:10]:
-            log(f"  {ms:9.3f} ms  x{count:<4d} {name[:110]}")
-        for tag, pattern in (("bn_act_dropout", "bn_act_dropout_fwd"),
-                             ("bn_act_dropout_bwd", "bn_act_dropout_bwd"),
-                             ("reparam_kl", "reparam_fwd"), ("reparam_kl_bwd", "reparam_bwd"),
-                             ("recon_loss_sums", "recon_sums")):
-            ms = sum(k[0] for k in kernels if pattern in k[2])
-            log(f"  {tag}: {ms:.4f} ms of the step's device time ({100 * ms / busy:.2f}%)")
-    return t4, t16
+        return
+    log(f"profile of {what}: wall {wall_ms:.3f} ms (profiler on), "
+        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) [{card_line}]")
+    for ms, count, name in kernels[:10]:
+        log(f"  {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+    for tag, pattern in (("bn_act_dropout", "bn_act_dropout_fwd"),
+                         ("bn_act_dropout_bwd", "bn_act_dropout_bwd"),
+                         ("reparam_kl", "reparam_fwd"), ("reparam_kl_bwd", "reparam_bwd"),
+                         ("recon_loss_sums", "recon_sums")):
+        ms = sum(k[0] for k in kernels if pattern in k[2])
+        log(f"  {tag}: {ms:.4f} ms of the device time ({100 * ms / busy:.2f}%)")
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), reverse=True)
+    log(f"  host: {sum(h[0] for h in host):.3f} ms of self CPU time over {sum(h[1] for h in host)} "
+        "operator calls; the top 8:")
+    for ms, count, name in host[:8]:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {name[:100]}")
 
 
 LOOP_IMAGES = 32          # 8 batches of 4 an epoch
@@ -1323,6 +1361,379 @@ def phase_loop(torch, vt, card_line, t4):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Larsen three-optimizer step and gradient accumulation
+# ---------------------------------------------------------------------------
+
+CRITIC_SLOPE = 0.2
+PAPER_STEPS = 6
+PAPER_LOOP_IMAGES = 16    # 4 batches of 4 an epoch
+
+
+def paper_config(vt, mode="all"):
+    """The ``vaegan_paper`` preset uncut (96², batch 4, float32, the notebook
+    critic, BCE, Dis_l, gamma 100, EMA 0.999, KL mean) with ``use_pallas``."""
+    cfg = vt.preset("vaegan_paper")
+    return cfg.replace(train=cfg.train.replace(use_pallas=mode))
+
+
+def critic_sites(torch, critic, size):
+    """(C, H, W) of every fused BN of a critic forward, in launch order: the
+    stem's bn1, then each block's bn1 (its input) and bn2 (its conv1 output)."""
+    from vaegan_tpu_torch.models import ResBlockDiscriminator
+
+    mods = [critic.bn1] + [bn for m in critic.modules() if isinstance(m, ResBlockDiscriminator)
+                           for bn in (m.bn1, m.bn2)]
+    shapes = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: shapes.append(tuple(inp[0].shape[1:])))
+             for m in mods]
+    dev = next(critic.parameters()).device
+    with torch.inference_mode():
+        critic(torch.zeros(1, size, size, 1, device=dev), train=False)
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def phase_critic_kernels(torch, sites, bounds):
+    """Rows 1-2 at the critic's fused sites (slope 0.2, p = 0), bitwise against
+    their plain versions, timed beside their bounds."""
+    from vaegan_tpu_torch.ops import fused
+
+    log(f"== phase 9.1: rows 1-2 at the critic's {len(sites)} fused BN sites (vaegan_paper, batch "
+        f"{TRAIN_BATCH}, slope {CRITIC_SLOPE}, p = 0, f32; timing and tolerances as phase 5) ==")
+    big = torch.randn(4096, 4096, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(9))
+    busy = lambda: big @ big  # noqa: E731
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "instr_ms": 0.0,
+               "bound_by": "bytes", "max_abs_err": 0.0, "sites": len(sites)}
+           for k in ("bn_act_dropout", "bn_act_dropout_bwd")}
+
+    def note(name, k_ms, p_ms, b, err):
+        o = out[name]
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b[0]), ("bytes_ms", b[2]),
+                       ("instr_ms", b[3])):
+            o[key] += v
+        if b[1] != "bytes":
+            o["bound_by"] = "operations"
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+
+    for i, (c, h, w) in enumerate(sites):
+        mean = torch.randn(c, device="cuda", generator=g) * 0.3
+        var = torch.rand(c, device="cuda", generator=g) + 0.5
+        scale = torch.rand(c, device="cuda", generator=g) + 0.5
+        bias = torch.randn(c, device="cuda", generator=g) * 0.1
+        x = cl(torch.randn(TRAIN_BATCH, c, h, w, device="cuda", generator=g))
+        gy = cl(torch.randn(TRAIN_BATCH, c, h, w, device="cuda", generator=g))
+        args = (mean, var, scale, bias, 0, CRITIC_SLOPE, 0.0)
+        n = x.numel()
+        # row 1
+        y = fused.bn_act_dropout_forward(x, *args)
+        r = fused.bn_act_dropout_reference(x, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(y, r):
+            raise SystemExit(f"critic site {i}: row 1's y is not bitwise the plain version's")
+        rot = rotation(x)
+        k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(rot[j % len(rot)][0], *args))
+        p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(rot[j % len(rot)][0], *args),
+                       windows=1, warmup=1)
+        b1 = bounds(2 * n * 4 + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", torch.float32, None,
+                    False)
+        note("bn_act_dropout", k1, p1, b1, 0.0)
+        # row 2
+        k = fused.bn_act_dropout_backward(x, gy, *args)
+        r = fused.bn_act_dropout_backward_reference(x, gy, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(k[0], r[0]):
+            raise SystemExit(f"critic site {i}: row 2's dx is not bitwise the plain version's")
+        err = max(check_close(f"critic site {i} {name}", k[j], r[j], torch.float32, True)
+                  for j, name in enumerate(("dscale", "dbias", "dmean", "dvar"), 1))
+        det = twenty_runs(torch, lambda: fused.bn_act_dropout_backward(x, gy, *args), k, busy)
+        if not det:
+            raise SystemExit(f"critic site {i}: row 2's {RUNS} runs are not bitwise equal")
+        rot = rotation(x, gy)
+        call = lambda j: fused.bn_act_dropout_backward(*rot[j % len(rot)], *args)  # noqa: E731
+        k2 = time_cuda(torch, call)
+        split = profile_split(torch, call)
+        one_kernel(f"critic site {i} row 2", split)
+        p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(
+            *rot[j % len(rot)], *args), windows=1, warmup=1)
+        launch = fused.bwd_launch_for(x, 0.0)
+        b2 = bounds(3 * n * 4 + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", torch.float32,
+                    launch.vec, False)
+        note("bn_act_dropout_bwd", k2, p2, b2, err)
+        log(f"critic site {i} C={c:3d} HxW={h}x{w}: row 1 y bitwise equal, kernel_ms={k1:.4f} "
+            f"plain_ms={p1:.4f} bound_ms={b1[0]:.4f} ({b1[1]}; bytes {b1[2]:.4f}, instructions "
+            f"{b1[3]:.4f}); row 2 dx bitwise equal, sums max_abs_err={err:.3e}, "
+            f"deterministic_x{RUNS}=True, kernel_ms={k2:.4f} plain_ms={p2:.4f} "
+            f"bound_ms={b2[0]:.4f} ({b2[1]}; bytes {b2[2]:.4f}, instructions {b2[3]:.4f}) "
+            f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
+        del x, gy, y, r, k, rot
+    torch.cuda.empty_cache()
+    for name, row in (("1", "bn_act_dropout"), ("2", "bn_act_dropout_bwd")):
+        o = out[row]
+        log(f"row {name} over the critic's {len(sites)} sites (one forward; f32, p = 0): kernel "
+            f"{o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}; bytes "
+            f"{o['bytes_ms']:.4f}, instructions {o['instr_ms']:.4f}; "
+            f"{100 * o['bound_ms'] / o['ms']:.1f}% of the bound reached), plain "
+            f"{o['plain_ms']:.4f} ms")
+    return out
+
+
+def converge_spectral(torch, critic, iterations=1000):
+    """Advance each spectral layer's (u, v) to its weight's top singular pair."""
+    from vaegan_tpu_torch.models.layers import Conv2D
+    from vaegan_tpu_torch.ops.spectral_norm import spectral_normalize
+
+    with torch.no_grad():
+        for m in critic.modules():
+            if isinstance(m, Conv2D) and m.spectral:
+                _, u, v = spectral_normalize(m.weight_orig, m.weight_u, m.weight_v, update=True,
+                                             n_iterations=iterations)
+                m.weight_u.copy_(u)
+                m.weight_v.copy_(v)
+
+
+def copy_state(torch, vt, cfg, state):
+    """A fresh train state for ``cfg`` holding a copy of ``state``."""
+    import copy
+
+    st = vt.create_train_state(cfg, device=next(state.generator.parameters()).device, seed=SEED)
+    st.generator.load_state_dict(state.generator.state_dict())
+    st.critic.load_state_dict(state.critic.state_dict())
+    # a loaded optimizer state shares the given tensors: copy them
+    st.opt_g.load_state_dict(copy.deepcopy(state.opt_g.state_dict()))
+    st.opt_d.load_state_dict(copy.deepcopy(state.opt_d.state_dict()))
+    return st
+
+
+def phase_accum(torch, vt):
+    """``grad_accum=2`` of each scheme at full width: on duplicated microbatches
+    at dropout 0 against the full-batch step, then the notebook's accumulating
+    step at its own dropout with its launches counted (the "accum" path)."""
+    from vaegan_tpu_torch.ops import fused
+
+    log("== phase 9.4: gradient accumulation (grad_accum=2, batch 4 = 2 x 2): each scheme at full "
+        "width, dropout 0, on concat(x, x) with its draws duplicated, against the full-batch "
+        "step from the same seeded state with its spectral (u, v) converged (each "
+        "microbatch's critic forwards run their own power iterations). The notebook's critic "
+        "updates between the two passes, and a moved W would leave pass 2's second "
+        "microbatch one power iteration further than the full step's G half: so one full "
+        "step first (it clamps the fresh weights), then the compared steps at lr_d = 0. "
+        "Tolerances: metrics 2e-3 relative + 1e-5 (tests/test_train_step.py:265-276); the "
+        "gradients each optimizer is stepped with, phase 6's ==")
+    for name in ("vaegan_paper", "notebook"):
+        cfg = vt.preset(name)
+        cfg = cfg.replace(generator=cfg.generator.replace(dropout_prob=0.0),
+                          discriminator=cfg.discriminator.replace(dropout_prob=0.0),
+                          train=cfg.train.replace(use_pallas="all"))
+        paper = name == "vaegan_paper"
+        make = ((lambda c, inject=None: vt.make_paper_train_step(c, inject=inject)) if paper else
+                (lambda c, inject=None: vt.make_train_step(c, True, inject=inject)))
+        size = cfg.data.image_size
+        g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        state = vt.create_train_state(cfg, device="cuda", seed=SEED)
+        if not paper:
+            state, _ = make(cfg)(state, torch.rand((TRAIN_BATCH, size, size, 1), device="cuda",
+                                                   generator=g), 30)
+            cfg = cfg.replace(optim=cfg.optim.replace(lr_d=0.0))
+        converge_spectral(torch, state.critic)
+        x = torch.rand((2, size, size, 1), device="cuda", generator=g)
+        lat = (2,) + tuple(vt.latent_shape(cfg))
+        inj = {"eps": torch.randn(lat, device="cuda", generator=g)}
+        if paper:
+            inj["z_p"] = torch.randn(lat, device="cuda", generator=g)
+        else:
+            inj["alpha"] = torch.rand(2, device="cuda", generator=g)
+        inj = {k: torch.cat([v, v]) for k, v in inj.items()}
+        recs = []
+        for c in (cfg, cfg.replace(train=cfg.train.replace(grad_accum=2))):
+            st = copy_state(torch, vt, cfg, state)
+            grads = record_grads(st)
+            _, m = make(c, inject=inj)(st, torch.cat([x, x]), 9)
+            torch.cuda.synchronize()
+            recs.append({"metrics": {k: float(v) for k, v in m.items()},
+                         "grads": {k: {n: t.cpu() for n, t in v.items()} for k, v in grads.items()}})
+            del st, grads
+        full, acc = recs
+        bad = [k for k, want in full["metrics"].items()
+               if not abs(acc["metrics"][k] - want) <= 1e-5 + 2e-3 * abs(want)]
+        errs, _ = step_errors(acc, full)
+        ok = not bad and all(m <= GRAD_MEDIAN_TOL and w <= GRAD_MAX_TOL for m, w in errs.values())
+        log(f"{name} grad_accum=2 vs the full batch: metrics out of tolerance {bad}; generator "
+            f"gradients median rel L2 err {errs['g'][0]:.3e}, max err / max grad {errs['g'][1]:.3e}; "
+            f"critic {errs['d'][0]:.3e}, {errs['d'][1]:.3e}; d_loss {acc['metrics']['d_loss']!r} vs "
+            f"{full['metrics']['d_loss']!r}, g_loss {acc['metrics']['g_loss']!r} vs "
+            f"{full['metrics']['g_loss']!r} -> {'agree' if ok else 'DISAGREE'}")
+        if not ok:
+            raise SystemExit(f"{name}: the accumulating step disagrees with the full-batch step")
+        del recs, state
+        torch.cuda.empty_cache()
+
+    # the accum path: the notebook's accumulating G+D step as a user builds it
+    cfg = vt.preset("notebook")
+    cfg = cfg.replace(train=cfg.train.replace(use_pallas="all", grad_accum=2))
+    state = vt.create_train_state(cfg, device="cuda", seed=SEED)
+    xb = torch.rand((TRAIN_BATCH, cfg.data.image_size, cfg.data.image_size, 1), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    step = vt.make_train_step(cfg, True)
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    state, m = step(state, xb, 11)
+    torch.cuda.synchronize()
+    accum_launches = dict(fused.LAUNCHES)
+    finite = all(v == v and abs(v) != float("inf") for v in (float(t) for t in m.values()))
+    log(f"accum path: one notebook grad_accum=2 G+D step (dropout 0.5, 256², batch 4 = 2 x 2): "
+        f"launches {accum_launches} (want {ACCUM_LAUNCHES}), finite={finite}")
+    if accum_launches != ACCUM_LAUNCHES or not finite:
+        raise SystemExit("accum path: wrong launch counts or a non-finite loss")
+    del state
+    torch.cuda.empty_cache()
+    return accum_launches
+
+
+def phase_paper(torch, vt, bounds, card_line, tf32_defaults):
+    """Phase 9: the Larsen step of ``vaegan_paper`` at full width."""
+    import shutil
+
+    from vaegan_tpu_torch.checkpoint import CheckpointManager
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.train import paper_draws
+    from vaegan_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg_all, cfg_off = paper_config(vt), paper_config(vt, "off")
+    size = cfg_all.data.image_size
+    o, lc = cfg_all.optim, cfg_all.loss
+    log(f"== phase 9: the Larsen three-optimizer step, preset('vaegan_paper') {size}x{size} batch "
+        f"{TRAIN_BATCH} float32 ({lc.adversarial}, {lc.reconstruction}, gamma {o.gamma}, "
+        f"{o.optimizer}, EMA {cfg_all.train.ema_decay}, KL {lc.kl_reduction}), use_pallas='all', "
+        "seeded weights, synthetic batches ==")
+    state = vt.create_train_state(cfg_all, device="cuda", seed=SEED)
+    n_g = sum(p.numel() for p in state.generator.parameters())
+    n_d = sum(p.numel() for p in state.critic.parameters())
+    log(f"generator {n_g} parameters, critic {n_d} parameters (critic fused: "
+        f"{state.critic.use_pallas}, no gradient penalty)")
+    if not state.critic.use_pallas:
+        raise SystemExit("the paper step's critic is not fused")
+    sites = critic_sites(torch, state.critic, size)
+    critic_kernels = phase_critic_kernels(torch, sites, bounds)
+
+    log("== phase 9.2: six paper steps with exact launch counts, fused vs unfused ==")
+    data = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    batches = [torch.rand((TRAIN_BATCH, size, size, 1), device="cuda", generator=data)
+               for _ in range(3)]
+    step = vt.make_paper_train_step(cfg_all)
+    for i in range(PAPER_STEPS):
+        before = dict(fused.LAUNCHES)
+        state, m = step(state, batches[i % 3], 2000 + i)
+        torch.cuda.synchronize()
+        got = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        vals = {k: float(v) for k, v in m.items()}
+        finite = all(v == v and abs(v) != float("inf") for v in vals.values())
+        log(f"paper step {i}: launches {got}, finite={finite}, "
+            + ", ".join(f"{k}={v:.6g}" for k, v in vals.items()))
+        if got != PAPER_LAUNCHES or not finite:
+            raise SystemExit(f"paper step {i}: launch counts {got} (want {PAPER_LAUNCHES}) or a "
+                             "non-finite loss")
+
+    def one_step(cfg_, x, inject):
+        st = vt.create_train_state(cfg_, device="cuda", seed=SEED)
+        grads = record_grads(st)
+        stp = vt.make_paper_train_step(cfg_, inject=inject)
+        st, m = stp(st, x, 7)
+        torch.cuda.synchronize()
+        rec = {"metrics": {k: float(v) for k, v in m.items()},
+               "grads": {k: {n: t.cpu() for n, t in v.items()} for k, v in grads.items()},
+               "draws": paper_draws(stp, st.generator) if cfg_.train.use_pallas == "all" else None}
+        del st
+        return rec
+
+    # the paper critic's real and x_p masks (x~ shares the real forward's), a prior sample
+    rng = torch.Generator().manual_seed(12)
+    inj = critic_draws(torch, state.critic, TRAIN_BATCH, rng, "cuda", ("real", "prior"))
+    inj["z_p"] = torch.randn((TRAIN_BATCH,) + tuple(vt.latent_shape(cfg_all)), generator=rng).cuda()
+    for flags in ("TF32 off", "default"):
+        if flags == "TF32 off":
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        else:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+        fused_rec = one_step(cfg_all, batches[0], inj)
+        if set(fused_rec["draws"]) != {"g_masks", "g_masks_p", "eps"}:
+            raise SystemExit(f"the fused paper step's draws: {sorted(fused_rec['draws'])}")
+        off_rec = one_step(cfg_off, batches[0], {**inj, **fused_rec["draws"]})
+        if not compare_steps(f"fused vs use_pallas='off' paper step, the masks of both generator "
+                             f"forwards and the critic's injected ({flags} flags)",
+                             fused_rec, off_rec):
+            raise SystemExit("the fused paper step disagrees with the unfused one")
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+
+    log(f"== phase 9.3: paper step numbers on {card_line} (float32, PyTorch's default flags) ==")
+    counter = iter(range(10 ** 6))
+    t_step = time_host(torch, lambda: step(state, batches[0], next(counter)), reps=10, warmup=3)
+    log(f"paper step batch {TRAIN_BATCH}: {t_step * 1e3:.3f} ms median of 10 after 3 warm-up, "
+        f"{TRAIN_BATCH / t_step:.2f} images/s [{card_line}]")
+    profile_step(torch, lambda: step(state, batches[1], next(counter)),
+                 f"one batch-{TRAIN_BATCH} paper step", card_line)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # ---- the paper path: vt.train of the preset, stopped at step 4 and resumed to
+    # 6, counts from 0 just before the first run and read after the second
+    tmp = tempfile.mkdtemp(prefix="vaegan_paper_")
+    try:
+        def loop_cfg(max_steps):
+            return cfg_all.replace(
+                data=cfg_all.data.replace(synthetic=True, synthetic_size=PAPER_LOOP_IMAGES,
+                                          synthetic_style="texture", batch_size=TRAIN_BATCH,
+                                          hbm_cache=True),
+                train=cfg_all.train.replace(
+                    n_epochs=2, max_steps=max_steps, sample_interval=2, checkpoint_every=2,
+                    log_every=2, nan_check=True, sample_dir=os.path.join(tmp, "samples"),
+                    checkpoint_dir=os.path.join(tmp, "ck")))
+
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        per_step, history = [], []
+        t0 = time.perf_counter()
+        for max_steps, resume in ((4, False), (PAPER_STEPS, True)):
+            logger = launch_logger(fused, MetricsLogger)(sinks=[], flush_every=2)
+            state, logger = vt.train(loop_cfg(max_steps), logger=logger, resume=resume)
+            per_step += logger.per_step
+            history += [m for m in logger.history if "_wall_s" not in m]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paper_launches = dict(fused.LAUNCHES)
+        grids = sorted(os.listdir(os.path.join(tmp, "samples")), key=lambda f: int(f.split(".")[0]))
+        kept = CheckpointManager(os.path.join(tmp, "ck")).all_steps()
+        want = [{k: v + (SAMPLER_LAUNCHES[k] if i % 2 == 0 else 0) for k, v in PAPER_LAUNCHES.items()}
+                for i in range(PAPER_STEPS)]
+        finite = all(v == v and abs(v) != float("inf") for m in history for v in m.values())
+        log(f"paper path: vt.train(preset('vaegan_paper')) on {PAPER_LOOP_IMAGES} synthetic images, "
+            f"stopped at step 4 and resumed to {state.step}: launches {paper_launches}; per step "
+            f"the step's plus the sampler's on grid steps: {per_step == want}; metrics finite="
+            f"{finite}; grids {grids}; checkpoints kept {kept}; {wall:.1f} s with its grids and "
+            f"saves [{card_line}]")
+        if (per_step != want or not finite or state.step != PAPER_STEPS
+                or len(history) != PAPER_STEPS):
+            raise SystemExit(f"paper path: launches {per_step[:2]} (want {want[:2]}), a non-finite "
+                             "metric or a missing step")
+        if grids != ["0.png", "2.png", "4.png"] or kept != [2, 4, 6]:
+            raise SystemExit(f"paper path: grids {grids}, checkpoints {kept}")
+        missing = [k for k, v in paper_launches.items() if v == 0 and PAPER_LAUNCHES[k]]
+        if missing:
+            raise SystemExit(f"paper path: kernels {missing} never launched")
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    accum_launches = phase_accum(torch, vt)
+    return {"critic": critic_kernels, "paper": paper_launches, "accum": accum_launches,
+            "step_s": t_step, "sites": sites}
+
+
 def ptxas_summary(report: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: the
     registers, shared memory and spills of each entry function."""
@@ -1582,14 +1993,28 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 8
     loop_launches = phase_loop(torch, vt, card_line, t4)
+
+    # ---------------------------------------------------------------- phase 9
+    paper = phase_paper(torch, vt, bounds, card_line, tf32_defaults)
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
-        f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s")
+        f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
+        f"{paper['step_s'] * 1e3:.3f} ms = {TRAIN_BATCH / paper['step_s']:.2f} images/s")
 
-    # launches: the training loop's (this slice's main path; it runs the step's
-    # kernels at the step's shapes, so row 1's top-level figures are the training
-    # path's); each path's launches, and row 1's serving figures, stand beside them
+    # launches: the notebook training loop's (phase 8: all five kernels at the
+    # step's shapes, so row 1's top-level figures are the training path's); each
+    # path's launches (the paper loop of phase 9 and the notebook's accumulating
+    # step among them), row 1's serving figures and rows 1-2's figures at the
+    # critic's sites stand beside them
     src = "vaegan_tpu_torch/csrc/"
+    paths = {"paper": paper["paper"], "accum": paper["accum"]}
+
+    def critic_figures(row):
+        c = paper["critic"][row]
+        return {"sites": c["sites"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "max_abs_err": c["max_abs_err"]}
+
     train_row1 = train_kernels["bn_act_dropout"]
     rows = [{
         "name": "bn_act_dropout", "route": "cuda", "source": src + "bn_act_dropout.cu",
@@ -1597,7 +2022,9 @@ def main() -> int:
         "launches": loop_launches["bn_act_dropout"],
         "launches_by_path": {"serving": main_path_launches,
                              "training": train_launches["bn_act_dropout"],
-                             "loop": loop_launches["bn_act_dropout"]},
+                             "loop": loop_launches["bn_act_dropout"],
+                             **{k: v["bn_act_dropout"] for k, v in paths.items()}},
+        "critic_sites": critic_figures("bn_act_dropout"),
         "ms_by_path": {"serving": summary["ms"], "training": train_row1["ms"]},
         "bound_by_path": {"serving": summary["bound_ms"], "training": train_row1["bound_ms"]},
         "max_abs_err": summary["max_abs_err"], "ms": train_row1["ms"],
@@ -1614,13 +2041,15 @@ def main() -> int:
                      "replaces": f"vaegan_tpu/ops/pallas_fused.py:{line}",
                      "launches": loop_launches[name],
                      "launches_by_path": {"training": train_launches[name],
-                                          "loop": loop_launches[name]},
+                                          "loop": loop_launches[name],
+                                          **{k: v[name] for k, v in paths.items()}},
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "bound_bytes_ms": k["bytes_ms"], "bound_instr_ms": k["instr_ms"]})
     # the least any one-launch kernel on row 5's grid takes: an empty kernel's time
     rows[-1]["launch_floor_ms"] = train_kernels["recon_loss_sums"]["floor_ms"]
+    rows[1]["critic_sites"] = critic_figures("bn_act_dropout_bwd")
     for line in build:      # again here: the start of a long log may be cut off
         log(line)
     log(card_line)

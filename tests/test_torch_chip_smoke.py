@@ -236,3 +236,113 @@ def test_state_trees_are_compared_bit_for_bit():
     assert chip_smoke.tree_diff(torch, a, c) == [".w", ".opt.lr"]
     assert chip_smoke.metrics_close({"d": 1.0001, "g": 5.0}, {"d": 1.0, "g": 5.0}) == []
     assert chip_smoke.metrics_close({"d": 1.001, "g": 5.0}, {"d": 1.0, "g": 5.0}) == ["d"]
+
+
+# ---------------------------------------------------------------- phase 9
+def _counting(monkeypatch):
+    """Count each kernel wrapper's calls on the CPU, where ``fused.LAUNCHES``
+    counts nothing (a CPU tensor goes to the plain version)."""
+    from vaegan_tpu_torch.ops import fused
+
+    counts = dict.fromkeys(fused.LAUNCHES, 0)
+    for name, fn in (("bn_act_dropout", "bn_act_dropout_forward"),
+                     ("bn_act_dropout_bwd", "bn_act_dropout_backward"),
+                     ("reparam_kl", "reparam_kl_forward"), ("reparam_kl_bwd", "reparam_kl_backward"),
+                     ("recon_loss_sums", "recon_loss_sums_forward")):
+        def wrapped(*a, _name=name, _orig=getattr(fused, fn), **k):
+            counts[_name] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(fused, fn, wrapped)
+    return counts
+
+
+@pytest.mark.parametrize("path", ["paper", "accum"])
+def test_phase9_launch_counts_are_the_steps(monkeypatch, path):
+    """The kernel calls of one step at the presets' full widths (at 32², on the
+    CPU) are the counts phase 9 holds the card to: the paper step's
+    (``PAPER_LAUNCHES``) and the notebook's grad_accum=2 G+D step's
+    (``ACCUM_LAUNCHES``)."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+
+    torch.set_num_threads(1)
+    name = "vaegan_paper" if path == "paper" else "notebook"
+    cfg = vt.preset(name)
+    cfg = cfg.replace(data=cfg.data.replace(image_size=32),
+                      train=cfg.train.replace(use_pallas="all",
+                                              grad_accum=2 if path == "accum" else 1))
+    state = vt.create_train_state(cfg, device="cpu")
+    step = vt.make_paper_train_step(cfg) if path == "paper" else vt.make_train_step(cfg, True)
+    counts = _counting(monkeypatch)
+    step(state, torch.rand(4 if path == "accum" else 2, 32, 32, 1), 3)
+    want = chip_smoke.PAPER_LAUNCHES if path == "paper" else chip_smoke.ACCUM_LAUNCHES
+    assert counts == want
+
+
+def test_paper_config_and_critic_sites():
+    """Phase 9 runs ``vaegan_paper`` uncut (96², batch 4, float32) with every
+    kernel on, and its critic fuses 7 BN sites: the stem's and two per block."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+
+    cfg = chip_smoke.paper_config(vt)
+    ref = vt.preset("vaegan_paper")
+    assert cfg.replace(train=cfg.train.replace(use_pallas=ref.train.use_pallas)) == ref
+    assert (cfg.data.image_size, cfg.data.batch_size, cfg.train.dtype,
+            cfg.train.use_pallas) == (96, chip_smoke.TRAIN_BATCH, "float32", "all")
+    _, critic = vt.build_models(cfg, device="cpu")
+    assert critic.use_pallas
+    assert chip_smoke.critic_sites(torch, critic, 96) == [
+        (64, 96, 96), (64, 96, 96), (128, 96, 96), (128, 96, 96), (256, 48, 48),
+        (256, 48, 48), (512, 24, 24)]
+
+
+def test_paper_critic_draws_and_state_copies():
+    """The injected critic masks cover each block's Dropout2d for the real and
+    x_p forwards; a copied state has the state's modules and optimizer states,
+    and shares no tensor with it."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+
+    cfg = chip_smoke.paper_config(vt)
+    cfg = cfg.replace(data=cfg.data.replace(image_size=32))
+    state = vt.create_train_state(cfg, device="cpu")
+    rng = torch.Generator().manual_seed(0)
+    inj = chip_smoke.critic_draws(torch, state.critic, 2, rng, "cpu", ("real", "prior"))
+    inj["z_p"] = torch.randn((2,) + tuple(vt.latent_shape(cfg)), generator=rng)
+    assert set(inj) == {"d_masks_real", "d_masks_prior", "alpha", "z_p"}
+    assert {k: tuple(v.shape) for k, v in inj["d_masks_real"].items()} == {
+        "res_layers.0.0.dropout": (2, 128, 1, 1), "res_layers.1.0.dropout": (2, 256, 1, 1),
+        "res_layers.2.0.dropout": (2, 512, 1, 1)}
+    assert tuple(inj["z_p"].shape) == (2, 8, 8, 256)
+    vt.make_paper_train_step(cfg, inject=inj)(state, torch.rand(2, 32, 32, 1), 1)
+    copy = chip_smoke.copy_state(torch, vt, cfg, state)
+    a, b = chip_smoke.state_tree(torch, copy), chip_smoke.state_tree(torch, state)
+    for part in ("generator", "critic", "opt_g", "opt_d"):
+        assert chip_smoke.tree_diff(torch, a[part], b[part]) == [], part
+    p = next(iter(state.opt_g.state.values()))["square_avg"]
+    q = next(iter(copy.opt_g.state.values()))["square_avg"]
+    assert torch.equal(p, q) and p.data_ptr() != q.data_ptr()
+
+
+def test_converge_spectral_reaches_each_weights_top_singular_value():
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.models.layers import Conv2D
+
+    cfg = chip_smoke.paper_config(vt)
+    cfg = cfg.replace(data=cfg.data.replace(image_size=32),
+                      discriminator=cfg.discriminator.replace(num_features_conv1=8,
+                                                              num_features_res=(8, 16, 16)))
+    _, critic = vt.build_models(cfg, device="cpu")
+    chip_smoke.converge_spectral(torch, critic)
+    for m in critic.modules():
+        if isinstance(m, Conv2D) and m.spectral:
+            w = m.weight_orig.detach().reshape(m.weight_orig.shape[0], -1)
+            sigma = m.weight_u @ (w @ m.weight_v)
+            assert float(sigma) == pytest.approx(float(torch.linalg.matrix_norm(w, 2)), rel=1e-4)

@@ -3,7 +3,9 @@
 Ported so far: the serving path (the eval-mode generator behind reconstruct /
 encode / decode / sample / interpolate and the serving bundle), the notebook's
 two-optimizer WGAN-GP train step (``create_train_state``, ``make_train_step``:
-generator, spectral-norm critic, losses, RMSprop), and the training loop around
+generator, spectral-norm critic, losses, RMSprop), the Larsen three-optimizer
+step (``make_paper_train_step``), gradient accumulation for both
+(``cfg.train.grad_accum``), and the training loop around
 it: the data feed (``data``: NIfTI decode, synthetic data, the host loader, a
 dataset resident on the card, pinned-buffer prefetch), ``train`` (callable:
 ``vaegan_tpu_torch.train(cfg)``), checkpoints (``CheckpointManager``), metric
@@ -39,6 +41,7 @@ from vaegan_tpu_torch.train import (
     build_models,
     create_generator_state,
     create_train_state,
+    make_paper_train_step,
     make_train_step,
 )
 from vaegan_tpu_torch.checkpoint import CheckpointManager
@@ -49,7 +52,7 @@ __all__ = [
     "TrainState", "TrainingDiverged", "UnsupervisedGeneratorNetwork", "build_generator",
     "build_models", "create_generator_state", "create_train_state", "data", "evaluate_mse",
     "experiment", "from_jax_variables", "interpolate", "latent_shape", "load_bundle",
-    "load_jax_train_state", "make_train_step", "mean_predictor_floor", "preset",
+    "load_jax_train_state", "make_paper_train_step", "make_train_step", "mean_predictor_floor", "preset",
     "recalibrate_bn_stats", "reconstruct", "sample", "save_bundle", "save_visual_evidence",
     "train", "utils", "visualize_reconstructions", "with_ema",
 ]

@@ -122,12 +122,24 @@ def from_jax_variables(variables: Mapping[str, Any],
     return out
 
 
+def _rms_nu(jopt) -> Mapping[str, Any]:
+    """The RMSprop ``nu`` tree of a JAX optimizer state; a three-optimizer
+    ``opt_g = {"enc", "dec"}`` gives its two trees merged."""
+    if isinstance(jopt, Mapping) and set(jopt) == {"enc", "dec"}:
+        return {**_rms_nu(jopt["enc"]), **_rms_nu(jopt["dec"])}
+    if not hasattr(jopt, "nu"):
+        raise ValueError("load_jax_train_state carries RMSprop state only")
+    return jopt.nu
+
+
 def load_jax_train_state(state, jstate, pool_shape: Tuple[int, int, int]):
     """Load a JAX ``TrainState`` (any object with its fields: ``step``,
     ``g_params``, ``d_params``, ``g_stats``, ``d_stats``, ``d_spectral``,
     ``opt_g``, ``opt_d``, ``g_metrics``, ``g_ema``) into the port's
     ``train.TrainState``, in place; returns it. The optimizers must be RMSprop:
-    the JAX ``RmsState.nu`` becomes each parameter's ``square_avg``."""
+    the JAX ``RmsState.nu`` becomes each parameter's ``square_avg``. A
+    three-optimizer state's ``opt_g = {"enc", "dec"}`` goes into the port's one
+    ``opt_g``: the encoder's and the decoder's ``nu`` trees are merged."""
     gen, critic = state.generator, state.critic
     gen.load_state_dict(from_jax_variables(
         {"params": jstate.g_params, "batch_stats": jstate.g_stats}), strict=True)
@@ -138,10 +150,10 @@ def load_jax_train_state(state, jstate, pool_shape: Tuple[int, int, int]):
     for opt, module, jopt, spectral, pool in (
             (state.opt_g, gen, jstate.opt_g, {}, None),
             (state.opt_d, critic, jstate.opt_d, jstate.d_spectral, pool_shape)):
-        if not isinstance(opt, torch.optim.RMSprop) or not hasattr(jopt, "nu"):
+        if not isinstance(opt, torch.optim.RMSprop):
             raise ValueError("load_jax_train_state carries RMSprop state only")
         # the spectral tree names the kernels that are ``weight_orig``
-        nu = from_jax_variables({"params": jopt.nu, "spectral": spectral}, pool)
+        nu = from_jax_variables({"params": _rms_nu(jopt), "spectral": spectral}, pool)
         for name, p in module.named_parameters():
             opt.state[p] = {"step": torch.tensor(float(step)),
                             "square_avg": nu[name].to(p.device)}

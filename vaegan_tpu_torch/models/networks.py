@@ -180,8 +180,14 @@ class UnsupervisedGeneratorNetwork(nn.Module):
         h = self.encoder(to_nchw(x.contiguous()), train=train)
         return to_nhwc(h if self.code_processor is None else self.code_processor.mu(h))
 
-    def decode(self, z: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        return to_nhwc(self.decoder(to_nchw(z.contiguous()), train=train))
+    def decode(self, z: torch.Tensor, *, train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               seeds: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Latents (B, h, w, C) -> images. In train mode (the Larsen step's prior
+        sample decode) ``generator`` and ``seeds`` draw the dropout as in
+        :meth:`forward`."""
+        return to_nhwc(self.decoder(to_nchw(z.contiguous()), train=train, generator=generator,
+                                    seeds=seeds))
 
 
 def critic_pool_shape(cfg: DiscriminatorConfig, image_size: int) -> Tuple[int, int, int]:

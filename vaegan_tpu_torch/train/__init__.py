@@ -19,16 +19,18 @@ from vaegan_tpu_torch.train.state import (
 from vaegan_tpu_torch.train.step import (
     fused_draws,
     lazy_gp_enabled,
+    make_paper_train_step,
     make_step_variants,
     make_train_step,
+    paper_draws,
 )
 from vaegan_tpu_torch.train.loop import TrainingDiverged, make_sampler, step_seed, train
 
 __all__ = [
     "GeneratorState", "TrainState", "TrainingDiverged", "build_generator", "build_models",
     "build_optimizer", "create_generator_state", "create_train_state", "fused_draws",
-    "lazy_gp_enabled", "make_sampler", "make_step_variants", "make_train_step",
-    "resolve_device", "step_seed", "train",
+    "lazy_gp_enabled", "make_paper_train_step", "make_sampler", "make_step_variants",
+    "make_train_step", "paper_draws", "resolve_device", "step_seed", "train",
 ]
 
 

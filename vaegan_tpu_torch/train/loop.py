@@ -4,7 +4,11 @@
 - the sample folder is wiped at the start of a fresh run (kept on resume);
 - the critic updates every batch, the generator every ``n_critics``-th batch of
   each epoch (``i`` restarts each epoch); under lazy GP (``gp_every > 1``) the
-  penalty runs on every ``gp_every``-th global step;
+  penalty runs on every ``gp_every``-th global step; under ``optim.scheme =
+  "three"`` the one paper step runs on every batch (``n_critics`` does not
+  apply);
+- with ``grad_accum > 1`` the default loader drops a partial last batch (it
+  could not be cut into microbatches);
 - every ``sample_interval`` batches a 5x5 grid of the step's own generated
   images is written as ``{batches_done}.png``, regenerated BEFORE the step from
   the same seed (:func:`make_sampler`), so no image leaves the card on other
@@ -22,7 +26,8 @@ Per-step seeds. The JAX loop draws a step's randomness from
 ``fold_in(key(seed), global_step)``. The port's step takes an int (it seeds a
 CPU ``torch.Generator`` for the fused kernels' seeds and one on the device for
 the rest), and :func:`step_seed` gives it: splitmix64's finalizer over
-``seed * 2**32 + global_step`` (both taken modulo 2**32). It is a pure function
+``seed * 2**32 + global_step`` (both taken modulo 2**32); an accumulating step
+derives its microbatches' seeds from it (``step.micro_seed``). It is a pure function
 of ``(cfg.train.seed, global_step)``, so a resumed run draws what an
 uninterrupted run draws, and on the CPU the two are equal bit for bit. The bits
 are not ``fold_in``'s: the port's draws are Philox and torch's generators.
@@ -43,59 +48,46 @@ from vaegan_tpu_torch.models.layers import precision
 from vaegan_tpu_torch.train.state import DTYPES, TrainState, create_train_state, resolve_device
 from vaegan_tpu_torch.train.step import (
     check_supported,
+    kept_buffers,
     lazy_gp_enabled,
+    make_paper_train_step,
     make_step_variants,
     make_train_step,
+    micro_seed,
+    step_seed,
 )
 from vaegan_tpu_torch.utils.metrics import MetricsLogger
-
-_M64 = (1 << 64) - 1
 
 
 class TrainingDiverged(RuntimeError):
     """Raised by the opt-in NaN guard (``cfg.train.nan_check``)."""
 
 
-def step_seed(seed: int, global_step: int) -> int:
-    """The int seed of global step ``global_step`` of a run seeded ``seed``."""
-    x = (((seed & 0xFFFFFFFF) << 32) | (global_step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
-    x &= _M64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
-    return x ^ (x >> 31)
-
-
 def make_sampler(cfg: Config) -> Callable:
     """``sample(state, batch, seed)`` -> the ``gen_imgs`` that ``step(state,
-    batch, seed)`` is about to train on.
+    batch, seed)`` is about to train on (with ``grad_accum > 1``, those of
+    microbatch 0, from its own seed, as the JAX sampler draws).
 
     The step seeds a CPU generator (the fused kernels' seeds) and a device
     generator (masks, noise) from ``seed``, and its generator forward is their
-    first consumer; the sampler seeds the same two and runs the same train-mode
-    forward, so it replays that forward draw for draw. Train-mode BN writes its
-    running statistics in place, so the sampler runs on clones of the
-    generator's buffers and puts the originals back: the state is left bitwise
-    as it was. The fused kernels it launches are counted in ``fused.LAUNCHES``
-    like any other launch.
+    first consumer, in both schemes; the sampler seeds the same two and runs the
+    same train-mode forward, so it replays that forward draw for draw. Train-mode
+    BN writes its running statistics in place, so the sampler runs on clones of
+    the generator's buffers (``step.kept_buffers``): the state is left bitwise as
+    it was. The fused kernels it launches are counted in ``fused.LAUNCHES`` like
+    any other launch.
     """
     dtype = DTYPES[cfg.train.dtype]
+    k = cfg.train.grad_accum
 
     @torch.no_grad()
     def sample(state: TrainState, batch: torch.Tensor, seed: int) -> torch.Tensor:
-        gen = state.generator
-        saved = [(m, dict(m._buffers)) for m in gen.modules() if m._buffers]
-        try:
-            for m, bufs in saved:
-                for k, v in bufs.items():
-                    if v is not None:
-                        m._buffers[k] = v.clone()
-            seeds = torch.Generator().manual_seed(seed)
-            rng = torch.Generator(device=batch.device).manual_seed(seed)
-            with precision(dtype):
-                out = gen(batch, train=True, generator=rng, seeds=seeds)
-        finally:
-            for m, bufs in saved:
-                m._buffers.update(bufs)
+        if k > 1:
+            seed, batch = micro_seed(seed, 0), batch[: batch.shape[0] // k]
+        seeds = torch.Generator().manual_seed(seed)
+        rng = torch.Generator(device=batch.device).manual_seed(seed)
+        with kept_buffers(state.generator), precision(dtype):
+            out = state.generator(batch, train=True, generator=rng, seeds=seeds)
         return out[0] if cfg.generator.is_vae else out
 
     return sample
@@ -120,7 +112,8 @@ def train(
     the caller asks for ``"cpu"``); a given ``state`` decides it instead.
     ``step_fns``: step overrides, either a ``(step_with_g, step_d_only)`` tuple
     or a dict keyed by ``(do_g_update, do_gp)`` (required when
-    ``cfg.train.gp_every > 1``); each is ``step(state, batch, seed) -> (state,
+    ``cfg.train.gp_every > 1``; under ``optim.scheme="three"`` only the
+    ``(True, True)`` step runs); each is ``step(state, batch, seed) -> (state,
     metrics)``. ``resume``: restore the latest checkpoint under
     ``cfg.train.checkpoint_dir`` and continue after its step.
     ``cfg.train.rng_impl`` names a JAX PRNG and is ignored (see
@@ -128,16 +121,21 @@ def train(
     """
     check_supported(cfg)
     tcfg = cfg.train
+    paper = cfg.optim.scheme == "three"
     dev = resolve_device(device) if state is None else _device(state)
     if loader is None:
-        loader = make_loader(cfg.data, seed=tcfg.seed, device=dev)
+        # a partial last batch cannot be cut into grad_accum microbatches
+        loader = make_loader(cfg.data, seed=tcfg.seed, device=dev,
+                             drop_last=True if tcfg.grad_accum > 1 else None)
     if state is None:
         state = create_train_state(cfg, device=dev)
     if logger is None:
         logger = MetricsLogger(flush_every=tcfg.log_every)
 
     lazy_gp = lazy_gp_enabled(cfg)
-    if step_fns is None:
+    if step_fns is None and paper:
+        steps = {(True, True): make_paper_train_step(cfg)}
+    elif step_fns is None:
         steps = make_step_variants(cfg, lambda do_g, do_gp, scale: make_train_step(
             cfg, do_g, do_gp=do_gp, gp_lambda_scale=scale))
     elif isinstance(step_fns, dict):
@@ -149,7 +147,7 @@ def train(
                 "(do_g_update, do_gp), got a 2-tuple")
         step_g, step_d = step_fns
         steps = {(True, True): step_g, (False, True): step_d}
-    need = {(True, True), (False, True)} | (
+    need = {(True, True)} if paper else {(True, True), (False, True)} | (
         {(True, False), (False, False)} if lazy_gp else set())
     missing = need - set(steps)
     if missing:
@@ -230,7 +228,8 @@ def train(
                            if tcfg.sample_interval > 0
                            and batches_done % tcfg.sample_interval == 0 else None)
             do_gp = (not lazy_gp) or (global_step % tcfg.gp_every == 0)
-            state, metrics = steps[(do_g, do_gp)](state, batch, seed)
+            step = steps[(True, True)] if paper else steps[(do_g, do_gp)]
+            state, metrics = step(state, batch, seed)
             logger.log(epoch, tcfg.n_epochs, i, n_batches, metrics)
             if tcfg.nan_check and (global_step + 1) % logger.flush_every == 0:
                 logger.flush()

@@ -108,7 +108,7 @@ def create_generator_state(cfg: Config, device="cuda",
 
 @dataclass
 class TrainState:
-    """Everything a two-optimizer train step reads and updates (in place)."""
+    """Everything a train step of either scheme reads and updates (in place)."""
 
     generator: UnsupervisedGeneratorNetwork
     critic: Discriminator
@@ -126,11 +126,16 @@ class TrainState:
 
 def create_train_state(cfg: Config, device="cuda", seed: Optional[int] = None) -> TrainState:
     """Models, optimizers (RMSprop or Adam with the ``lr_g``/``lr_d`` split),
-    zero G metrics and the EMA when ``cfg.train.ema_decay`` is set."""
-    if cfg.optim.scheme != "two":
-        raise NotImplementedError(
-            f"optim.scheme={cfg.optim.scheme!r}: the port has the notebook's two-optimizer "
-            "step only; the Larsen three-optimizer step is still to be ported (ROADMAP.md)")
+    zero G metrics and the EMA when ``cfg.train.ema_decay`` is set.
+
+    Both schemes keep one ``opt_g`` over all the generator's parameters. The JAX
+    package's three-optimizer state holds two instances of one transformation,
+    ``opt_g = {"enc", "dec"}``; RMSprop and Adam (decay coupled) are elementwise
+    with a step count per parameter, so one optimizer over both groups, stepped
+    once with both groups' gradients, is exactly that pair, and the state and
+    its checkpoints have one layout for both schemes."""
+    if cfg.optim.scheme not in ("two", "three"):
+        raise ValueError(f"optim.scheme must be 'two' or 'three', got {cfg.optim.scheme!r}")
     gen, critic = build_models(cfg, device, seed)
     dev = next(gen.parameters()).device
     return TrainState(

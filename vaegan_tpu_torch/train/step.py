@@ -1,6 +1,7 @@
-"""The two-optimizer train step (port of ``vaegan_tpu/train/step.py::make_train_step``).
+"""The train steps (port of ``vaegan_tpu/train/step.py``).
 
-One step is the reference's per-batch procedure, in its event order:
+``make_train_step`` is the notebook's two-optimizer step. One step is the
+reference's per-batch procedure, in its event order:
 
 D half (every step):
   1. one generator forward (train mode) producing gen_imgs;
@@ -18,23 +19,65 @@ G half (on ``do_g_update`` steps, every ``n_critics``-th):
      nothing reaches the critic's next update.
 
 On critic-only steps the returned G metrics are the previous step's, as the
-reference prints them. Metrics stay on the device: a step never syncs with the
-host. A float32 step runs under ``layers.ieee_float32``, so its backward and the
-penalty's double backward convolve in IEEE float32 too, not only its forwards.
+reference prints them.
+
+``make_paper_train_step`` is the Larsen et al. Algorithm-1 step (three
+optimizers; the ``vaegan_paper`` preset). One forward, in this order: the
+generator on the batch (x~, mu, log_var), a prior sample z_p ~ N(0, I), its
+train-mode decode x_p = Dec(z_p) (its own dropout draw; its BN running-statistic
+updates come after the x~ forward's), then the critic on the real batch, on x~
+and on x_p, each with its Dis_l features. Each group takes the gradient of its
+own loss in its own parameters, three ``torch.autograd.grad`` calls over that
+one graph:
+
+  enc_l = w_kl * L_prior + w_rec * L_llike            encoder + code processor
+  dec_l = gamma * w_rec * L_llike - w_adv * L_GAN     decoder
+  dis_l = w_adv * L_GAN                               critic
+
+with L_llike the MSE between the real and x~ features and L_GAN the BCE over
+{real: 1, x~: 0, x_p: 0}. This is the JAX step's "explicit" decomposition
+(its ``debug_grads`` hook), which the JAX tests hold equal to the one backward
+of its stop-gradient form that XLA needs. All three optimizers update after
+the losses; the clamp applies to WGAN configs only. With
+``loss.dis_l_shared_dropout`` the real and x~ critic forwards use one
+``Dropout2d`` draw (the device generator is rewound between them) and x_p draws
+its own.
+
+With ``cfg.train.grad_accum = k > 1`` both ``make_*`` functions return an
+accumulating step. The batch is cut into k microbatches; microbatch j draws
+from its own seed, :func:`micro_seed` ``(seed, j)``, and the summed gradients
+/ k make one update per optimizer. The two-optimizer step runs two passes, the critic's
+update between them as in the full step: pass 1 runs each microbatch's
+generator forward without a graph and sums the critic's gradients; pass 2
+recomputes each forward with the same seeds against the updated critic and
+leaves the generator's BN running statistics as pass 1 left them (the critic's
+BN and SN state advance in both passes). The paper step needs one pass. A
+sum-reduced KL is scaled by k in the microbatch loss, so the mean of the
+gradients is the full batch's, and the reported KL is the sum over the
+microbatches.
+
+Metrics stay on the device: a step never syncs with the host. A float32 step
+runs under ``layers.ieee_float32``, so its backward and the penalty's double
+backward convolve in IEEE float32 too, not only its forwards.
 
 Random draws come from ``seed``: the fused kernels' seeds from a CPU generator,
-the unfused dropout masks, noise and GP alphas from a generator on the batch's
-device. ``inject`` replaces draws with given tensors, as the JAX step's does, so
-one step can be held number for number against the JAX package's:
-``eps`` (B, h, w, C) noise, ``alpha`` (B,) GP mixing factors, and keep-masks
-``{module path: NCHW mask}`` per forward: ``g_masks`` (generator),
-``d_masks_real`` / ``d_masks_fake`` / ``d_masks_interp`` / ``d_masks_gen``
-(the critic's four forwards). :func:`fused_draws` gives a fused step's own draws
-in that form.
+the unfused dropout masks, noise, prior samples and GP alphas from a generator
+on the batch's device. ``inject`` replaces draws with given tensors, as the JAX
+step's does, so one step can be held number for number against the JAX
+package's: ``eps`` (B, h, w, C) noise, ``alpha`` (B,) GP mixing factors,
+``z_p`` (B, h, w, C) prior samples (paper step), and keep-masks ``{module path:
+NCHW mask}`` per forward: ``g_masks`` (the generator forward), ``g_masks_p``
+(the paper step's prior decode), ``d_masks_real`` / ``d_masks_fake`` /
+``d_masks_interp`` / ``d_masks_gen`` (the two-optimizer critic's four forwards)
+and ``d_masks_real`` / ``d_masks_tilde`` / ``d_masks_prior`` (the paper
+critic's three). :func:`fused_draws` and :func:`paper_draws` give a fused
+step's own draws in that form. An accumulating step takes ``eps``, ``alpha``
+and ``z_p`` only, cut along the batch like the images.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -47,20 +90,21 @@ from vaegan_tpu_torch.ops import fused
 from vaegan_tpu_torch.train.state import DTYPES, G_METRICS, TrainState
 
 Metrics = Dict[str, torch.Tensor]
+DrawRecord = Dict[str, Tuple[int, Tuple[int, ...]]]
+
+_M64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
 
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a configuration the port cannot train
     yet (the loop calls it before it touches the sample folder or a checkpoint)."""
-    if cfg.optim.scheme == "three":
-        raise NotImplementedError(
-            "optim.scheme='three': the Larsen three-optimizer step is still to be "
-            "ported (ROADMAP.md)")
-    if cfg.train.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is still to be ported (ROADMAP.md)")
     if cfg.train.critic_batching != "separate":
+        note = (" (under concat batching the JAX paper step scores real, x~ and x_p in "
+                "one critic forward, so it ignores loss.dis_l_shared_dropout)"
+                if cfg.optim.scheme == "three" else "")
         raise NotImplementedError(f"critic_batching={cfg.train.critic_batching!r} is still "
-                                  "to be ported (ROADMAP.md); use 'separate'")
+                                  f"to be ported (ROADMAP.md); use 'separate'{note}")
 
 
 def lazy_gp_enabled(cfg: Config) -> bool:
@@ -85,6 +129,50 @@ def make_step_variants(cfg: Config, builder) -> dict:
     return variants
 
 
+def _splitmix64(x: int) -> int:
+    x &= _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The int seed of global step ``global_step`` of a run seeded ``seed``:
+    splitmix64's finalizer over ``seed * 2**32 + global_step`` (both modulo
+    2**32) plus the golden gamma."""
+    return _splitmix64((((seed & 0xFFFFFFFF) << 32) | (global_step & 0xFFFFFFFF)) + _GOLDEN)
+
+
+def micro_seed(seed: int, j: int) -> int:
+    """The seed of microbatch ``j`` of an accumulating step seeded ``seed``: the
+    (j + 1)-th output of splitmix64 started at ``seed``, so the k microbatches of
+    one step draw from k distinct seeds."""
+    return _splitmix64(seed + (j + 1) * _GOLDEN)
+
+
+def _generators(seed: int, dev) -> Tuple[torch.Generator, torch.Generator]:
+    """(CPU generator for the fused kernels' seeds, generator on ``dev`` for the
+    rest), both seeded ``seed``."""
+    return torch.Generator().manual_seed(seed), torch.Generator(device=dev).manual_seed(seed)
+
+
+@contextlib.contextmanager
+def kept_buffers(module: torch.nn.Module):
+    """Run the body on clones of ``module``'s buffers and put the originals back
+    after: train-mode BN writes its running statistics in place, and a forward
+    inside leaves the module's state bitwise as it was."""
+    saved = [(m, dict(m._buffers)) for m in module.modules() if m._buffers]
+    try:
+        for m, bufs in saved:
+            for k, v in bufs.items():
+                if v is not None:
+                    m._buffers[k] = v.clone()
+        yield
+    finally:
+        for m, bufs in saved:
+            m._buffers.update(bufs)
+
+
 @torch.no_grad()
 def _ema_update(cfg: Config, g_ema: Optional[Dict[str, torch.Tensor]],
                 generator: UnsupervisedGeneratorNetwork) -> None:
@@ -96,33 +184,59 @@ def _ema_update(cfg: Config, g_ema: Optional[Dict[str, torch.Tensor]],
         g_ema[k].mul_(d).add_((1.0 - d) * p)
 
 
-def fused_draws(generator: UnsupervisedGeneratorNetwork) -> Dict[str, object]:
-    """The random draws of the generator's last fused train forward, as an
-    ``inject`` for an unfused step: ``g_masks`` (each fused dropout site's
-    Philox keep-mask, at the path of the block's Dropout module) and ``eps`` (the
-    ``reparam_kl`` noise, (B, h, w, C)), rebuilt with the plain versions from the
-    recorded seeds."""
+def draw_record(generator: UnsupervisedGeneratorNetwork) -> DrawRecord:
+    """``(seed, input shape)`` of each fused dropout site (at the path of the
+    block's Dropout module) and of the ``reparam_kl`` noise (``"eps"``), as the
+    generator's last fused train forward through each left them."""
+    rec: DrawRecord = {}
+    for name, m in generator.named_modules():
+        if isinstance(m, ResBlockVAE) and m.use_pallas and m.p > 0.0 \
+                and m.bn1.last_draw is not None:
+            rec[f"{name}.dropout"] = m.bn1.last_draw
+    cp = generator.code_processor
+    if cp is not None and cp.last_draw is not None:
+        rec["eps"] = cp.last_draw
+    return rec
+
+
+def fused_draws(generator: UnsupervisedGeneratorNetwork,
+                record: Optional[DrawRecord] = None) -> Dict[str, object]:
+    """The random draws of a fused train forward, as an ``inject`` for an
+    unfused step: ``g_masks`` (each fused dropout site's Philox keep-mask) and
+    ``eps`` (the ``reparam_kl`` noise, (B, h, w, C)), rebuilt with the plain
+    versions from ``record`` (default: :func:`draw_record` of the generator's
+    last forward)."""
+    record = draw_record(generator) if record is None else record
     dev = next(generator.parameters()).device
     out: Dict[str, object] = {}
     masks = {}
-    for name, m in generator.named_modules():
-        if isinstance(m, ResBlockVAE) and m.use_pallas and m.p > 0.0:
-            seed, shape = m.bn1.last_draw
+    for key, (seed, shape) in record.items():
+        if key == "eps":
+            out["eps"] = fused.reparam_noise(shape, seed, dev).permute(0, 2, 3, 1)
+        else:
+            p = generator.get_submodule(key.rsplit(".", 1)[0]).p
             x = torch.empty(shape, device=dev).contiguous(memory_format=torch.channels_last)
-            masks[f"{name}.dropout"] = fused.keep_mask(x, seed, m.p)
+            masks[key] = fused.keep_mask(x, seed, p)
     if masks:
         out["g_masks"] = masks
-    cp = generator.code_processor
-    if cp is not None and cp.last_draw is not None:
-        seed, shape = cp.last_draw
-        out["eps"] = fused.reparam_noise(shape, seed, dev).permute(0, 2, 3, 1)
     return out
 
 
-def _grads(loss: torch.Tensor, params) -> Tuple[torch.Tensor, ...]:
+def paper_draws(step: Callable, generator: UnsupervisedGeneratorNetwork) -> Dict[str, object]:
+    """The generator draws of the last call of a fused paper ``step``, as an
+    ``inject`` for an unfused one: ``g_masks`` and ``eps`` of the x~ forward,
+    ``g_masks_p`` of the prior decode."""
+    out = fused_draws(generator, step.draws["x"])
+    prior = fused_draws(generator, step.draws["p"]).get("g_masks")
+    if prior:
+        out["g_masks_p"] = prior
+    return out
+
+
+def _grads(loss: torch.Tensor, params, retain_graph: bool = False) -> Tuple[torch.Tensor, ...]:
     """d loss / d params; a parameter the loss does not reach gets zeros (as a
     JAX gradient tree would), so the optimizer still decays it."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = torch.autograd.grad(loss, params, allow_unused=True, retain_graph=retain_graph)
     return tuple(torch.zeros_like(p) if g is None else g for p, g in zip(params, grads))
 
 
@@ -132,6 +246,58 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
     opt.step()
     for p in params:
         p.grad = None
+
+
+def _add(total, terms):
+    return list(terms) if total is None else [a + t for a, t in zip(total, terms)]
+
+
+def _clamp(params, clip: float) -> None:
+    with torch.no_grad():
+        for p in params:
+            p.clamp_(-clip, clip)
+
+
+def _refuse_fused_masks(cfg: Config, inject: dict, keys) -> None:
+    found = [k for k in keys if k in inject]
+    if found and pallas_mode(cfg.train.use_pallas) == "all":
+        raise ValueError(
+            f"dropout-mask injection ({found}) is incompatible with use_pallas='all' "
+            "(the fused block kernel draws its own masks); use use_pallas='losses' or "
+            "'off' for parity replays")
+
+
+def _micro_injects(inject: dict, allowed, k: int, dev) -> list:
+    """``inject`` cut into k per-microbatch dicts along the batch."""
+    extra = sorted(set(inject) - set(allowed))
+    if extra:
+        raise ValueError(f"an accumulating step takes inject keys {sorted(allowed)} only "
+                         f"(each microbatch draws its own masks), got {extra}")
+    out = [{} for _ in range(k)]
+    for key, v in inject.items():
+        for j, part in enumerate(torch.as_tensor(v, device=dev).chunk(k)):
+            out[j][key] = part
+    return out
+
+
+def _cut(batch: torch.Tensor, k: int):
+    b = batch.shape[0]
+    if b % k:
+        raise ValueError(f"batch size {b} not divisible by grad_accum {k}")
+    return batch.chunk(k)
+
+
+def _gen_forward(cfg: Config, gen, batch, seeds, draws, inject):
+    """The generator's train forward: (gen_imgs, mu, log_var), zeros for a
+    non-VAE's mu and log_var."""
+    eps = inject.get("eps")
+    with inject_masks(gen, inject.get("g_masks")):
+        out = gen(batch, train=True, generator=draws, seeds=seeds,
+                  eps=None if eps is None else torch.as_tensor(eps, device=batch.device))
+    if cfg.generator.is_vae:
+        return out
+    zeros = torch.zeros((batch.shape[0], 1), device=batch.device)
+    return out, zeros, zeros
 
 
 def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
@@ -165,11 +331,13 @@ def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
     return d_loss, real_loss, fake_loss, gp
 
 
-def _gen_losses(cfg: Config, critic, batch, g_imgs, mu, lv, draws, inject):
+def _gen_losses(cfg: Config, critic, batch, g_imgs, mu, lv, draws, inject,
+                kl_scale: float = 1.0):
     """G-half loss. The reference runs the critic on gen_imgs even at adversarial
     weight 0 (its forward still advances BN and SN state); only the port's and
-    the JAX package's own ``adversarial="none"`` skips it. Returns
-    (g_loss, adv, recon, kl)."""
+    the JAX package's own ``adversarial="none"`` skips it. ``kl_scale`` scales
+    the KL term (accumulation's sum-reduced KL). Returns (g_loss, adv, recon,
+    kl)."""
     lcfg = cfg.loss
     want_feats = lcfg.reconstruction == "dis_l"
     no_adv = lcfg.adversarial == "none"
@@ -192,7 +360,7 @@ def _gen_losses(cfg: Config, critic, batch, g_imgs, mu, lv, draws, inject):
         recon = losses.pixel_reconstruction_loss(g_imgs, batch)
     kl = losses.kl_divergence(mu, lv, lcfg.kl_reduction)
     g_loss = (lcfg.adversarial_weight * adv + lcfg.reconstruction_weight * recon
-              + lcfg.kl_weight * kl)
+              + lcfg.kl_weight * kl_scale * kl)
     return g_loss, adv, recon, kl
 
 
@@ -202,7 +370,8 @@ def make_train_step(cfg: Config, do_g_update: bool,
     """The notebook's two-optimizer step. Returns
     ``step(state, batch, seed) -> (state, metrics)``: ``batch`` is (B, H, W, C) on
     the state's device, ``seed`` an int that decides every random draw; the state
-    is updated in place and returned.
+    is updated in place and returned. With ``cfg.train.grad_accum > 1`` the step
+    accumulates over microbatches (module docstring).
 
     ``do_gp=False`` is the lazy-regularization off-step (no penalty, no
     grad-of-grad); ``gp_lambda_scale`` multiplies ``loss.lambda_gp`` and is set by
@@ -212,30 +381,19 @@ def make_train_step(cfg: Config, do_g_update: bool,
     """
     check_supported(cfg)
     inject = dict(inject or {})
-    if "g_masks" in inject and pallas_mode(cfg.train.use_pallas) == "all":
-        raise ValueError(
-            "dropout-mask injection (g_masks) is incompatible with use_pallas='all' "
-            "(the fused block kernel draws its own masks); use use_pallas='losses' or "
-            "'off' for parity replays")
+    _refuse_fused_masks(cfg, inject, ("g_masks",))
+    if cfg.train.grad_accum > 1:
+        return _make_accum_train_step(cfg, do_g_update, inject, do_gp, gp_lambda_scale)
     dtype = DTYPES[cfg.train.dtype]
     clip = cfg.loss.clip_value
 
     def step(state: TrainState, batch: torch.Tensor, seed: int) -> Tuple[TrainState, Metrics]:
         gen, critic = state.generator, state.critic
-        dev = batch.device
-        seeds = torch.Generator().manual_seed(seed)
-        draws = torch.Generator(device=dev).manual_seed(seed)
-        eps = inject.get("eps")
+        seeds, draws = _generators(seed, batch.device)
         with precision(dtype):
             # ---- generator forward, ONCE; its graph serves the G half ----------
-            with torch.set_grad_enabled(do_g_update), inject_masks(gen, inject.get("g_masks")):
-                out = gen(batch, train=True, generator=draws, seeds=seeds,
-                          eps=None if eps is None else torch.as_tensor(eps, device=dev))
-            if cfg.generator.is_vae:
-                gen_imgs, mu, lv = out
-            else:
-                gen_imgs = out
-                mu = lv = torch.zeros((batch.shape[0], 1), device=dev)
+            with torch.set_grad_enabled(do_g_update):
+                gen_imgs, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject)
             gen_sg = gen_imgs.detach()
 
             # ---- discriminator half --------------------------------------------
@@ -244,9 +402,7 @@ def make_train_step(cfg: Config, do_g_update: bool,
                 cfg, critic, batch, gen_sg, draws, inject, do_gp, gp_lambda_scale)
             _apply(state.opt_d, d_params, _grads(d_loss, d_params))
             if clip is not None:
-                with torch.no_grad():
-                    for p in d_params:
-                        p.clamp_(-clip, clip)
+                _clamp(d_params, clip)
 
             # ---- generator half, scored by the UPDATED critic ------------------
             if do_g_update:
@@ -261,5 +417,222 @@ def make_train_step(cfg: Config, do_g_update: bool,
         metrics = {"d_loss": d_loss.detach(), "d_real_loss": real_loss.detach(),
                    "d_fake_loss": fake_loss.detach(), "gp": gp.detach(), **state.g_metrics}
         return state, metrics
+
+    return step
+
+
+def _make_accum_train_step(cfg: Config, do_g_update: bool, inject: dict, do_gp: bool,
+                           gp_lambda_scale: float) -> Callable:
+    """The two-optimizer step over ``cfg.train.grad_accum`` microbatches (port of
+    ``make_accum_train_step``; see the module docstring)."""
+    k = int(cfg.train.grad_accum)
+    dtype = DTYPES[cfg.train.dtype]
+    lcfg = cfg.loss
+    clip = lcfg.clip_value
+    kl_scale = float(k) if lcfg.kl_reduction == "sum" else 1.0
+
+    def step(state: TrainState, batch: torch.Tensor, seed: int) -> Tuple[TrainState, Metrics]:
+        gen, critic = state.generator, state.critic
+        micro = _cut(batch, k)
+        injects = _micro_injects(inject, ("eps", "alpha"), k, batch.device)
+        mseeds = [micro_seed(seed, j) for j in range(k)]
+        d_params = list(critic.parameters())
+        with precision(dtype):
+            # ---- pass 1: critic gradients summed over the microbatches ---------
+            d_sum, d_msum, resume_at = None, None, []
+            for x, inj, s in zip(micro, injects, mseeds):
+                seeds, draws = _generators(s, batch.device)
+                with torch.no_grad():
+                    gen_sg = _gen_forward(cfg, gen, x, seeds, draws, inj)[0]
+                out = _critic_loss(cfg, critic, x, gen_sg, draws, inj, do_gp, gp_lambda_scale)
+                d_sum = _add(d_sum, _grads(out[0], d_params))
+                d_msum = _add(d_msum, [t.detach() for t in out])
+                # pass 2's critic forwards continue this microbatch's stream here,
+                # as the full step's G half continues its D half's
+                resume_at.append(draws.get_state())
+            _apply(state.opt_d, d_params, [g / k for g in d_sum])
+            if clip is not None:
+                _clamp(d_params, clip)
+            d_loss, real_loss, fake_loss, gp = (t / k for t in d_msum)
+
+            # ---- pass 2: generator gradients against the updated critic --------
+            if do_g_update:
+                g_params = list(gen.parameters())
+                g_sum, g_msum = None, None
+                with kept_buffers(gen):      # the recompute keeps pass 1's BN statistics
+                    for x, inj, s, at in zip(micro, injects, mseeds, resume_at):
+                        seeds, draws = _generators(s, batch.device)
+                        g_imgs, mu, lv = _gen_forward(cfg, gen, x, seeds, draws, inj)
+                        draws.set_state(at)
+                        out = _gen_losses(cfg, critic, x, g_imgs, mu, lv, draws, inj, kl_scale)
+                        g_sum = _add(g_sum, _grads(out[0], g_params))
+                        g_msum = _add(g_msum, [t.detach() for t in out[1:]])
+                _apply(state.opt_g, g_params, [g / k for g in g_sum])
+                _ema_update(cfg, state.g_ema, gen)
+                adv, recon, kl_sum = g_msum
+                adv, recon = adv / k, recon / k
+                kl = kl_sum if lcfg.kl_reduction == "sum" else kl_sum / k
+                g_loss = (lcfg.adversarial_weight * adv + lcfg.reconstruction_weight * recon
+                          + lcfg.kl_weight * kl)
+                state.g_metrics = dict(zip(G_METRICS, (g_loss, adv, recon, kl)))
+        state.step += 1
+        metrics = {"d_loss": d_loss, "d_real_loss": real_loss, "d_fake_loss": fake_loss,
+                   "gp": gp, **state.g_metrics}
+        return state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the Larsen Algorithm-1 step
+# ---------------------------------------------------------------------------
+
+def _paper_groups(gen: UnsupervisedGeneratorNetwork, critic):
+    """The three optimizer groups: encoder + code processor, decoder, critic."""
+    enc = list(gen.encoder.parameters()) + list(gen.code_processor.parameters())
+    return enc, list(gen.decoder.parameters()), list(critic.parameters())
+
+
+def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
+                  kl_scale: float = 1.0):
+    """Algorithm 1's forward over one (micro)batch. Returns ``((enc_l, dec_l,
+    dis_l), (l_prior, l_llike, l_gan, bce_real, bce_fake), (x~ record, prior
+    decode record))``, the records being :func:`draw_record`'s."""
+    lcfg, dev = cfg.loss, batch.device
+    x_tilde, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject)
+    rec_x = draw_record(gen)
+    z_p = inject.get("z_p")
+    z_p = (torch.randn(mu.shape, generator=draws, device=dev, dtype=mu.dtype) if z_p is None
+           else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
+    with inject_masks(gen, inject.get("g_masks_p")):
+        x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds)
+    rec_p = {k: v for k, v in draw_record(gen).items() if k.startswith("decoder.")}
+
+    shared = lcfg.dis_l_shared_dropout
+    m_real = inject.get("d_masks_real")
+    m_tilde = inject.get("d_masks_tilde", m_real if shared else None)
+
+    def d(x, masks):
+        with inject_masks(critic, masks):
+            return critic(x, train=True, return_features=True, generator=draws)
+
+    rewind = draws.get_state() if shared else None
+    l_real, f_real = d(batch, m_real)
+    if rewind is not None:      # x~ draws the real forward's masks again
+        draws.set_state(rewind)
+    l_tilde, f_tilde = d(x_tilde, m_tilde)
+    l_p, _ = d(x_p, inject.get("d_masks_prior"))
+
+    l_prior = losses.kl_divergence(mu, lv, lcfg.kl_reduction)
+    l_llike = losses.feature_matching_loss(f_real, f_tilde)
+    bce_real = losses.bce_with_logits(l_real, 1.0)
+    bce_fake = losses.bce_with_logits(l_tilde, 0.0) + losses.bce_with_logits(l_p, 0.0)
+    l_gan = bce_real + bce_fake
+    enc_l = lcfg.kl_weight * kl_scale * l_prior + lcfg.reconstruction_weight * l_llike
+    dec_l = (cfg.optim.gamma * lcfg.reconstruction_weight * l_llike
+             - lcfg.adversarial_weight * l_gan)
+    dis_l = lcfg.adversarial_weight * l_gan
+    return (enc_l, dec_l, dis_l), (l_prior, l_llike, l_gan, bce_real, bce_fake), (rec_x, rec_p)
+
+
+def _paper_grads(groups, group_losses):
+    """Each group's gradient of its own loss, over one graph."""
+    last = len(groups) - 1
+    return [_grads(loss, params, retain_graph=i < last)
+            for i, (params, loss) in enumerate(zip(groups, group_losses))]
+
+
+def _paper_update(cfg: Config, state: TrainState, groups, grads) -> None:
+    """All three optimizers after the losses (one ``opt_g`` holds the encoder
+    and decoder groups: see ``train.state``), the clamp for WGAN configs only
+    (the notebook's WGAN device; Algorithm 1 has none, and the default
+    ``clip_value`` would cripple a BCE critic), then the EMA."""
+    (enc, dec, dis), (g_enc, g_dec, g_dis) = groups, grads
+    _apply(state.opt_g, enc + dec, list(g_enc) + list(g_dec))
+    _apply(state.opt_d, dis, g_dis)
+    if cfg.loss.clip_value is not None and cfg.loss.adversarial == "wgan":
+        _clamp(dis, cfg.loss.clip_value)
+    _ema_update(cfg, state.g_ema, state.generator)
+
+
+def _paper_metrics(state: TrainState, g_loss, d_loss, l_gan, l_llike, l_prior, bce_real,
+                   bce_fake) -> Metrics:
+    state.g_metrics = dict(zip(G_METRICS, (t.detach() for t in
+                                           (g_loss, l_gan, l_llike, l_prior))))
+    return {"d_loss": d_loss.detach(), "d_real_loss": bce_real.detach(),
+            "d_fake_loss": bce_fake.detach(), "gp": torch.zeros((), device=d_loss.device),
+            **state.g_metrics}
+
+
+def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = None) -> Callable:
+    """Larsen et al. Algorithm 1 (three optimizers; module docstring). Returns
+    ``step(state, batch, seed) -> (state, metrics)`` like :func:`make_train_step`.
+    Metrics: ``d_loss`` = dis_l, ``d_real_loss`` = the BCE on the real batch,
+    ``d_fake_loss`` = the BCE on x~ plus the one on x_p, ``gp`` = 0, ``g_loss`` =
+    enc_l + dec_l, ``adv_loss`` = L_GAN, ``recon_loss`` = L_llike, ``kl`` =
+    L_prior. After a call, ``step.draws`` holds the :func:`draw_record` of its x~
+    forward (``"x"``) and prior decode (``"p"``); :func:`paper_draws` rebuilds
+    them as an ``inject``. ``g_masks`` / ``g_masks_p`` with ``use_pallas="all"``
+    raise, as in :func:`make_train_step`."""
+    check_supported(cfg)
+    if not cfg.generator.is_vae:
+        raise ValueError("the Larsen Algorithm-1 step requires a VAE code distribution "
+                         "(generator.is_vae=True); use make_train_step for plain-AE "
+                         "configurations")
+    inject = dict(inject or {})
+    _refuse_fused_masks(cfg, inject, ("g_masks", "g_masks_p"))
+    if cfg.train.grad_accum > 1:
+        return _make_paper_accum_step(cfg, inject)
+    dtype = DTYPES[cfg.train.dtype]
+
+    def step(state: TrainState, batch: torch.Tensor, seed: int) -> Tuple[TrainState, Metrics]:
+        seeds, draws = _generators(seed, batch.device)
+        groups = _paper_groups(state.generator, state.critic)
+        with precision(dtype):
+            group_losses, aux, records = _paper_losses(cfg, state.generator, state.critic,
+                                                       batch, seeds, draws, inject)
+            grads = _paper_grads(groups, group_losses)
+            _paper_update(cfg, state, groups, grads)
+        step.draws = dict(zip(("x", "p"), records))
+        enc_l, dec_l, dis_l = group_losses
+        l_prior, l_llike, l_gan, bce_real, bce_fake = aux
+        state.step += 1
+        return state, _paper_metrics(state, enc_l + dec_l, dis_l, l_gan, l_llike, l_prior,
+                                     bce_real, bce_fake)
+
+    step.draws = None
+    return step
+
+
+def _make_paper_accum_step(cfg: Config, inject: dict) -> Callable:
+    """The Algorithm-1 step over ``cfg.train.grad_accum`` microbatches (port of
+    ``_make_paper_accum_step``): one pass, each group's gradients summed, all
+    three optimizers after the last microbatch."""
+    k = int(cfg.train.grad_accum)
+    dtype = DTYPES[cfg.train.dtype]
+    lcfg = cfg.loss
+    kl_scale = float(k) if lcfg.kl_reduction == "sum" else 1.0
+
+    def step(state: TrainState, batch: torch.Tensor, seed: int) -> Tuple[TrainState, Metrics]:
+        micro = _cut(batch, k)
+        injects = _micro_injects(inject, ("eps", "z_p"), k, batch.device)
+        groups = _paper_groups(state.generator, state.critic)
+        sums, msum = [None] * 3, None
+        with precision(dtype):
+            for j, (x, inj) in enumerate(zip(micro, injects)):
+                seeds, draws = _generators(micro_seed(seed, j), batch.device)
+                group_losses, aux, _ = _paper_losses(cfg, state.generator, state.critic, x,
+                                                     seeds, draws, inj, kl_scale)
+                for i, g in enumerate(_paper_grads(groups, group_losses)):
+                    sums[i] = _add(sums[i], g)
+                enc_l, dec_l, dis_l = group_losses
+                msum = _add(msum, [t.detach() for t in (enc_l + dec_l, dis_l, *aux)])
+            _paper_update(cfg, state, groups, [[g / k for g in s] for s in sums])
+        g_loss, d_loss, l_prior, l_llike, l_gan, bce_real, bce_fake = (t / k for t in msum)
+        if lcfg.kl_reduction == "sum":
+            l_prior = l_prior * k          # the full batch's KL is the sum over microbatches
+        state.step += 1
+        return state, _paper_metrics(state, g_loss, d_loss, l_gan, l_llike, l_prior,
+                                     bce_real, bce_fake)
 
     return step
