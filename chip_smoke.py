@@ -75,7 +75,21 @@ Phases, each of which exits non-zero on failure:
    preset stopped at step 4 and resumed to 6 (grids, checkpoints, launches per
    step: the paper path); ``grad_accum=2`` of each scheme on duplicated
    microbatches at dropout 0 against the full-batch step, and one accumulating
-   notebook step with its launches counted (the accum path, all five kernels).
+   notebook step with its launches counted (the accum path, all five kernels);
+10. critic batching and the single-card surface. 10.1: the notebook step at
+   full width with ``critic_batching`` "separate", "concat" and "concat3"
+   (four steps each with exact launch counts, step ms and peak memory side by
+   side); ``vaegan_paper`` under "concat" (four steps: one fused critic forward
+   over batch 12, 25 / 45 / 1 / 1 / 0 launches a step); rows 1-2 at the
+   critic's 7 sites over batch 12, as phase 9.1; the fused concat paper step
+   against the unfused one with its generator draws replayed. 10.2: the CLI,
+   each command in its own process: ``print-config`` (its JSON, with
+   ``use_pallas`` "all", configures the rest), ``train`` of the notebook
+   preset for 4 steps with its launches counted (all five kernels),
+   ``eval``, ``sample``, ``interpolate``, ``export`` then ``import`` (bitwise
+   round trip), ``export-serving`` and a ``load_bundle`` reconstruct,
+   ``search`` (one trial at 64²). 10.3: each mode of ``python -m
+   vaegan_tpu_torch.bench`` (its JSON line) and ``entry()``'s forward.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -85,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import io
 import json
 import os
 import re
@@ -1395,13 +1410,13 @@ def critic_sites(torch, critic, size):
     return shapes
 
 
-def phase_critic_kernels(torch, sites, bounds):
-    """Rows 1-2 at the critic's fused sites (slope 0.2, p = 0), bitwise against
-    their plain versions, timed beside their bounds."""
+def phase_critic_kernels(torch, sites, bounds, batch=TRAIN_BATCH, phase="9.1"):
+    """Rows 1-2 at the critic's fused sites (slope 0.2, p = 0) over ``batch``
+    images, bitwise against their plain versions, timed beside their bounds."""
     from vaegan_tpu_torch.ops import fused
 
-    log(f"== phase 9.1: rows 1-2 at the critic's {len(sites)} fused BN sites (vaegan_paper, batch "
-        f"{TRAIN_BATCH}, slope {CRITIC_SLOPE}, p = 0, f32; timing and tolerances as phase 5) ==")
+    log(f"== phase {phase}: rows 1-2 at the critic's {len(sites)} fused BN sites (vaegan_paper, "
+        f"batch {batch}, slope {CRITIC_SLOPE}, p = 0, f32; timing and tolerances as phase 5) ==")
     big = torch.randn(4096, 4096, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(9))
     busy = lambda: big @ big  # noqa: E731
@@ -1425,8 +1440,8 @@ def phase_critic_kernels(torch, sites, bounds):
         var = torch.rand(c, device="cuda", generator=g) + 0.5
         scale = torch.rand(c, device="cuda", generator=g) + 0.5
         bias = torch.randn(c, device="cuda", generator=g) * 0.1
-        x = cl(torch.randn(TRAIN_BATCH, c, h, w, device="cuda", generator=g))
-        gy = cl(torch.randn(TRAIN_BATCH, c, h, w, device="cuda", generator=g))
+        x = cl(torch.randn(batch, c, h, w, device="cuda", generator=g))
+        gy = cl(torch.randn(batch, c, h, w, device="cuda", generator=g))
         args = (mean, var, scale, bias, 0, CRITIC_SLOPE, 0.0)
         n = x.numel()
         # row 1
@@ -1734,6 +1749,299 @@ def phase_paper(torch, vt, bounds, card_line, tf32_defaults):
             "step_s": t_step, "sites": sites}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: concat / concat3 critic batching and the single-card surface
+# ---------------------------------------------------------------------------
+
+# one vaegan_paper step under critic_batching="concat": the critic's 7 sites run
+# once, over cat(real, x~, x_p). Forwards 12 + 6 + 7; backwards: encoder 7 + 6 +
+# 6, decoder 7 + 6 + 6 (x~ and x_p), critic 7
+PAPER_CONCAT_LAUNCHES = {"bn_act_dropout": 25, "bn_act_dropout_bwd": 45, "reparam_kl": 1,
+                         "reparam_kl_bwd": 1, "recon_loss_sums": 0}
+CONCAT_PLAN = (True, True, False, True)     # G+D, G+D, critic only, G+D
+# the CLI's train of the notebook preset (n_critics 1, a grid every 20 batches):
+# four G+D steps and the sampler's forward before step 0
+CLI_STEPS = 4
+CLI_TRAIN_LAUNCHES = {k: CLI_STEPS * v + SAMPLER_LAUNCHES[k]
+                      for k, v in STEP_LAUNCHES[True].items()}
+# the bench's step counts cut for time (its knobs' defaults otherwise)
+BENCH_STEPS = {"": "40", "--paper": "5", "--vae": "5", "--loop": "40", "--infer": "10",
+               "--loader": "20"}
+# runs the CLI in a fresh process and prints the kernel launches it made
+CLI_COUNTING = ("import json, sys\n"
+                "import torch\n"
+                "from vaegan_tpu_torch import cli\n"
+                "from vaegan_tpu_torch.ops import fused\n"
+                "fused.reset_launches()\n"
+                "rc = cli.main(sys.argv[1:])\n"
+                "torch.cuda.synchronize()\n"
+                "print('launches ' + json.dumps(dict(fused.LAUNCHES)))\n"
+                "sys.exit(rc)\n")
+
+
+def concat_config(vt, name, batching, mode="all"):
+    """Preset ``name`` uncut with ``critic_batching`` and ``use_pallas``."""
+    cfg = vt.preset(name)
+    return cfg.replace(train=cfg.train.replace(critic_batching=batching, use_pallas=mode))
+
+
+def counted_steps(torch, fused, what, step_of, state, batches, want_of, seed):
+    """Run ``step_of(i)`` on each batch, each step's launches held to
+    ``want_of(i)``; returns the state and the path's launches (counts set to 0
+    just before the first step)."""
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    for i, x in enumerate(batches):
+        before = dict(fused.LAUNCHES)
+        state, m = step_of(i)(state, x, seed + i)
+        torch.cuda.synchronize()
+        got = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        vals = {k: float(v) for k, v in m.items()}
+        finite = all(v == v and abs(v) != float("inf") for v in vals.values())
+        log(f"{what} step {i}: launches {got}, finite={finite}, "
+            + ", ".join(f"{k}={v:.6g}" for k, v in vals.items()))
+        if got != want_of(i) or not finite:
+            raise SystemExit(f"{what} step {i}: launches {got} (want {want_of(i)}) or a "
+                             "non-finite loss")
+    return state, dict(fused.LAUNCHES)
+
+
+def phase_concat(torch, vt, bounds, card_line, sites):
+    """Phase 10.1: ``concat`` / ``concat3`` at full width on the card."""
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.train import paper_draws
+
+    size = vt.preset("notebook").data.image_size
+    log(f"== phase 10.1: critic batching, preset('notebook') {size}x{size} batch {TRAIN_BATCH} "
+        "float32 use_pallas='all' (the critic unfused under the penalty), four steps each "
+        "(G+D, G+D, critic only, G+D) with exact launch counts, then step ms (median of 5 G+D "
+        "steps after 1) and peak memory beside 'separate' ==")
+    data = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    batches = [torch.rand((TRAIN_BATCH, size, size, 1), device="cuda", generator=data)
+               for _ in range(len(CONCAT_PLAN))]
+    paths, numbers = {}, {}
+    for batching in ("separate", "concat", "concat3"):
+        cfg = concat_config(vt, "notebook", batching)
+        state = vt.create_train_state(cfg, device="cuda", seed=SEED)
+        steps = {g: vt.make_train_step(cfg, g) for g in (True, False)}
+        torch.cuda.reset_peak_memory_stats()
+        state, paths[batching] = counted_steps(
+            torch, fused, f"notebook {batching}", lambda i: steps[CONCAT_PLAN[i]], state, batches,
+            lambda i: STEP_LAUNCHES[CONCAT_PLAN[i]], 3000)
+        counter = iter(range(10 ** 6))
+        t = time_host(torch, lambda: steps[True](state, batches[0], 3100 + next(counter)),
+                      reps=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        numbers[batching] = (t, peak)
+        log(f"notebook {batching}: G+D step {t * 1e3:.3f} ms median of 5 "
+            f"({TRAIN_BATCH / t:.2f} images/s), peak device memory {peak:.2f} GiB; path launches "
+            f"{paths[batching]} [{card_line}]")
+        del state, steps
+        torch.cuda.empty_cache()
+    for batching in ("concat", "concat3"):
+        t, peak = numbers[batching]
+        log(f"notebook {batching} against separate: step {t * 1e3:.3f} vs "
+            f"{numbers['separate'][0] * 1e3:.3f} ms ({t / numbers['separate'][0]:.3f}x), peak "
+            f"{peak:.2f} vs {numbers['separate'][1]:.2f} GiB [{card_line}]")
+
+    # ---- the paper step under concat: the critic fused, one forward over batch 12
+    cfg_all = concat_config(vt, "vaegan_paper", "concat")
+    cfg_off = concat_config(vt, "vaegan_paper", "concat", "off")
+    psize = cfg_all.data.image_size
+    log(f"== phase 10.1: preset('vaegan_paper') {psize}x{psize} batch {TRAIN_BATCH} with "
+        "critic_batching='concat': four steps with exact launch counts (one critic forward "
+        f"over batch {3 * TRAIN_BATCH}, critic fused) ==")
+    state = vt.create_train_state(cfg_all, device="cuda", seed=SEED)
+    if not state.critic.use_pallas:
+        raise SystemExit("the concat paper step's critic is not fused")
+    step = vt.make_paper_train_step(cfg_all)
+    pbatches = [torch.rand((TRAIN_BATCH, psize, psize, 1), device="cuda", generator=data)
+                for _ in range(4)]
+    state, paths["paper_concat"] = counted_steps(
+        torch, fused, "paper concat", lambda i: step, state, pbatches,
+        lambda i: PAPER_CONCAT_LAUNCHES, 4000)
+    counter = iter(range(10 ** 6))
+    t_paper = time_host(torch, lambda: step(state, pbatches[0], 4100 + next(counter)), reps=5,
+                        warmup=1)
+    log(f"paper concat step batch {TRAIN_BATCH}: {t_paper * 1e3:.3f} ms median of 5 "
+        f"({TRAIN_BATCH / t_paper:.2f} images/s) [{card_line}]")
+    del state, step
+    torch.cuda.empty_cache()
+    critic = phase_critic_kernels(torch, sites, bounds, batch=3 * TRAIN_BATCH, phase="10.1")
+
+    # ---- fused against unfused concat paper step, the generator draws replayed
+    def one_step(cfg_, inject):
+        st = vt.create_train_state(cfg_, device="cuda", seed=SEED)
+        grads = record_grads(st)
+        stp = vt.make_paper_train_step(cfg_, inject=inject)
+        st, m = stp(st, pbatches[0], 7)
+        torch.cuda.synchronize()
+        rec = {"metrics": {k: float(v) for k, v in m.items()},
+               "grads": {k: {n: t.cpu() for n, t in v.items()} for k, v in grads.items()},
+               "draws": paper_draws(stp, st.generator) if cfg_.train.use_pallas == "all" else None}
+        del st
+        return rec
+
+    z_p = torch.randn((TRAIN_BATCH,) + tuple(vt.latent_shape(cfg_all)),
+                      generator=torch.Generator().manual_seed(13)).to("cuda")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    fused_rec = one_step(cfg_all, {"z_p": z_p})
+    off_rec = one_step(cfg_off, {"z_p": z_p, **fused_rec["draws"]})
+    if not compare_steps("fused vs use_pallas='off' concat paper step, the masks of both "
+                         "generator forwards injected, the critic's one forward drawing from "
+                         "the same stream (TF32 off)", fused_rec, off_rec):
+        raise SystemExit("the fused concat paper step disagrees with the unfused one")
+    torch.cuda.empty_cache()
+    return {"paths": paths, "critic": critic, "numbers": numbers, "paper_s": t_paper}
+
+
+def run_cli(commands, cwd, timeout=900):
+    """CLI commands, each in its own process and all started together: each is
+    ``(args, counting)``, run as ``python -m vaegan_tpu_torch.cli args`` or, when
+    counting, through the wrapper that prints the kernel launches. Exits on a
+    non-zero return code (after the other processes end). Returns each
+    command's stdout."""
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        ([sys.executable, "-c", CLI_COUNTING] if counting else
+         [sys.executable, "-m", "vaegan_tpu_torch.cli"]) + args, cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for args, counting in commands]
+    outs, failed = [], []
+    try:
+        for (args, _), proc in zip(commands, procs):
+            out, err = proc.communicate(timeout=timeout)
+            lines = out.strip().splitlines()
+            log(f"cli {args[0]}: rc {proc.returncode} after {time.perf_counter() - t0:.1f} s; "
+                f"{lines[-1] if lines else '(no output)'}")
+            if proc.returncode != 0:
+                log(out[-3000:])
+                log(err[-3000:])
+                failed.append(args[0])
+            outs.append(out)
+    finally:
+        for proc in procs:          # none outlives the phase, whatever happened
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise SystemExit(f"cli {failed} exited non-zero")
+    return outs
+
+
+def phase_cli(torch, vt, card_line):
+    """Phase 10.2: every model subcommand of the CLI on the card, each in its
+    own process; the commands that do not depend on each other run at once."""
+    import shutil
+
+    log("== phase 10.2: the CLI (python -m vaegan_tpu_torch.cli), each command in its own "
+        "process, on the card; independent commands started together (times are since "
+        "their group started) ==")
+    tmp = tempfile.mkdtemp(prefix="vaegan_cli_")
+    try:
+        p = lambda *a: os.path.join(tmp, *a)  # noqa: E731
+        (out,) = run_cli([(["print-config", "--preset", "notebook"], False)], tmp)
+        cfg = json.loads(out)
+        cfg["train"]["use_pallas"] = "all"
+        cfg["train"]["sample_dir"] = p("samples")
+        with open(p("cfg.json"), "w") as f:
+            json.dump(cfg, f)
+        common = ["--config", p("cfg.json"), "--synthetic", "--checkpoint", p("ck")]
+        out, _ = run_cli([
+            (["train", *common, "--max-steps", str(CLI_STEPS), "--metrics-jsonl",
+              p("m.jsonl")], True),
+            (["search", "--preset", "notebook", "--synthetic", "--image-size", "64",
+              "--trials", "1", "--max-steps-per-trial", "2", "--results", p("r", "params.json"),
+              "--archive", p("r", "archive")], False)], tmp)
+        launches = json.loads(out.strip().splitlines()[-1].split(" ", 1)[1])
+        metrics = [json.loads(x) for x in open(p("m.jsonl"))]
+        finite = all(v == v and abs(v) != float("inf") for m in metrics for v in m.values())
+        log(f"cli train (notebook, 256², batch 4, use_pallas all, {CLI_STEPS} steps): launches "
+            f"{launches} (want {CLI_TRAIN_LAUNCHES}), {len(metrics)} metric lines, finite={finite}")
+        if launches != CLI_TRAIN_LAUNCHES or len(metrics) != CLI_STEPS or not finite:
+            raise SystemExit("cli train: wrong launch counts or metrics")
+        with open(p("r", "params.json")) as f:
+            registry = json.load(f)
+        log(f"cli search (64², 1 trial of 2 steps): registry {[e['status'] for e in registry]}, "
+            f"mse {[e.get('recon_mse') for e in registry]}")
+        if [e["status"] for e in registry] != ["ok"]:
+            raise SystemExit(f"cli search: registry {registry}")
+        evaluated = run_cli([
+            (["eval", *common], False),
+            (["sample", *common, "-n", "25", "-o", p("s.png")], False),
+            (["interpolate", *common, "-o", p("i.png")], False),
+            (["export", *common, "--generator-out", p("g.pt"), "--discriminator-out", p("d.pt")],
+             False),
+            (["export-serving", *common, "--out", p("bundle")], False)], tmp)[0]
+        if "Mean squared error" not in evaluated:
+            raise SystemExit("cli eval printed no MSE")
+        run_cli([(["import", "--config", p("cfg.json"), "--checkpoint", p("ck2"),
+                   "--generator", p("g.pt"), "--discriminator", p("d.pt")], False)], tmp)
+        a, b = (torch.load(os.path.join(d, f"{vt.CheckpointManager(d).latest_step()}.pt"),
+                           map_location="cpu", weights_only=True) for d in (p("ck"), p("ck2")))
+        same = {net: a[net].keys() == b[net].keys()
+                and all(torch.equal(a[net][k], b[net][k]) for k in a[net])
+                for net in ("generator", "critic")}
+        log(f"cli export then import: step {a['step']} -> {b['step']}, state_dicts bitwise "
+            f"equal {same}")
+        if not all(same.values()) or b["step"] != 0:
+            raise SystemExit("cli export/import does not round-trip bitwise")
+        bundle = vt.load_bundle(p("bundle"), device="cuda")
+        x = torch.rand((2, 256, 256, 1), device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(5))
+        recon, mse = bundle.reconstruct(x)
+        finite = bool(torch.isfinite(recon).all()) and float(mse) == float(mse)
+        log(f"load_bundle of the exported bundle: reconstruct {tuple(recon.shape)}, mse "
+            f"{float(mse)!r}, finite={finite}")
+        if not finite or tuple(recon.shape) != (2, 256, 256, 1):
+            raise SystemExit("the CLI's serving bundle does not reconstruct")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_bench(torch, vt, card_line):
+    """Phase 10.3: each mode of the port's bench once, and ``entry()``."""
+    from vaegan_tpu_torch import bench
+    from vaegan_tpu_torch.entry import entry
+    from vaegan_tpu_torch.ops import fused
+
+    log(f"== phase 10.3: python -m vaegan_tpu_torch.bench, each mode at its knobs' defaults "
+        f"with BENCH_STEPS cut to {BENCH_STEPS} (a headline or loop run times whole 40-step "
+        "cycles whatever BENCH_STEPS asks) ==")
+    out = {}
+    for mode, steps in BENCH_STEPS.items():
+        os.environ["BENCH_STEPS"] = steps
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(([mode] if mode else []) + ["--device", "cuda"])
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        for rec in lines:
+            log(json.dumps(rec) + f" [{card_line}]")
+        log(f"bench {mode or '(default)'}: rc {rc}, {time.perf_counter() - t0:.1f} s")
+        if rc != 0 or not lines or not all(r["value"] > 0 for r in lines):
+            raise SystemExit(f"bench {mode}: rc {rc}, lines {lines}")
+        out[mode or "step"] = lines
+        torch.cuda.empty_cache()
+    del os.environ["BENCH_STEPS"]
+
+    forward, (gen, x) = entry()
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    y = forward(gen, x)
+    torch.cuda.synchronize()
+    launches = dict(fused.LAUNCHES)
+    finite = bool(torch.isfinite(y).all())
+    log(f"entry(): forward {tuple(x.shape)} -> {tuple(y.shape)}, finite={finite}, launches "
+        f"{launches}")
+    if not finite or tuple(y.shape) != tuple(x.shape) or launches["bn_act_dropout"] != 12:
+        raise SystemExit("entry(): wrong output or launches")
+    return out
+
+
 def ptxas_summary(report: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: the
     registers, shared memory and spills of each entry function."""
@@ -1996,10 +2304,18 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 9
     paper = phase_paper(torch, vt, bounds, card_line, tf32_defaults)
+
+    # ---------------------------------------------------------------- phase 10
+    concat = phase_concat(torch, vt, bounds, card_line, paper["sites"])
+    cli_launches = phase_cli(torch, vt, card_line)
+    phase_bench(torch, vt, card_line)
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
-        f"{paper['step_s'] * 1e3:.3f} ms = {TRAIN_BATCH / paper['step_s']:.2f} images/s")
+        f"{paper['step_s'] * 1e3:.3f} ms = {TRAIN_BATCH / paper['step_s']:.2f} images/s; "
+        "notebook G+D step by critic batching: " + ", ".join(
+            f"{k} {v[0] * 1e3:.3f} ms" for k, v in concat["numbers"].items())
+        + f"; paper concat step {concat['paper_s'] * 1e3:.3f} ms")
 
     # launches: the notebook training loop's (phase 8: all five kernels at the
     # step's shapes, so row 1's top-level figures are the training path's); each
@@ -2007,10 +2323,11 @@ def main() -> int:
     # step among them), row 1's serving figures and rows 1-2's figures at the
     # critic's sites stand beside them
     src = "vaegan_tpu_torch/csrc/"
-    paths = {"paper": paper["paper"], "accum": paper["accum"]}
+    paths = {"paper": paper["paper"], "accum": paper["accum"], **concat["paths"],
+             "cli_train": cli_launches}
 
-    def critic_figures(row):
-        c = paper["critic"][row]
+    def critic_figures(row, run=paper["critic"]):
+        c = run[row]
         return {"sites": c["sites"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "max_abs_err": c["max_abs_err"]}
@@ -2025,6 +2342,7 @@ def main() -> int:
                              "loop": loop_launches["bn_act_dropout"],
                              **{k: v["bn_act_dropout"] for k, v in paths.items()}},
         "critic_sites": critic_figures("bn_act_dropout"),
+        "critic_sites_concat": critic_figures("bn_act_dropout", concat["critic"]),
         "ms_by_path": {"serving": summary["ms"], "training": train_row1["ms"]},
         "bound_by_path": {"serving": summary["bound_ms"], "training": train_row1["bound_ms"]},
         "max_abs_err": summary["max_abs_err"], "ms": train_row1["ms"],
@@ -2050,6 +2368,7 @@ def main() -> int:
     # the least any one-launch kernel on row 5's grid takes: an empty kernel's time
     rows[-1]["launch_floor_ms"] = train_kernels["recon_loss_sums"]["floor_ms"]
     rows[1]["critic_sites"] = critic_figures("bn_act_dropout_bwd")
+    rows[1]["critic_sites_concat"] = critic_figures("bn_act_dropout_bwd", concat["critic"])
     for line in build:      # again here: the start of a long log may be cut off
         log(line)
     log(card_line)

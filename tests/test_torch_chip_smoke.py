@@ -346,3 +346,59 @@ def test_converge_spectral_reaches_each_weights_top_singular_value():
             w = m.weight_orig.detach().reshape(m.weight_orig.shape[0], -1)
             sigma = m.weight_u @ (w @ m.weight_v)
             assert float(sigma) == pytest.approx(float(torch.linalg.matrix_norm(w, 2)), rel=1e-4)
+
+
+# ---------------------------------------------------------------- phase 10
+@pytest.mark.parametrize("path", ["notebook-concat", "notebook-concat3", "paper-concat"])
+def test_phase10_launch_counts_are_the_steps(monkeypatch, path):
+    """The kernel calls of each step phase 10.1 counts on the card, at the
+    presets' full widths (at 32², on the CPU): a notebook G+D and critic-only
+    step under ``concat`` / ``concat3`` launch what a separate one does (the
+    critic is unfused under the penalty); a ``concat`` paper step runs the
+    critic's 7 fused sites once (``PAPER_CONCAT_LAUNCHES``)."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+
+    torch.set_num_threads(1)
+    name, batching = path.split("-")
+    cfg = chip_smoke.concat_config(vt, "vaegan_paper" if name == "paper" else "notebook",
+                                   batching)
+    cfg = cfg.replace(data=cfg.data.replace(image_size=32))
+    state = vt.create_train_state(cfg, device="cpu")
+    plan = (True,) if name == "paper" else (True, False)
+    for do_g in plan:
+        step = vt.make_paper_train_step(cfg) if name == "paper" else vt.make_train_step(cfg, do_g)
+        counts = _counting(monkeypatch)
+        step(state, torch.rand(2, 32, 32, 1), 3)
+        monkeypatch.undo()
+        want = chip_smoke.PAPER_CONCAT_LAUNCHES if name == "paper" else \
+            chip_smoke.STEP_LAUNCHES[do_g]
+        assert counts == want, do_g
+
+
+def test_phase10_cli_train_launch_counts(monkeypatch, tmp_path, capsys):
+    """``cli train`` as phase 10.2 runs it (the notebook preset from
+    ``print-config`` with ``use_pallas`` "all", ``--synthetic``, 4 steps), at 32²
+    on the CPU: the kernel calls are ``CLI_TRAIN_LAUNCHES`` (four G+D steps and
+    the sampler's forward), and the counting wrapper runs the CLI."""
+    import json
+
+    import torch
+
+    from vaegan_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    assert cli.main(["print-config", "--preset", "notebook"]) == 0
+    cfg = json.loads(capsys.readouterr().out)
+    cfg["train"]["use_pallas"] = "all"
+    cfg["train"]["sample_dir"] = str(tmp_path / "samples")
+    cfg["data"]["image_size"] = 32
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    counts = _counting(monkeypatch)
+    assert cli.main(["train", "--config", str(tmp_path / "cfg.json"), "--synthetic",
+                     "--max-steps", str(chip_smoke.CLI_STEPS), "--device", "cpu"]) == 0
+    assert counts == chip_smoke.CLI_TRAIN_LAUNCHES
+    assert "cli.main(sys.argv[1:])" in chip_smoke.CLI_COUNTING
+    assert all(k in chip_smoke.CLI_TRAIN_LAUNCHES and v > 0
+               for k, v in chip_smoke.CLI_TRAIN_LAUNCHES.items())

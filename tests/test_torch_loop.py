@@ -343,23 +343,19 @@ def test_nan_guard_raises_training_diverged(tmp_path):
     {"optim": ("scheme", "three")},
     {"train": ("grad_accum", 2)},
     {"train": ("critic_batching", "concat")},
-], ids=["three-optimizer", "grad-accum", "concat"])
+    {"train": ("critic_batching", "concat3")},
+], ids=["three-optimizer", "grad-accum", "concat", "concat3"])
 def test_unsupported_configs_raise_before_touching_the_run_folders(tmp_path, change):
-    """``concat`` critic batching is still refused, before the sample folder or a
-    checkpoint is touched. The three-optimizer step and gradient accumulation,
-    refused until they were ported, now train: two steps with finite metrics
-    and a grid."""
+    """Configurations the port once refused before touching the sample folder
+    or a checkpoint (the three-optimizer step, gradient accumulation, ``concat``
+    and ``concat3`` critic batching) now train: two steps with finite metrics
+    and a grid, in a freshly wiped sample folder."""
     cfg = tiny_cfg(tmp_path, checkpoint_dir=str(tmp_path / "ck"))
     (part, (field, value)), = change.items()
     cfg = cfg.replace(**{part: getattr(cfg, part).replace(**{field: value})})
     stale = tmp_path / "samples_p" / "stale.png"
     stale.parent.mkdir()
     stale.write_bytes(b"x")
-    if field == "critic_batching":
-        with pytest.raises(NotImplementedError):
-            vt.train(cfg, device="cpu")
-        assert stale.exists() and not (tmp_path / "ck").exists()
-        return
     state, logger = run(cfg.replace(train=cfg.train.replace(max_steps=2)))
     assert state.step == 2
     history = steps_of(logger)

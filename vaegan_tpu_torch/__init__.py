@@ -4,12 +4,15 @@ Ported so far: the serving path (the eval-mode generator behind reconstruct /
 encode / decode / sample / interpolate and the serving bundle), the notebook's
 two-optimizer WGAN-GP train step (``create_train_state``, ``make_train_step``:
 generator, spectral-norm critic, losses, RMSprop), the Larsen three-optimizer
-step (``make_paper_train_step``), gradient accumulation for both
-(``cfg.train.grad_accum``), and the training loop around
+step (``make_paper_train_step``), gradient accumulation and the ``concat`` /
+``concat3`` critic batchings for both (``cfg.train.grad_accum``,
+``cfg.train.critic_batching``), and the training loop around
 it: the data feed (``data``: NIfTI decode, synthetic data, the host loader, a
 dataset resident on the card, pinned-buffer prefetch), ``train`` (callable:
 ``vaegan_tpu_torch.train(cfg)``), checkpoints (``CheckpointManager``), metric
-sinks and sample grids (``utils``) and ``experiment``. Every TPU kernel of the
+sinks and sample grids (``utils``) and ``experiment``; and the single-card
+surface: the CLI (``python -m vaegan_tpu_torch.cli``), ``search``, ``entry``
+and the bench (``python -m vaegan_tpu_torch.bench``). Every TPU kernel of the
 JAX package is a hand-written CUDA kernel here (``ops.fused``: ``bn_act_dropout``
 forward and backward, ``reparam_kl`` forward and backward, ``recon_loss_sums``).
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``. The

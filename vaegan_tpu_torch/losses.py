@@ -81,12 +81,24 @@ def gradient_penalty(critic: Callable[[torch.Tensor], torch.Tensor], real: torch
     taken with ``create_graph=True``, so differentiating the penalty in the
     critic's parameters is a grad-of-grad. A train-mode critic advances its BN
     statistics and spectral (u, v) in this forward, as the reference's does."""
-    b = real.shape[0]
-    alpha = alpha.float().reshape(b, 1, 1, 1)
-    interp = (alpha * real.float() + (1.0 - alpha) * fake.float()).to(real.dtype)
-    interp.requires_grad_(True)
+    interp = interpolates(real, fake, alpha)
     logits = critic(interp)
     (grads,) = torch.autograd.grad(logits.float().sum(), interp, create_graph=True)
-    grads = grads.reshape(b, -1).float()
+    return penalty_of(grads)
+
+
+def interpolates(real: torch.Tensor, fake: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """x_hat = alpha * real + (1 - alpha) * fake (taken in float32, returned in
+    ``real``'s dtype), with ``requires_grad`` set for the penalty's inner
+    gradient."""
+    alpha = alpha.float().reshape(real.shape[0], 1, 1, 1)
+    interp = (alpha * real.float() + (1.0 - alpha) * fake.float()).to(real.dtype)
+    return interp.requires_grad_(True)
+
+
+def penalty_of(grads: torch.Tensor) -> torch.Tensor:
+    """E[(||g||_2 - 1)^2] over the batch of input gradients ``grads``, each
+    sample's norm sqrt(sum g^2 + 1e-24)."""
+    grads = grads.reshape(grads.shape[0], -1).float()
     norms = torch.sqrt(torch.sum(torch.square(grads), dim=1) + 1e-24)
     return torch.mean(torch.square(norms - 1.0))

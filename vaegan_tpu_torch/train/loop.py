@@ -47,7 +47,6 @@ from vaegan_tpu_torch.data.pipeline import device_prefetch, make_loader
 from vaegan_tpu_torch.models.layers import precision
 from vaegan_tpu_torch.train.state import DTYPES, TrainState, create_train_state, resolve_device
 from vaegan_tpu_torch.train.step import (
-    check_supported,
     kept_buffers,
     lazy_gp_enabled,
     make_paper_train_step,
@@ -119,7 +118,6 @@ def train(
     ``cfg.train.rng_impl`` names a JAX PRNG and is ignored (see
     :func:`step_seed`).
     """
-    check_supported(cfg)
     tcfg = cfg.train
     paper = cfg.optim.scheme == "three"
     dev = resolve_device(device) if state is None else _device(state)

@@ -43,6 +43,15 @@ the losses; the clamp applies to WGAN configs only. With
 ``Dropout2d`` draw (the device generator is rewound between them) and x_p draws
 its own.
 
+``cfg.train.critic_batching = "concat"`` / ``"concat3"`` (the JAX package's
+throughput options; their BN statistics mix the batches, a documented
+deviation from the reference) score the critic's batches in one forward:
+real and fake in the two-optimizer D half (with ``"concat3"`` and a penalty,
+the interpolates too: :func:`_critic_loss`), real, x~ and x_p in the paper
+step, which then has no pair of forwards for ``dis_l_shared_dropout`` to
+share a draw between. The G half's critic forward is separate in every mode.
+Per-forward critic masks cannot be injected under them (``ValueError``).
+
 With ``cfg.train.grad_accum = k > 1`` both ``make_*`` functions return an
 accumulating step. The batch is cut into k microbatches; microbatch j draws
 from its own seed, :func:`micro_seed` ``(seed, j)``, and the summed gradients
@@ -96,15 +105,7 @@ _M64 = (1 << 64) - 1
 _GOLDEN = 0x9E3779B97F4A7C15
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port cannot train
-    yet (the loop calls it before it touches the sample folder or a checkpoint)."""
-    if cfg.train.critic_batching != "separate":
-        note = (" (under concat batching the JAX paper step scores real, x~ and x_p in "
-                "one critic forward, so it ignores loss.dis_l_shared_dropout)"
-                if cfg.optim.scheme == "three" else "")
-        raise NotImplementedError(f"critic_batching={cfg.train.critic_batching!r} is still "
-                                  f"to be ported (ROADMAP.md); use 'separate'{note}")
+CONCAT = ("concat", "concat3")
 
 
 def lazy_gp_enabled(cfg: Config) -> bool:
@@ -267,6 +268,15 @@ def _refuse_fused_masks(cfg: Config, inject: dict, keys) -> None:
             "'off' for parity replays")
 
 
+def _refuse_concat_masks(cfg: Config, inject: dict, keys) -> None:
+    found = [k for k in keys if k in inject]
+    if found and cfg.train.critic_batching in CONCAT:
+        raise ValueError(
+            f"per-forward critic masks ({found}) cannot be injected under "
+            f"critic_batching={cfg.train.critic_batching!r}: one critic forward scores the "
+            "concatenated batches and draws its own masks; use 'separate' for parity replays")
+
+
 def _micro_injects(inject: dict, allowed, k: int, dev) -> list:
     """``inject`` cut into k per-microbatch dicts along the batch."""
     extra = sorted(set(inject) - set(allowed))
@@ -303,31 +313,57 @@ def _gen_forward(cfg: Config, gen, batch, seeds, draws, inject):
 def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
                  gp_lambda_scale: float):
     """D-half loss: critic on real, on detached fakes, gradient penalty on the
-    interpolates. Returns (d_loss, real_loss, fake_loss, gp)."""
+    interpolates. Returns (d_loss, real_loss, fake_loss, gp).
+
+    ``cfg.train.critic_batching``: ``"separate"`` runs one critic forward per
+    batch, as the reference does; ``"concat"`` scores real and fake in one
+    forward over ``cat(real, fake)`` and runs the penalty's forward on its own;
+    ``"concat3"`` with a penalty runs one forward over ``cat(real, fake,
+    interp)`` and takes the penalty's input gradient through it, so the
+    interpolates enter the BN statistics too (without a penalty it is
+    ``"concat"``). Each forward advances the critic's BN and SN state once."""
     lcfg = cfg.loss
     use_gp = do_gp and lcfg.adversarial == "wgan" and lcfg.lambda_gp > 0.0
+    lam_gp = lcfg.lambda_gp * gp_lambda_scale
+    batching = cfg.train.critic_batching
+    b = batch.shape[0]
 
-    def d(x, masks):
+    def d(x, masks=None):
         with inject_masks(critic, masks):
             return critic(x, train=True, generator=draws)
 
-    real_logits = d(batch, inject.get("d_masks_real"))
-    fake_logits = d(gen_sg, inject.get("d_masks_fake"))
+    def alpha():
+        a = inject.get("alpha")
+        if a is None:
+            a = torch.rand((b, 1, 1, 1), generator=draws, device=batch.device)
+        return torch.as_tensor(a, device=batch.device)
+
+    if batching == "concat3" and use_gp:
+        interp = losses.interpolates(batch, gen_sg, alpha())
+        all3 = d(torch.cat([batch, gen_sg.to(batch.dtype), interp]))
+        (gi,) = torch.autograd.grad(all3[2 * b:].float().sum(), interp, create_graph=True)
+        gp = losses.penalty_of(gi)
+        # use_gp implies wgan; a bce critic takes the concat branch below
+        real_loss, fake_loss = losses.wgan_critic_loss(all3[:b], all3[b:2 * b])
+        return real_loss + fake_loss + lam_gp * gp, real_loss, fake_loss, gp
+
+    if batching in CONCAT:
+        both = d(torch.cat([batch, gen_sg.to(batch.dtype)]))
+        real_logits, fake_logits = both[:b], both[b:]
+    else:
+        real_logits = d(batch, inject.get("d_masks_real"))
+        fake_logits = d(gen_sg, inject.get("d_masks_fake"))
     if lcfg.adversarial == "bce":
         real_loss = losses.bce_with_logits(real_logits, 1.0)
         fake_loss = losses.bce_with_logits(fake_logits, 0.0)
     else:  # wgan (also "none": the critic still trains, unused by G)
         real_loss, fake_loss = losses.wgan_critic_loss(real_logits, fake_logits)
     if use_gp:
-        b = batch.shape[0]
-        alpha = inject.get("alpha")
-        if alpha is None:
-            alpha = torch.rand((b, 1, 1, 1), generator=draws, device=batch.device)
         gp = losses.gradient_penalty(lambda x: d(x, inject.get("d_masks_interp")),
-                                     batch, gen_sg, torch.as_tensor(alpha, device=batch.device))
+                                     batch, gen_sg, alpha())
     else:
         gp = torch.zeros((), device=batch.device)
-    d_loss = real_loss + fake_loss + lcfg.lambda_gp * gp_lambda_scale * gp
+    d_loss = real_loss + fake_loss + lam_gp * gp
     return d_loss, real_loss, fake_loss, gp
 
 
@@ -379,9 +415,9 @@ def make_train_step(cfg: Config, do_g_update: bool,
     from the config here. ``inject``: see the module docstring; ``g_masks`` with
     ``use_pallas="all"`` raises, because the fused kernel draws its own masks.
     """
-    check_supported(cfg)
     inject = dict(inject or {})
     _refuse_fused_masks(cfg, inject, ("g_masks",))
+    _refuse_concat_masks(cfg, inject, ("d_masks_real", "d_masks_fake", "d_masks_interp"))
     if cfg.train.grad_accum > 1:
         return _make_accum_train_step(cfg, do_g_update, inject, do_gp, gp_lambda_scale)
     dtype = DTYPES[cfg.train.dtype]
@@ -508,20 +544,27 @@ def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
         x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds)
     rec_p = {k: v for k, v in draw_record(gen).items() if k.startswith("decoder.")}
 
-    shared = lcfg.dis_l_shared_dropout
-    m_real = inject.get("d_masks_real")
-    m_tilde = inject.get("d_masks_tilde", m_real if shared else None)
-
-    def d(x, masks):
+    def d(x, masks=None):
         with inject_masks(critic, masks):
             return critic(x, train=True, return_features=True, generator=draws)
 
-    rewind = draws.get_state() if shared else None
-    l_real, f_real = d(batch, m_real)
-    if rewind is not None:      # x~ draws the real forward's masks again
-        draws.set_state(rewind)
-    l_tilde, f_tilde = d(x_tilde, m_tilde)
-    l_p, _ = d(x_p, inject.get("d_masks_prior"))
+    if cfg.train.critic_batching in CONCAT:
+        # one forward scores real, x~ and x_p, so dis_l_shared_dropout has no pair
+        # of forwards to act on
+        b = batch.shape[0]
+        logits, feats = d(torch.cat([batch, x_tilde.to(batch.dtype), x_p.to(batch.dtype)]))
+        l_real, l_tilde, l_p = logits[:b], logits[b:2 * b], logits[2 * b:]
+        f_real, f_tilde = feats[:b], feats[b:2 * b]
+    else:
+        shared = lcfg.dis_l_shared_dropout
+        m_real = inject.get("d_masks_real")
+        m_tilde = inject.get("d_masks_tilde", m_real if shared else None)
+        rewind = draws.get_state() if shared else None
+        l_real, f_real = d(batch, m_real)
+        if rewind is not None:      # x~ draws the real forward's masks again
+            draws.set_state(rewind)
+        l_tilde, f_tilde = d(x_tilde, m_tilde)
+        l_p, _ = d(x_p, inject.get("d_masks_prior"))
 
     l_prior = losses.kl_divergence(mu, lv, lcfg.kl_reduction)
     l_llike = losses.feature_matching_loss(f_real, f_tilde)
@@ -574,13 +617,13 @@ def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = Non
     forward (``"x"``) and prior decode (``"p"``); :func:`paper_draws` rebuilds
     them as an ``inject``. ``g_masks`` / ``g_masks_p`` with ``use_pallas="all"``
     raise, as in :func:`make_train_step`."""
-    check_supported(cfg)
     if not cfg.generator.is_vae:
         raise ValueError("the Larsen Algorithm-1 step requires a VAE code distribution "
                          "(generator.is_vae=True); use make_train_step for plain-AE "
                          "configurations")
     inject = dict(inject or {})
     _refuse_fused_masks(cfg, inject, ("g_masks", "g_masks_p"))
+    _refuse_concat_masks(cfg, inject, ("d_masks_real", "d_masks_tilde", "d_masks_prior"))
     if cfg.train.grad_accum > 1:
         return _make_paper_accum_step(cfg, inject)
     dtype = DTYPES[cfg.train.dtype]
