@@ -89,7 +89,21 @@ Phases, each of which exits non-zero on failure:
    ``eval``, ``sample``, ``interpolate``, ``export`` then ``import`` (bitwise
    round trip), ``export-serving`` and a ``load_bundle`` reconstruct,
    ``search`` (one trial at 64²). 10.3: each mode of ``python -m
-   vaegan_tpu_torch.bench`` (its JSON line) and ``entry()``'s forward.
+   vaegan_tpu_torch.bench`` (its JSON line) and ``entry()``'s forward;
+11. data-parallel training: ``preset("vaegan_256_dp")`` (256², bfloat16, the
+   notebook generator and 139.7 M-parameter critic) with ``use_pallas="all"``
+   and ``remat`` on, at the largest global batch of 64 / 32 / 16 whose step
+   fits (the cut printed), through ``parallel.train.train_data_parallel`` on
+   a one-process NCCL group (the degenerate mesh): 11.1 two steps (G+D with a
+   grid, critic only) that save a checkpoint, a resume that restores it
+   bitwise, two more steps, each step's launches exact (a remat G+D step runs
+   row 1 24 times), step ms, peak memory and a profiled step; 11.2 remat on
+   against off at batch 16 (step ms, peak memory); 11.3 rows 1-4 with a
+   non-zero index base at the DP step's bfloat16 sites bitwise against their
+   plain versions, timed beside their bounds; 11.4 two gloo processes on the
+   one card against this process's one-rank step (float32, global batch 8;
+   the CPU test's tolerances), with the all-reduce time a step; 11.5 ``cli
+   train --dp`` under ``torchrun --nproc_per_node=1``, its launches counted.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -993,9 +1007,11 @@ def profile_step(torch, fn, what, card_line):
     busy = sum(k[0] for k in kernels)
     if busy == 0:
         log("profiler: no device time recorded")
-        return
-    log(f"profile of {what}: wall {wall_ms:.3f} ms (profiler on), "
-        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) [{card_line}]")
+        return wall_ms, None
+    covered = device_busy_ms(prof, DeviceType)
+    log(f"profile of {what}: wall {wall_ms:.3f} ms (profiler on), device busy {covered:.3f} ms "
+        f"({100 * covered / wall_ms:.1f}%: the union of the kernels' intervals; their times "
+        f"summed {busy:.3f} ms) [{card_line}]")
     for ms, count, name in kernels[:10]:
         log(f"  {ms:9.3f} ms  x{count:<4d} {name[:110]}")
     for tag, pattern in (("bn_act_dropout", "bn_act_dropout_fwd"),
@@ -1010,6 +1026,20 @@ def profile_step(torch, fn, what, card_line):
         "operator calls; the top 8:")
     for ms, count, name in host[:8]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {name[:100]}")
+    return wall_ms, covered
+
+
+def device_busy_ms(prof, device_type):
+    """Milliseconds in which at least one kernel ran: the union of the device
+    events' intervals (a sum would count overlapping kernels twice)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == device_type.CUDA and e.time_range.end > e.time_range.start)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 LOOP_IMAGES = 32          # 8 batches of 4 an epoch
@@ -1066,9 +1096,11 @@ def state_tree(torch, state):
 
 
 def tree_diff(torch, a, b, path=""):
-    """The paths at which two :func:`state_tree` copies differ (bit for bit)."""
+    """The paths at which two :func:`state_tree` copies differ (bit for bit; a
+    restored optimizer keeps its step counts on the state's device, the
+    original on the CPU, so values are compared wherever each lies)."""
     if isinstance(a, torch.Tensor):
-        return [] if isinstance(b, torch.Tensor) and torch.equal(a, b) else [path]
+        return [] if isinstance(b, torch.Tensor) and torch.equal(a, b.to(a.device)) else [path]
     if isinstance(a, dict):
         if set(a) != set(b):
             return [path]
@@ -2042,6 +2074,474 @@ def phase_bench(torch, vt, card_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data-parallel training (vaegan_256_dp) and recomputation
+# ---------------------------------------------------------------------------
+
+# one vaegan_256_dp step with remat on: a G+D step's generator forward runs its
+# 12 fused sites again in the backward (the recompute of each block); a
+# critic-only step's generator forward records no graph, so nothing reruns
+DP_STEP_LAUNCHES = {
+    True: {"bn_act_dropout": 24, "bn_act_dropout_bwd": 12, "reparam_kl": 1,
+           "reparam_kl_bwd": 1, "recon_loss_sums": 1},
+    False: STEP_LAUNCHES[False]}
+DP_BATCHES = (64, 32, 16)   # the preset's global batch, then the cuts tried if it does not fit
+DP_RANK_BATCH = 8           # the global batch of the two gloo ranks on one card
+REMAT_BATCH = 16            # remat on against off
+DP_CLI_STEPS = 2
+
+
+def dp_config(vt, tmp, batch, **train):
+    """``vaegan_256_dp`` at full width (256², the notebook generator and
+    critic, bfloat16, EMA 0.999) with ``use_pallas="all"`` (the preset's
+    default is "off") and ``remat`` on, global batch ``batch``, two batches of
+    synthetic "texture" images an epoch, two epochs, ``n_critics`` 2 (so that
+    critic-only steps run), a grid, a checkpoint and a flush every 2 steps, the
+    NaN guard on, folders under ``tmp``."""
+    cfg = vt.preset("vaegan_256_dp")
+    return cfg.replace(
+        data=cfg.data.replace(synthetic=True, synthetic_size=2 * batch,
+                              synthetic_style="texture", batch_size=batch),
+        train=cfg.train.replace(**{
+            "use_pallas": "all", "remat": True, "n_critics": 2, "n_epochs": 2,
+            "sample_interval": 2, "checkpoint_every": 2, "log_every": 2, "nan_check": True,
+            "sample_dir": os.path.join(tmp, "samples"),
+            "checkpoint_dir": os.path.join(tmp, "ck"), **train}))
+
+
+def dp_step_launches(do_g, grid):
+    """A DP loop step's launches: the step's, plus the sampler's on a grid step."""
+    want = dict(DP_STEP_LAUNCHES[do_g])
+    if grid:
+        want = {k: v + SAMPLER_LAUNCHES[k] for k, v in want.items()}
+    return want
+
+
+DP_PLAN = ((True, True), (False, False), (True, True), (False, False))   # (G+D, grid) a step
+
+
+def dp_loop(torch, vt, cfg, mesh, fused, logger_class, device="cuda"):
+    """Phase 11.1's runs of ``train_data_parallel``: 2 steps that save a
+    checkpoint at step 2, a resume to step 2 (restores and runs nothing; its
+    state must equal the first run's bit for bit), a resume to step 4. Returns
+    the last state, each step's launches (from ``logger_class``, a
+    :func:`launch_logger`), the flushed metrics and the restore's differing
+    paths."""
+    from vaegan_tpu_torch.parallel.train import train_data_parallel
+
+    def run(max_steps, resume):
+        logger = logger_class(flush_every=cfg.train.log_every)
+        c = cfg.replace(train=cfg.train.replace(max_steps=max_steps))
+        return train_data_parallel(c, logger=logger, resume=resume, mesh=mesh, device=device)
+
+    state, logger_a = run(2, False)
+    saved = state_tree(torch, state)
+    restored, _ = run(2, True)
+    diff = tree_diff(torch, state_tree(torch, restored), saved)
+    del restored, saved
+    state, logger_c = run(4, True)
+    history = [m for lg in (logger_a, logger_c) for m in lg.history if "_wall_s" not in m]
+    return state, logger_a.per_step + logger_c.per_step, history, diff
+
+
+def fit_batch(torch, vt, mesh, tmp):
+    """The largest of ``DP_BATCHES`` whose remat G+D step fits on the card (one
+    step each, largest first), with that step's peak memory."""
+    for batch in DP_BATCHES:
+        cfg = dp_config(vt, tmp, batch)
+        try:
+            state = vt.create_train_state(cfg, device="cuda", seed=SEED)
+            step = vt.parallel.make_parallel_train_step(cfg, mesh, True)
+            x = torch.rand((batch, 256, 256, 1), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+            torch.cuda.reset_peak_memory_stats()
+            step(state, x, 1)
+            torch.cuda.synchronize()
+            return batch, torch.cuda.max_memory_allocated() / 2 ** 30
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"vaegan_256_dp at global batch {batch} with remat does not fit on the card "
+                f"({str(e).splitlines()[0][:300]}); trying the next cut")
+        finally:
+            state = step = x = None
+            torch.cuda.empty_cache()
+    raise SystemExit(f"vaegan_256_dp fits at none of the global batches {DP_BATCHES}")
+
+
+def phase_dp_kernels(torch, sites, latent, bounds, batch):
+    """Phase 11.3: rows 1-4 with a non-zero index base at the DP path's
+    generator sites (bfloat16, the local batch): each call's base is the one
+    rank 1 of a two-process mesh at this local batch passes (its first
+    element's global index), and the kernel is held bitwise to its plain
+    version with the same base."""
+    from vaegan_tpu_torch.ops import fused
+
+    log(f"== phase 11.3: rows 1-4 with an index base, at the 12 generator sites of a "
+        f"vaegan_256_dp step (bfloat16, batch {batch}; base = batch x C x H x W, rank 1 of "
+        "two at this batch) bitwise against their plain versions with the same base; kernel: "
+        "median of 5 CUDA-event windows of 20 launches; plain: one window of 2 ==")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    bf16 = torch.bfloat16
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+               "max_abs_err": 0.0, "sites": 0, "dtype": "bfloat16", "batch": batch}
+           for k in ("bn_act_dropout", "bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd")}
+
+    def note(name, k_ms, p_ms, b, err):
+        o = out[name]
+        o["ms"] += k_ms
+        o["plain_ms"] += p_ms
+        o["bound_ms"] += b[0]
+        o["bound_by"] = "operations" if b[1] != "bytes" else o["bound_by"]
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+        o["sites"] += 1
+
+    for i, (c, h, w) in enumerate(sites):
+        p = 0.5 if i % 2 == 0 else 0.0          # bn1 drops at 0.5, bn2 at 0
+        mean = torch.randn(c, device="cuda", generator=g) * 0.3
+        var = torch.rand(c, device="cuda", generator=g) + 0.5
+        scale = torch.rand(c, device="cuda", generator=g) + 0.5
+        bias = torch.randn(c, device="cuda", generator=g) * 0.1
+        x = cl(torch.randn(batch, c, h, w, device="cuda", generator=g).to(bf16))
+        gy = cl(torch.randn(batch, c, h, w, device="cuda", generator=g).to(bf16))
+        n, seed = x.numel(), 6100 + i
+        args = (mean, var, scale, bias, seed, SLOPE, p, 1e-5, n)
+        y = fused.bn_act_dropout_forward(x, *args)
+        r = fused.bn_act_dropout_reference(x, *args)
+        moved = p == 0 or not torch.equal(y, fused.bn_act_dropout_forward(x, *args[:-1], 0))
+        k = fused.bn_act_dropout_backward(x, gy, *args)
+        kr = fused.bn_act_dropout_backward_reference(x, gy, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, r) and torch.equal(k[0], kr[0]) and moved):
+            raise SystemExit(f"row 1/2 site {i} with base {n}: y or dx is not bitwise the plain "
+                             f"version's, or the base did not move the mask ({moved})")
+        err = max(check_close(f"row 2 site {i} {nm}", k[j], kr[j], bf16, True)
+                  for j, nm in enumerate(("dscale", "dbias", "dmean", "dvar"), 1))
+        k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(x, *args))
+        p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(x, *args), reps=2,
+                       windows=1, warmup=1)
+        b1 = bounds(2 * n * 2 + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", bf16, None, p > 0)
+        note("bn_act_dropout", k1, p1, b1, 0.0)
+        k2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward(x, gy, *args))
+        p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(x, gy, *args),
+                       reps=2, windows=1, warmup=1)
+        launch = fused.bwd_launch_for(x, p)
+        b2 = bounds(3 * n * 2 + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", bf16, launch.vec,
+                    p > 0)
+        note("bn_act_dropout_bwd", k2, p2, b2, err)
+        log(f"site {i:2d} C={c:3d} HxW={h}x{w} p={p} base={n}: y and dx bitwise equal, sums "
+            f"max_abs_err={err:.3e}; row 1 kernel_ms={k1:.4f} plain_ms={p1:.4f} "
+            f"bound_ms={b1[0]:.4f} ({b1[1]}); row 2 kernel_ms={k2:.4f} plain_ms={p2:.4f} "
+            f"bound_ms={b2[0]:.4f} ({b2[1]})")
+        del x, gy, y, r, k, kr
+        torch.cuda.empty_cache()
+
+    h, w, c = latent
+    mu = cl(torch.randn((batch, c, h, w), device="cuda", generator=g)).to(bf16)
+    lv = cl(torch.randn((batch, c, h, w), device="cuda", generator=g) * 0.5).to(bf16)
+    gz = cl(torch.randn((batch, c, h, w), device="cuda", generator=g)).to(bf16)
+    n = mu.numel()
+    z, kl = fused.reparam_kl_forward(mu, lv, 88, n)
+    zr, klr = fused.reparam_kl_reference(mu, lv, 88, n)
+    d = fused.reparam_kl_backward(mu, lv, gz, None, 88, n)
+    dr = fused.reparam_kl_backward_reference(mu, lv, gz, None, 88, n)
+    moved = not torch.equal(z, fused.reparam_kl_forward(mu, lv, 88, 0)[0])
+    torch.cuda.synchronize()
+    if not (torch.equal(z, zr) and all(torch.equal(a, b) for a, b in zip(d, dr)) and moved):
+        raise SystemExit(f"rows 3/4 with base {n}: z, dmu or dlv is not bitwise the plain "
+                         f"version's, or the base did not move the noise ({moved})")
+    err3 = check_close("row 3 kl", kl, klr, bf16, True)
+    k3 = time_cuda(torch, lambda j: fused.reparam_kl_forward(mu, lv, 88, n))
+    p3 = time_cuda(torch, lambda j: fused.reparam_kl_reference(mu, lv, 88, n), reps=2,
+                   windows=1, warmup=1)
+    b3 = bounds(3 * n * 2 + 4, n, "reparam_fwd_kernel", bf16)
+    note("reparam_kl", k3, p3, b3, err3)
+    k4 = time_cuda(torch, lambda j: fused.reparam_kl_backward(mu, lv, gz, None, 88, n))
+    p4 = time_cuda(torch, lambda j: fused.reparam_kl_backward_reference(mu, lv, gz, None, 88, n),
+                   reps=2, windows=1, warmup=1)
+    b4 = bounds(5 * n * 2, n, "reparam_bwd_kernel", bf16)
+    note("reparam_kl_bwd", k4, p4, b4, 0.0)
+    log(f"rows 3/4 {(batch, c, h, w)} base={n}: z, dmu, dlv bitwise equal, kl {float(kl)!r} vs "
+        f"plain {float(klr)!r}; row 3 kernel_ms={k3:.4f} plain_ms={p3:.4f} bound_ms={b3[0]:.4f} "
+        f"({b3[1]}); row 4 kernel_ms={k4:.4f} plain_ms={p4:.4f} bound_ms={b4[0]:.4f} ({b4[1]})")
+    for name, o in out.items():
+        log(f"{name} with the index base over {o['sites']} site(s) of the DP step: kernel "
+            f"{o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
+            f"({o['bound_by']})")
+    del mu, lv, gz, z, zr, d, dr
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank, world, store, out):
+    """One of the two gloo processes of phase 11.4 (run as ``python -c "import
+    chip_smoke; chip_smoke.dp_rank(...)"``): :func:`dp_pair_steps` on this
+    rank's rows, its results saved to ``out``."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.parallel import dist
+
+    dist.initialize(backend="gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                    device="cuda:0", timeout_s=600)
+    try:
+        res = dp_pair_steps(torch, vt, vt.parallel.make_mesh())
+        torch.save(res, out)
+    finally:
+        dist.shutdown()
+
+
+def dp_pair_steps(torch, vt, mesh):
+    """Two steps (G+D, then critic only) of ``vaegan_256_dp`` in float32 at
+    global batch :data:`DP_RANK_BATCH` on this process's rows of the global
+    batch, cuDNN deterministic and TF32 off: the metrics and the BN running
+    statistics after each step, the gradients each optimizer applied in the
+    first step (rank 0 only: the ranks' parameters are compared by checksum),
+    a checksum of each parameter and the seconds spent in all-reduces a step."""
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dp_config(vt, tempfile.gettempdir(), DP_RANK_BATCH, dtype="float32")
+    state = vt.parallel.replicate_state(vt.create_train_state(cfg, device="cuda", seed=SEED),
+                                        mesh)
+    data = torch.Generator().manual_seed(SEED + 12)
+    spent = [0.0]
+    inner = torch.distributed.all_reduce
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return res
+
+    out = {"metrics": [], "allreduce_s": [], "bn": []}
+    grads = record_grads(state)
+    torch.distributed.all_reduce = timed
+    try:
+        for i, do_g in enumerate((True, False)):
+            batch = torch.rand((DP_RANK_BATCH, 256, 256, 1), generator=data).cuda()
+            spent[0] = 0.0
+            step = vt.parallel.make_parallel_train_step(cfg, mesh, do_g)
+            state, m = step(state, vt.parallel.shard_batch(mesh, batch), 9000 + i)
+            torch.cuda.synchronize()
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["allreduce_s"].append(spent[0])
+            out["bn"].append({f"{net}.{k}": v.cpu() for net in ("generator", "critic")
+                              for k, v in getattr(state, net).state_dict().items()
+                              if k.endswith(("running_mean", "running_var"))})
+            if i == 0 and mesh.rank == 0:
+                out["grads"] = {net: {k: v.cpu() for k, v in g.items()}
+                                for net, g in grads.items()}
+    finally:
+        torch.distributed.all_reduce = inner
+    out["checksums"] = {f"{net}.{k}": float(p.detach().double().sum())
+                        for net in ("generator", "critic")
+                        for k, p in getattr(state, net).named_parameters()}
+    return out
+
+
+def phase_dp_ranks(torch, vt, mesh, dev, tmp, env, card_line):
+    """Phase 11.4: two gloo processes on the one card against this process's
+    one-rank step (:func:`dp_pair_steps`); returns the all-reduce seconds a
+    step."""
+    log(f"== phase 11.4: two gloo processes on {dev} (each its own Python process) against "
+        f"this process's one-rank step, vaegan_256_dp in float32 at global batch "
+        f"{DP_RANK_BATCH}, two steps (G+D, critic only), cuDNN deterministic; tolerances "
+        "those of tests/test_torch_parallel.py for the metrics of both steps (2e-4 relative "
+        "+ 1e-5) and the generator's BN statistics after the first step (1e-4, here of each "
+        "tensor's largest value, + 1e-5: the card picks convolution algorithms by batch "
+        "size), phase 6's for the first step's gradients; each parameter's checksum equal "
+        "on both ranks ==")
+    ref = dp_pair_steps(torch, vt, mesh)
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke, sys; chip_smoke.dp_rank(int(sys.argv[1]), "
+         "2, sys.argv[2], sys.argv[3])", str(r), os.path.join(tmp, "store"),
+         os.path.join(tmp, f"rank{r}.pt")], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        for r, text in enumerate(logs):
+            log(f"rank {r}: rc {procs[r].returncode}\n{text[-3000:]}")
+        raise SystemExit("a gloo rank failed")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+             for r in range(2)]
+    bad_m = [(i, metrics_close(m, w)) for i, (m, w) in
+             enumerate(zip(ranks[0]["metrics"], ref["metrics"])) if metrics_close(m, w)]
+    # per tensor, against 1e-4 of its largest value: the card's convolutions
+    # pick their algorithms by batch size (4 a rank, 8 on one), so a channel
+    # whose mean cancels to near 0 carries the error of its terms. Held: the
+    # generator's after the first step, whose forward precedes every update.
+    # Shown: the critic's after it (its G-half forward runs the updated
+    # critic) and all after the second step; an update moves a weight by ~10
+    # lr sign(g) under RMSprop, and where g is at noise level its sign is noise
+    bn_err = [{k: float((got[k] - w).abs().max()) / (1e-5 + 1e-4 * float(w.abs().max()))
+               for k, w in want.items()} for got, want in zip(ranks[0]["bn"], ref["bn"])]
+    bad_bn = [k for k, e in bn_err[0].items() if e > 1.0 and k.startswith("generator.")]
+    grads_ok = compare_steps(
+        "two gloo ranks against one rank, step 0 (G+D)",
+        {"metrics": ranks[0]["metrics"][0], "grads": ranks[0]["grads"]},
+        {"metrics": ref["metrics"][0], "grads": ref["grads"]})
+    same = ranks[0]["checksums"] == ranks[1]["checksums"] and \
+        ranks[0]["metrics"] == ranks[1]["metrics"]
+    for i, (m, w) in enumerate(zip(ranks[0]["metrics"], ref["metrics"])):
+        log(f"step {i}: two ranks " + ", ".join(f"{k}={m[k]:.7g}" for k in w)
+            + "; one rank " + ", ".join(f"{k}={w[k]:.7g}" for k in w))
+    shown = lambda errs, net: max(e for k, e in errs.items() if k.startswith(net))  # noqa: E731
+    log(f"two gloo ranks against one rank: metrics out of tolerance {bad_m}; the "
+        f"generator's BN statistics after step 0 out of tolerance {bad_bn[:4]} (the largest "
+        f"|diff| {shown(bn_err[0], 'generator'):.3f} of its tolerance); shown, past an "
+        f"update: the critic's after step 0 {shown(bn_err[0], 'critic'):.3f}, all after "
+        f"step 1 {max(bn_err[1].values()):.3f} of that tolerance; ranks agree on every "
+        f"parameter's checksum and metric {same}; all-reduce time a step (host clock, through gloo) "
+        f"{[round(s * 1e3, 3) for s in ranks[0]['allreduce_s']]} ms [{card_line}]")
+    if bad_m or bad_bn or not same or not grads_ok:
+        raise SystemExit("the two-rank step disagrees with the one-rank step")
+    return ranks[0]["allreduce_s"]
+
+
+def phase_dp(torch, vt, bounds, card_line, sites, latent):
+    """Phase 11: ``vaegan_256_dp`` at full width through ``train_data_parallel``."""
+    import shutil
+
+    from vaegan_tpu_torch.checkpoint import CheckpointManager
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.parallel import dist
+    from vaegan_tpu_torch.utils.metrics import MetricsLogger, StdoutSink
+
+    tmp = tempfile.mkdtemp(prefix="vaegan_dp_")
+    try:
+        dev = dist.initialize(device="cuda")
+        mesh = vt.parallel.make_mesh()
+        log(f"== phase 11: data-parallel training, preset('vaegan_256_dp') (256², bfloat16, "
+            f"EMA 0.999, the notebook generator and critic at full width) with use_pallas='all' "
+            f"(the preset's default is 'off') and remat on, through train_data_parallel on a "
+            f"one-process NCCL group (world {mesh.num_data}, {dev}: the degenerate mesh, no "
+            "collective runs) ==")
+        batch, fit_peak = fit_batch(torch, vt, mesh, tmp)
+        cut = "" if batch == DP_BATCHES[0] else f" (cut from {DP_BATCHES[0]}: it did not fit)"
+        log(f"global batch {batch}{cut}: one remat G+D step peaks at {fit_peak:.2f} GiB "
+            f"[{card_line}]")
+        cfg = dp_config(vt, tmp, batch)
+
+        # ---- 11.1 the main path: train_data_parallel, counts from 0 just before
+        # the run that saves at step 2 and read after the resumed run to step 4
+        logger_class = launch_logger(fused, MetricsLogger)
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        state, per_step, history, diff = dp_loop(
+            torch, vt, cfg, mesh, fused, lambda **kw: logger_class(sinks=[StdoutSink()], **kw))
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        dp_launches = dict(fused.LAUNCHES)
+        counts = {n: sum(p.numel() for p in getattr(state, n).parameters())
+                  for n in ("generator", "critic")}
+        log(f"parameters: {counts}")
+        if counts != {"generator": 4_192_783, "critic": 139_697_217}:
+            raise SystemExit("vaegan_256_dp's parameter counts are not the preset's")
+        plan = DP_PLAN
+        bad = [i for i, (got, (g, grid)) in enumerate(zip(per_step, plan))
+               if got != dp_step_launches(g, grid)]
+        for i, got in enumerate(per_step):
+            log(f"dp step {i} ({'G+D' if plan[i][0] else 'critic only'}"
+                f"{', grid' if plan[i][1] else ''}): launches {got}")
+        finite = all(v == v and abs(v) != float("inf") for m in history for v in m.values())
+        grids = sorted(os.listdir(cfg.train.sample_dir))
+        kept = CheckpointManager(cfg.train.checkpoint_dir).all_steps()
+        log(f"dp path: {len(per_step)} steps, launches {dp_launches}, metrics finite={finite}, "
+            f"grids {grids}, checkpoints {kept}, restore of step 2 bitwise "
+            f"{'equal' if not diff else 'DIFFERS at ' + str(diff[:4])}; the three runs (4 "
+            f"steps, state builds and loaders included) {t_loop:.1f} s [{card_line}]")
+        if (bad or len(per_step) != len(plan) or not finite or diff or kept != [2, 4]
+                or grids != ["0.png", "2.png"] or not all(dp_launches.values())):
+            raise SystemExit(f"dp path: wrong launches at steps {bad}, a non-finite metric, a "
+                             "restore that differs, or missing grids or checkpoints")
+
+        # step time, device-busy share; world 1 runs no collective
+        step = vt.parallel.make_parallel_train_step(cfg, mesh, True)
+        x = torch.rand((batch, 256, 256, 1), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 3))
+        counter = iter(range(10 ** 6))
+        torch.cuda.reset_peak_memory_stats()
+        t_step = time_host(torch, lambda: step(state, x, 9100 + next(counter)), reps=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"dp G+D step at global batch {batch}, remat on: {t_step * 1e3:.3f} ms median of 3 "
+            f"({batch / t_step:.2f} images/s), peak {peak:.2f} GiB [{card_line}]")
+        prof = profile_step(torch, lambda: step(state, x, 9200), f"one dp G+D step b{batch}",
+                            card_line)
+        del state, step, x
+        torch.cuda.empty_cache()
+
+        # ---- 11.2 the price of recomputation at a batch where both fit
+        remat = {}
+        for on in (False, True):
+            c = dp_config(vt, tmp, REMAT_BATCH, remat=on)
+            st = vt.create_train_state(c, device="cuda", seed=SEED)
+            stp = vt.parallel.make_parallel_train_step(c, mesh, True)
+            xb = torch.rand((REMAT_BATCH, 256, 256, 1), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 4))
+            counter = iter(range(10 ** 6))
+            torch.cuda.reset_peak_memory_stats()
+            t = time_host(torch, lambda: stp(st, xb, 9300 + next(counter)), reps=3, warmup=1)
+            remat[on] = (t, torch.cuda.max_memory_allocated() / 2 ** 30)
+            log(f"remat {'on ' if on else 'off'} at batch {REMAT_BATCH}: G+D step "
+                f"{t * 1e3:.3f} ms median of 3, peak {remat[on][1]:.2f} GiB [{card_line}]")
+            del st, stp, xb
+            torch.cuda.empty_cache()
+        log(f"remat at batch {REMAT_BATCH}: step {remat[True][0] / remat[False][0]:.3f}x the "
+            f"time, peak {remat[True][1]:.2f} vs {remat[False][1]:.2f} GiB [{card_line}]")
+
+        # ---- 11.3 rows 1-4 with an index base at the DP step's shapes
+        kernels = phase_dp_kernels(torch, sites, latent, bounds, batch)
+
+        # ---- 11.4 two gloo ranks on the one card against the one-rank step
+        env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        allreduce_s = phase_dp_ranks(torch, vt, mesh, dev, tmp, env, card_line)
+
+        # ---- 11.5 cli train --dp under torchrun, one process per card
+        log(f"== phase 11.5: torchrun --standalone --nproc_per_node=1 -m vaegan_tpu_torch.cli "
+            f"train --dp (vaegan_256_dp, use_pallas all, remat on, global batch {batch}, "
+            f"{DP_CLI_STEPS} steps), launches counted ==")
+        with open(os.path.join(tmp, "count.py"), "w") as f:
+            f.write(CLI_COUNTING)
+        c = dp_config(vt, tmp, batch, n_critics=1, n_epochs=1,
+                      sample_dir=os.path.join(tmp, "cli_samples"), checkpoint_dir=None)
+        with open(os.path.join(tmp, "cfg.json"), "w") as f:
+            json.dump(c.to_dict(), f)
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+             os.path.join(tmp, "count.py"), "train", "--dp", "--config",
+             os.path.join(tmp, "cfg.json"), "--max-steps", str(DP_CLI_STEPS), "--checkpoint",
+             os.path.join(tmp, "cli_ck")], cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        want = {k: DP_CLI_STEPS * v + SAMPLER_LAUNCHES[k]
+                for k, v in DP_STEP_LAUNCHES[True].items()}
+        cli_launches = (json.loads(lines[-1].split(" ", 1)[1])
+                        if lines and lines[-1].startswith("launches ") else None)
+        log(f"cli train --dp: rc {proc.returncode}, {lines[-2] if len(lines) > 1 else ''}; "
+            f"launches {cli_launches} (want {want})")
+        if proc.returncode != 0 or cli_launches != want:
+            log(proc.stdout[-3000:])
+            log(proc.stderr[-3000:])
+            raise SystemExit("cli train --dp failed or launched the wrong kernels")
+        return {"launches": dp_launches, "cli_launches": cli_launches, "kernels": kernels,
+                "batch": batch, "step_s": t_step, "peak_gib": peak, "profile": prof,
+                "remat": remat, "allreduce_s": allreduce_s}
+    finally:
+        dist.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_summary(report: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: the
     registers, shared memory and spills of each entry function."""
@@ -2309,22 +2809,29 @@ def main() -> int:
     concat = phase_concat(torch, vt, bounds, card_line, paper["sites"])
     cli_launches = phase_cli(torch, vt, card_line)
     phase_bench(torch, vt, card_line)
+
+    # ---------------------------------------------------------------- phase 11
+    dp = phase_dp(torch, vt, bounds, card_line, sites, vt.latent_shape(cfg))
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
         f"{paper['step_s'] * 1e3:.3f} ms = {TRAIN_BATCH / paper['step_s']:.2f} images/s; "
         "notebook G+D step by critic batching: " + ", ".join(
             f"{k} {v[0] * 1e3:.3f} ms" for k, v in concat["numbers"].items())
-        + f"; paper concat step {concat['paper_s'] * 1e3:.3f} ms")
+        + f"; paper concat step {concat['paper_s'] * 1e3:.3f} ms; vaegan_256_dp G+D step at "
+        f"global batch {dp['batch']} with remat {dp['step_s'] * 1e3:.3f} ms = "
+        f"{dp['batch'] / dp['step_s']:.2f} images/s")
 
-    # launches: the notebook training loop's (phase 8: all five kernels at the
-    # step's shapes, so row 1's top-level figures are the training path's); each
-    # path's launches (the paper loop of phase 9 and the notebook's accumulating
-    # step among them), row 1's serving figures and rows 1-2's figures at the
-    # critic's sites stand beside them
+    # launches: the data-parallel path's (phase 11: train_data_parallel of
+    # vaegan_256_dp, all five kernels); each other path's launches (the notebook
+    # loop of phase 8, the paper loop of phase 9 and the notebook's accumulating
+    # step among them) stand beside them, with row 1's serving figures, rows
+    # 1-2's figures at the critic's sites and rows 1-4's at the DP step's shapes
+    # with an index base ("dp")
     src = "vaegan_tpu_torch/csrc/"
     paths = {"paper": paper["paper"], "accum": paper["accum"], **concat["paths"],
-             "cli_train": cli_launches}
+             "cli_train": cli_launches, "loop": loop_launches, "dp": dp["launches"],
+             "cli_train_dp": dp["cli_launches"]}
 
     def critic_figures(row, run=paper["critic"]):
         c = run[row]
@@ -2336,11 +2843,11 @@ def main() -> int:
     rows = [{
         "name": "bn_act_dropout", "route": "cuda", "source": src + "bn_act_dropout.cu",
         "replaces": "vaegan_tpu/ops/pallas_fused.py:80",
-        "launches": loop_launches["bn_act_dropout"],
+        "launches": dp["launches"]["bn_act_dropout"],
         "launches_by_path": {"serving": main_path_launches,
                              "training": train_launches["bn_act_dropout"],
-                             "loop": loop_launches["bn_act_dropout"],
                              **{k: v["bn_act_dropout"] for k, v in paths.items()}},
+        "dp": dp["kernels"]["bn_act_dropout"],
         "critic_sites": critic_figures("bn_act_dropout"),
         "critic_sites_concat": critic_figures("bn_act_dropout", concat["critic"]),
         "ms_by_path": {"serving": summary["ms"], "training": train_row1["ms"]},
@@ -2357,14 +2864,15 @@ def main() -> int:
         k = train_kernels[name]
         rows.append({"name": name, "route": "cuda", "source": src + source,
                      "replaces": f"vaegan_tpu/ops/pallas_fused.py:{line}",
-                     "launches": loop_launches[name],
+                     "launches": dp["launches"][name],
                      "launches_by_path": {"training": train_launches[name],
-                                          "loop": loop_launches[name],
                                           **{k: v[name] for k, v in paths.items()}},
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "bound_bytes_ms": k["bytes_ms"], "bound_instr_ms": k["instr_ms"]})
+    for row in rows[1:4]:
+        row["dp"] = dp["kernels"][row["name"]]
     # the least any one-launch kernel on row 5's grid takes: an empty kernel's time
     rows[-1]["launch_floor_ms"] = train_kernels["recon_loss_sums"]["floor_ms"]
     rows[1]["critic_sites"] = critic_figures("bn_act_dropout_bwd")

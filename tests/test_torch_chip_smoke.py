@@ -402,3 +402,113 @@ def test_phase10_cli_train_launch_counts(monkeypatch, tmp_path, capsys):
     assert "cli.main(sys.argv[1:])" in chip_smoke.CLI_COUNTING
     assert all(k in chip_smoke.CLI_TRAIN_LAUNCHES and v > 0
                for k, v in chip_smoke.CLI_TRAIN_LAUNCHES.items())
+
+
+# ---------------------------------------------------------------- phase 11
+def _dp_cpu_config(vt, tmp, **train):
+    cfg = chip_smoke.dp_config(vt, str(tmp), 2, **train)
+    return cfg.replace(data=cfg.data.replace(image_size=32))
+
+
+def test_dp_config_is_the_preset_at_full_width(tmp_path):
+    """Phase 11 runs ``vaegan_256_dp`` at the preset's widths, image size and
+    dtype; only the schedule, the folders, ``use_pallas`` and ``remat`` are its
+    own."""
+    import vaegan_tpu_torch as vt
+
+    ref = vt.preset("vaegan_256_dp")
+    cfg = chip_smoke.dp_config(vt, str(tmp_path), 64)
+    assert (cfg.generator, cfg.discriminator, cfg.loss, cfg.optim) == \
+        (ref.generator, ref.discriminator, ref.loss, ref.optim)
+    assert (cfg.data.image_size, cfg.data.batch_size, cfg.train.dtype, cfg.train.ema_decay) == \
+        (256, 64, "bfloat16", 0.999) == (ref.data.image_size, ref.data.batch_size,
+                                        ref.train.dtype, ref.train.ema_decay)
+    assert (cfg.train.use_pallas, cfg.train.remat, cfg.train.n_critics) == ("all", True, 2)
+    assert chip_smoke.DP_BATCHES[0] == ref.data.batch_size
+
+
+def test_phase11_step_launch_counts(monkeypatch, tmp_path):
+    """A remat G+D step of the DP preset reruns the generator's 12 fused sites
+    in its backward; a critic-only step records no graph and reruns nothing
+    (at 32², on the CPU)."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+
+    torch.set_num_threads(1)
+    cfg = _dp_cpu_config(vt, tmp_path)
+    state = vt.create_train_state(cfg, device="cpu")
+    mesh = vt.parallel.make_mesh()
+    for do_g in (True, False):
+        counts = _counting(monkeypatch)
+        vt.parallel.make_parallel_train_step(cfg, mesh, do_g)(state, torch.rand(2, 32, 32, 1), 3)
+        monkeypatch.undo()
+        assert counts == chip_smoke.DP_STEP_LAUNCHES[do_g], do_g
+
+
+def test_phase11_loop_runs(monkeypatch, tmp_path):
+    """Phase 11.1's three runs of ``train_data_parallel`` on the CPU (32²,
+    batch 2): each step's kernel calls are ``DP_PLAN``'s, the resume to step 2
+    restores the first run's state bit for bit, and the grids and checkpoints
+    are where the phase looks for them."""
+    import os
+    import types
+
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.utils.metrics import MetricsLogger
+
+    torch.set_num_threads(1)
+    cfg = _dp_cpu_config(vt, tmp_path)
+    counts = _counting(monkeypatch)
+    logger_class = chip_smoke.launch_logger(types.SimpleNamespace(LAUNCHES=counts),
+                                            MetricsLogger)
+    state, per_step, history, diff = chip_smoke.dp_loop(
+        torch, vt, cfg, vt.parallel.make_mesh(), None,
+        lambda **kw: logger_class(sinks=[], **kw), device="cpu")
+    assert diff == []
+    assert per_step == [chip_smoke.dp_step_launches(g, grid) for g, grid in chip_smoke.DP_PLAN]
+    assert len(history) == 4 and state.step == 4
+    assert sorted(os.listdir(cfg.train.sample_dir)) == ["0.png", "2.png"]
+    assert vt.CheckpointManager(cfg.train.checkpoint_dir).all_steps() == [2, 4]
+
+
+def test_phase11_cli_dp_launch_counts(monkeypatch, tmp_path, capsys):
+    """``cli train --dp`` as phase 11.5 runs it (one process, the DP preset
+    with ``n_critics`` 1 and one epoch of two batches), at 32² on the CPU
+    (gloo): two remat G+D steps and the sampler's forward."""
+    import json
+
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    cfg = _dp_cpu_config(vt, tmp_path, n_critics=1, n_epochs=1, checkpoint_dir=None)
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg.to_dict()))
+    counts = _counting(monkeypatch)
+    assert cli.main(["train", "--dp", "--config", str(tmp_path / "cfg.json"), "--max-steps",
+                     str(chip_smoke.DP_CLI_STEPS), "--checkpoint", str(tmp_path / "ck"),
+                     "--device", "cpu"]) == 0
+    want = {k: chip_smoke.DP_CLI_STEPS * v + chip_smoke.SAMPLER_LAUNCHES[k]
+            for k, v in chip_smoke.DP_STEP_LAUNCHES[True].items()}
+    assert counts == want
+    assert "done: 2 steps" in capsys.readouterr().out
+
+
+def test_device_busy_is_the_union_of_kernel_intervals():
+    """Two overlapping kernels and a later one: busy is the covered time, not
+    the sum of the kernels' times; host events do not count."""
+    import types
+
+    DT = types.SimpleNamespace(CUDA="cuda", CPU="cpu")
+
+    def ev(a, b, dev="cuda"):
+        return types.SimpleNamespace(device_type=dev, time_range=types.SimpleNamespace(
+            start=a, end=b))
+
+    prof = types.SimpleNamespace(events=lambda: [ev(0, 1000), ev(500, 1500), ev(3000, 3500),
+                                                 ev(0, 9000, "cpu"), ev(4000, 4000)])
+    assert chip_smoke.device_busy_ms(prof, DT) == pytest.approx(2.0)

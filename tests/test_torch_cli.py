@@ -315,13 +315,16 @@ def test_search_subcommand(tmp_path, monkeypatch, capsys):
 
 
 def test_dp_refuses_before_touching_a_folder(tmp_path, capsys):
+    """``train --dp`` trains data-parallel (``tests/test_torch_parallel.py``
+    runs it under torchrun); a global batch that the mesh and the accumulation
+    cannot split is refused before any folder is touched."""
     cfg = _config_file(tmp_path)
     stale = tmp_path / "samples" / "stale.png"
     stale.parent.mkdir()
     stale.write_bytes(b"x")
-    assert main(["train", "--config", cfg, "--dp", "--checkpoint", str(tmp_path / "ck"),
-                 *CPU]) == 2
-    assert "ROADMAP.md A.7" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="divisible"):
+        main(["train", "--config", cfg, "--dp", "--grad-accum", "3", "--checkpoint",
+              str(tmp_path / "ck"), *CPU])
     assert stale.exists() and not (tmp_path / "ck").exists()
 
 

@@ -36,7 +36,8 @@ def test_the_scan_sees_the_package():
                    "models/networks.py", "interop.py", "data/nifti.py", "data/pipeline.py",
                    "data/fetch.py", "train/loop.py", "checkpoint.py", "api.py",
                    "utils/imaging.py", "utils/metrics.py", "utils/profiling.py", "cli.py",
-                   "search.py", "entry.py", "bench.py"):
+                   "search.py", "entry.py", "bench.py", "ops/replica.py", "parallel/__init__.py",
+                   "parallel/dist.py", "parallel/mesh.py", "parallel/train.py"):
         assert f"vaegan_tpu_torch/{module}" in names, module
     assert "torch" in imported_roots(ROOT / "vaegan_tpu_torch" / "ops" / "fused.py")
 

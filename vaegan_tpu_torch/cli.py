@@ -3,6 +3,7 @@ and printed lines), run as ``python -m vaegan_tpu_torch.cli``:
 
     python -m vaegan_tpu_torch.cli train --preset notebook --data-dir nii
     python -m vaegan_tpu_torch.cli train --config cfg.json --synthetic --epochs 1
+    torchrun --nproc_per_node=2 -m vaegan_tpu_torch.cli train --dp --config cfg.json
     python -m vaegan_tpu_torch.cli eval --checkpoint ckpt/ --preset vae_96 --data-dir nii
     python -m vaegan_tpu_torch.cli sample --checkpoint ckpt/ --preset notebook -n 25 -o out.png
     python -m vaegan_tpu_torch.cli interpolate --checkpoint ckpt/ ... -o interp.png
@@ -102,20 +103,31 @@ def _generator_state(args, cfg):
 
 
 def cmd_train(args):
-    if args.dp:
-        # refused before any folder is touched
-        print("--dp: multi-device training is not ported yet (ROADMAP.md A.7); "
-              "train on one device without --dp", file=sys.stderr)
-        return 2
     from vaegan_tpu_torch.train.loop import train
     from vaegan_tpu_torch.utils.metrics import JsonlSink, MetricsLogger, StdoutSink
 
     cfg = _load_cfg(args)
-    sinks = [StdoutSink()]
-    if args.metrics_jsonl:
+    if args.dp:
+        # one process per device under torchrun; the sinks are rank 0's
+        from vaegan_tpu_torch.parallel import dist
+        from vaegan_tpu_torch.parallel.train import train_data_parallel
+
+        device = dist.initialize(device=args.device)
+        lead = dist.rank() == 0
+    else:
+        lead = True
+    sinks = [StdoutSink()] if lead else []
+    if args.metrics_jsonl and lead:
         sinks.append(JsonlSink(args.metrics_jsonl))
     logger = MetricsLogger(sinks=sinks, flush_every=cfg.train.log_every)
-    state, logger = train(cfg, logger=logger, resume=args.resume, device=args.device)
+    if args.dp:
+        try:
+            state, logger = train_data_parallel(cfg, logger=logger, resume=args.resume,
+                                                device=device)
+        finally:
+            dist.shutdown()
+    else:
+        state, logger = train(cfg, logger=logger, resume=args.resume, device=args.device)
     logger.close()
     print(f"done: {sum(1 for m in logger.history if '_wall_s' not in m)} steps")
     return 0
@@ -305,7 +317,9 @@ def main(argv=None) -> int:
     sp.add_argument("--resume", action="store_true",
                     help="restore the latest checkpoint and continue")
     sp.add_argument("--dp", action="store_true",
-                    help="data-parallel training: not ported yet (ROADMAP.md A.7); refused")
+                    help="data-parallel training over the processes torchrun starts, one "
+                         "per device (torchrun --nproc_per_node=N -m vaegan_tpu_torch.cli "
+                         "train --dp ...); NCCL on cuda, gloo on cpu")
     sp.add_argument("--ema-decay", type=float,
                     help="maintain a generator-param EMA at this decay (e.g. 0.999); "
                          "evaluate it with --ema")

@@ -13,6 +13,12 @@
 // x (and g, y, dx) is an NHWC activation viewed as a row-major (M = N*H*W, C) matrix,
 // f32 or bf16; mean, var, scale and bias are (C,) f32; the math runs in f32.
 //
+// Dropout bits: the element at flat index e of x takes word (base + e) % 4 of Philox
+// counter ((base + e) / 4, stream 0) (philox.cuh). `base`, a multiple of 4, is the
+// element index of x's first element in a larger tensor: a data-parallel process passes
+// rank * n and draws its slice of the one-process step's stream over the global batch
+// (0 on one process).
+//
 // What bounds it: memory. The forward reads x and writes y; the backward reads x and g
 // and writes dx, with ~10 flops per element (plus one Philox4x32-10 call per 4 elements
 // when p > 0), far below the H100's ~300 flops per byte ridge. The least time is the
@@ -64,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
     const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ mean,
     const float* __restrict__ var, const float* __restrict__ scale,
     const float* __restrict__ bias, long long n, int C, float slope, float eps,
-    float threshold, float keep_scale, uint32_t k0, uint32_t k1, int vec) {
+    float threshold, float keep_scale, uint32_t k0, uint32_t k1, long long base4, int vec) {
   extern __shared__ float sh[];
   float* s_mean = sh;
   float* s_mul = sh + C;
@@ -85,7 +91,7 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
     float v[4];
     load_group(x, base, n, vec, v);
     uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if constexpr (DROPOUT) r = philox_words(g, kStreamDropout, k0, k1);
+    if constexpr (DROPOUT) r = philox_words(base4 + g, kStreamDropout, k0, k1);
     const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
     int c = (int)(base % C);
 #pragma unroll
@@ -114,7 +120,8 @@ __global__ void __launch_bounds__(VEC == 4 ? kThreads : 1024) bn_act_dropout_bwd
     const float* __restrict__ var, const float* __restrict__ scale,
     const float* __restrict__ bias, float* __restrict__ dscale, float* __restrict__ dbias,
     float* __restrict__ dmean, float* __restrict__ dvar, long long n, int C, float slope,
-    float eps, float threshold, float keep_scale, uint32_t k0, uint32_t k1, int vec) {
+    float eps, float threshold, float keep_scale, uint32_t k0, uint32_t k1, long long base4,
+    int vec) {
   extern __shared__ float sh[];
   float* s_mean = sh;
   float* s_mul = sh + C;
@@ -148,7 +155,7 @@ __global__ void __launch_bounds__(VEC == 4 ? kThreads : 1024) bn_act_dropout_bwd
     constexpr bool kFull = decltype(full)::value;
     uint32_t bits[VEC];
     if constexpr (DROPOUT) {
-      const uint4 r = philox_words(base >> 2, kStreamDropout, k0, k1);
+      const uint4 r = philox_words(base4 + (base >> 2), kStreamDropout, k0, k1);
       if constexpr (VEC == 4) {
         bits[0] = r.x;
         bits[1] = r.y;
@@ -284,7 +291,7 @@ template <typename T>
 int launch_fwd(const void* x, void* y, const float* mean, const float* var,
                const float* scale, const float* bias, long long n, int C, float slope,
                float eps, int dropout, float threshold, float keep_scale,
-               unsigned long long seed, int max_blocks, cudaStream_t stream) {
+               unsigned long long seed, long long base, int max_blocks, cudaStream_t stream) {
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > max_blocks) blocks = max_blocks;
@@ -295,7 +302,7 @@ int launch_fwd(const void* x, void* y, const float* mean, const float* var,
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), mean, var, scale, bias, n, C, slope,
       eps, threshold, keep_scale, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32),
-      vec);
+      base >> 2, vec);
   return (int)cudaGetLastError();
 }
 
@@ -303,7 +310,7 @@ template <typename T>
 using BwdKernel = void (*)(const T*, const T*, T*, float*, unsigned int*, const float*,
                            const float*, const float*, const float*, float*, float*, float*,
                            float*, long long, int, float, float, float, float, uint32_t,
-                           uint32_t, int);
+                           uint32_t, long long, int);
 
 template <typename T>
 BwdKernel<T> bwd_kernel(int vec_elems, int dropout) {
@@ -327,8 +334,8 @@ int launch_bwd(const void* x, const void* g, void* dx, float* rows, unsigned int
                const float* mean, const float* var, const float* scale, const float* bias,
                float* dscale, float* dbias, float* dmean, float* dvar, long long n, int C,
                float slope, float eps, int dropout, float threshold, float keep_scale,
-               unsigned long long seed, int threads, int vec_elems, int blocks, int cluster,
-               cudaStream_t stream) {
+               unsigned long long seed, long long base, int threads, int vec_elems, int blocks,
+               int cluster, cudaStream_t stream) {
   const size_t align = 4 * sizeof(T);
   const int vec = ((uintptr_t)x % align == 0) && ((uintptr_t)g % align == 0) &&
                   ((uintptr_t)dx % align == 0);
@@ -337,12 +344,14 @@ int launch_bwd(const void* x, const void* g, void* dx, float* rows, unsigned int
                           static_cast<const T*>(x), static_cast<const T*>(g),
                           static_cast<T*>(dx), rows, ticket, mean, var, scale, bias, dscale,
                           dbias, dmean, dvar, n, C, slope, eps, threshold, keep_scale,
-                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), vec);
+                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), base >> 2,
+                          vec);
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16. `base`: the
+// element-index base of the dropout bits, a non-negative multiple of 4.
 // Launches on `stream`, does not synchronise, allocates nothing; returns the
 // cudaGetLastError() code of the launch (0 = success).
 extern "C" int vaegan_bn_act_dropout_fwd(const void* x, void* y, const float* mean,
@@ -350,17 +359,17 @@ extern "C" int vaegan_bn_act_dropout_fwd(const void* x, void* y, const float* me
                                          const float* bias, long long n, int C, int dtype,
                                          float slope, float eps, int dropout,
                                          float threshold, float keep_scale,
-                                         unsigned long long seed, int max_blocks,
-                                         void* stream) {
+                                         unsigned long long seed, long long base,
+                                         int max_blocks, void* stream) {
   if (n <= 0) return 0;
-  if (C <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || max_blocks <= 0 || base < 0 || base % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fwd<float>(x, y, mean, var, scale, bias, n, C, slope, eps, dropout,
-                             threshold, keep_scale, seed, max_blocks, s);
+                             threshold, keep_scale, seed, base, max_blocks, s);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(x, y, mean, var, scale, bias, n, C, slope, eps,
-                                     dropout, threshold, keep_scale, seed, max_blocks, s);
+                                     dropout, threshold, keep_scale, seed, base, max_blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -373,19 +382,20 @@ extern "C" int vaegan_bn_act_dropout_bwd(
     const float* mean, const float* var, const float* scale, const float* bias, float* dscale,
     float* dbias, float* dmean, float* dvar, long long n, int C, int dtype, float slope,
     float eps, int dropout, float threshold, float keep_scale, unsigned long long seed,
-    int threads, int vec_elems, int blocks, int cluster, void* stream) {
+    long long base, int threads, int vec_elems, int blocks, int cluster, void* stream) {
   if (n <= 0 || !bwd_shape_ok(C, threads, vec_elems, cluster) || blocks <= 0 ||
-      blocks % cluster != 0)
+      blocks % cluster != 0 || base < 0 || base % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_bwd<float>(x, g, dx, rows, ticket, mean, var, scale, bias, dscale, dbias,
                              dmean, dvar, n, C, slope, eps, dropout, threshold, keep_scale,
-                             seed, threads, vec_elems, blocks, cluster, s);
+                             seed, base, threads, vec_elems, blocks, cluster, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(x, g, dx, rows, ticket, mean, var, scale, bias, dscale,
                                      dbias, dmean, dvar, n, C, slope, eps, dropout, threshold,
-                                     keep_scale, seed, threads, vec_elems, blocks, cluster, s);
+                                     keep_scale, seed, base, threads, vec_elems, blocks,
+                                     cluster, s);
   return (int)cudaErrorInvalidValue;
 }
 

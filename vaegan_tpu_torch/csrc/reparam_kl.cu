@@ -19,7 +19,10 @@
 // with (b1, b2) words of Philox4x32-10 stream 1 (philox.cuh): element e takes words
 // (2 (e % 2), 2 (e % 2) + 1) of counter (e / 2, 1). The noise is a pure function of
 // (seed, element index), so the backward replays it bit for bit and the plain PyTorch
-// version in vaegan_tpu_torch/ops/fused.py computes the same words.
+// version in vaegan_tpu_torch/ops/fused.py computes the same words. The element index is
+// `base` + the flat position: `base`, a multiple of 4, places the tensor in a larger one
+// (a data-parallel process passes rank * n and draws its slice of the one-process step's
+// noise over the global batch; 0 on one process).
 //
 // What bounds it: memory and instruction count, about equally. The forward reads mu and
 // lv and writes z (12 bytes an element in f32); per element it also runs half a
@@ -74,7 +77,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) reparam_fwd_kernel(
     const T* __restrict__ mu, const T* __restrict__ lv, T* __restrict__ z,
     float* __restrict__ rows, unsigned int* ticket, float* __restrict__ kl, long long n,
-    uint32_t k0, uint32_t k1, int vec) {
+    uint32_t k0, uint32_t k1, long long gbase, int vec) {
   __shared__ float sh[kThreads];
   __shared__ float row[1];
   float acc = 0.f;
@@ -90,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) reparam_fwd_kernel(
       load_group(mu, base, n, false, m);
       load_group(lv, base, n, false, l);
     }
-    noise4(base, k0, k1, e);
+    noise4(gbase + base, k0, k1, e);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float eh = expf(__fmul_rn(0.5f, l[j]));
@@ -120,7 +123,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) reparam_bwd_kernel(
     const T* __restrict__ mu, const T* __restrict__ lv, const T* __restrict__ gz,
     const float* __restrict__ gkl_ptr, T* __restrict__ dmu, T* __restrict__ dlv,
-    long long n, uint32_t k0, uint32_t k1, int vec) {
+    long long n, uint32_t k0, uint32_t k1, long long gbase, int vec) {
   const float gkl = gkl_ptr ? gkl_ptr[0] : 0.f;
   const long long groups = (n + 3) >> 2;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -131,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) reparam_bwd_kernel(
     load_group(mu, base, n, vec, m);
     load_group(lv, base, n, vec, l);
     load_group(gz, base, n, vec, gzv);
-    noise4(base, k0, k1, e);
+    noise4(gbase + base, k0, k1, e);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float eh = expf(__fmul_rn(0.5f, l[j]));
@@ -161,25 +164,25 @@ constexpr size_t kFwdSmem = 0;  // static shared memory only
 
 template <typename T>
 int launch_fwd(const void* mu, const void* lv, void* z, float* rows, unsigned int* ticket,
-               float* kl, long long n, unsigned long long seed, int blocks, int cluster,
-               cudaStream_t stream) {
+               float* kl, long long n, unsigned long long seed, long long base, int blocks,
+               int cluster, cudaStream_t stream) {
   const int vec = aligned<T>(mu) && aligned<T>(lv) && aligned<T>(z);
   return launch_clustered(reparam_fwd_kernel<T>, blocks, kThreads, kFwdSmem, cluster, stream,
                           static_cast<const T*>(mu), static_cast<const T*>(lv),
                           static_cast<T*>(z), rows, ticket, kl, n,
-                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), vec);
+                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), base, vec);
 }
 
 template <typename T>
 int launch_bwd(const void* mu, const void* lv, const void* gz, const float* gkl, void* dmu,
-               void* dlv, long long n, unsigned long long seed, int max_blocks,
+               void* dlv, long long n, unsigned long long seed, long long base, int max_blocks,
                cudaStream_t stream) {
   const int vec = aligned<T>(mu) && aligned<T>(lv) && aligned<T>(gz) && aligned<T>(dmu) &&
                   aligned<T>(dlv);
   reparam_bwd_kernel<T><<<grid_for(n, max_blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(mu), static_cast<const T*>(lv), static_cast<const T*>(gz), gkl,
       static_cast<T*>(dmu), static_cast<T*>(dlv), n, (uint32_t)(seed & 0xFFFFFFFFull),
-      (uint32_t)(seed >> 32), vec);
+      (uint32_t)(seed >> 32), base, vec);
   return (int)cudaGetLastError();
 }
 
@@ -192,18 +195,20 @@ int launch_bwd(const void* mu, const void* lv, const void* gz, const float* gkl,
 // Forward, one launch of `blocks` blocks (a multiple of `cluster`, at most 8) of 256
 // threads: `rows` holds blocks / cluster floats of scratch, `ticket` one counter that
 // is 0 and that no other launch uses meanwhile (grid_reduce.cuh), `kl` one float.
+// `base`: the element-index base of the noise, a non-negative multiple of 4.
 extern "C" int vaegan_reparam_kl_fwd(const void* mu, const void* lv, void* z, float* rows,
                                      unsigned int* ticket, float* kl, long long n, int dtype,
-                                     unsigned long long seed, int blocks, int cluster,
-                                     void* stream) {
+                                     unsigned long long seed, long long base, int blocks,
+                                     int cluster, void* stream) {
   if (n <= 0 || cluster < 1 || cluster > (int)kClusterMax || blocks <= 0 ||
-      blocks % cluster != 0)
+      blocks % cluster != 0 || base < 0 || base % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fwd<float>(mu, lv, z, rows, ticket, kl, n, seed, blocks, cluster, s);
+    return launch_fwd<float>(mu, lv, z, rows, ticket, kl, n, seed, base, blocks, cluster, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(mu, lv, z, rows, ticket, kl, n, seed, blocks, cluster, s);
+    return launch_fwd<__nv_bfloat16>(mu, lv, z, rows, ticket, kl, n, seed, base, blocks,
+                                     cluster, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -218,15 +223,16 @@ extern "C" int vaegan_reparam_kl_fwd_max_clusters(int dtype, int cluster) {
   return -(int)cudaErrorInvalidValue;
 }
 
-// gkl: device f32 scalar, or null for a cotangent of 0.
+// gkl: device f32 scalar, or null for a cotangent of 0; `base` as in the forward.
 extern "C" int vaegan_reparam_kl_bwd(const void* mu, const void* lv, const void* gz,
                                      const float* gkl, void* dmu, void* dlv, long long n,
-                                     int dtype, unsigned long long seed, int max_blocks,
-                                     void* stream) {
-  if (n <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
+                                     int dtype, unsigned long long seed, long long base,
+                                     int max_blocks, void* stream) {
+  if (n <= 0 || max_blocks <= 0 || base < 0 || base % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(mu, lv, gz, gkl, dmu, dlv, n, seed, max_blocks, s);
+  if (dtype == 0)
+    return launch_bwd<float>(mu, lv, gz, gkl, dmu, dlv, n, seed, base, max_blocks, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(mu, lv, gz, gkl, dmu, dlv, n, seed, max_blocks, s);
+    return launch_bwd<__nv_bfloat16>(mu, lv, gz, gkl, dmu, dlv, n, seed, base, max_blocks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -30,6 +30,7 @@ import torch
 
 from vaegan_tpu_torch.config import DataConfig
 from vaegan_tpu_torch.data import nifti
+from vaegan_tpu_torch.ops.replica import rank_rows
 
 
 def resolve_device(device) -> torch.device:
@@ -246,15 +247,17 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int = 4, shuffle: bool = True,
                  drop_last: bool = False, seed: int = 0, prefetch_batches: int = 2,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1, microbatches: int = 1):
         """``batch_size`` is the GLOBAL batch size. In a multi-process run every
         process computes the same shuffle (the same ``seed``) and yields only its
-        own contiguous ``batch_size / process_count`` shard of each batch; the
-        last partial batch is dropped, since it cannot be split evenly."""
-        if process_count > 1 and batch_size % process_count != 0:
+        own contiguous ``batch_size / process_count`` shard of each batch (with
+        ``microbatches`` k > 1, its shard of each of the k microbatches of an
+        accumulating step: ``ops.replica.rank_rows``); the last partial batch is
+        dropped, since it cannot be split evenly."""
+        if process_count > 1 and batch_size % (process_count * microbatches) != 0:
             raise ValueError(
                 f"global batch_size {batch_size} is not divisible by "
-                f"process_count {process_count}")
+                f"process_count {process_count} x microbatches {microbatches}")
         if not (0 <= process_index < process_count):
             raise ValueError(f"process_index {process_index} out of range for "
                              f"process_count {process_count}")
@@ -265,6 +268,7 @@ class DataLoader:
         self.prefetch_batches = prefetch_batches
         self.process_index = process_index
         self.process_count = process_count
+        self.microbatches = microbatches
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -293,9 +297,9 @@ class DataLoader:
         slices = [idx[s: s + self.batch_size]
                   for s in _batch_starts(len(idx), self.batch_size, self.drop_last)][start:]
         if self.process_count > 1:
-            per = self.batch_size // self.process_count
-            lo = self.process_index * per
-            slices = [sl[lo: lo + per] for sl in slices]
+            rows = rank_rows(self.batch_size, self.process_index, self.process_count,
+                             self.microbatches).numpy()
+            slices = [sl[rows] for sl in slices]
         if self.prefetch_batches <= 0:
             for sl in slices:
                 yield self.dataset.load_batch(sl)
@@ -482,11 +486,13 @@ def make_dataset(cfg: DataConfig):
 
 def make_loader(cfg: DataConfig, seed: int = 0, process_index: Optional[int] = None,
                 process_count: Optional[int] = None, drop_last: Optional[bool] = None,
-                device="cuda"):
+                device="cuda", microbatches: int = 1):
     """The configured loader. In a multi-process ``torch.distributed`` run the
-    host loader is sharded by rank and world size (explicit values override).
-    ``cfg.hbm_cache`` selects the :class:`DeviceDataLoader` on ``device``
-    (single-process only); ``drop_last`` overrides ``cfg.drop_last`` when given."""
+    host loader is sharded by rank and world size (explicit values override;
+    ``microbatches``: the rows of an accumulating step's microbatches, see
+    :class:`DataLoader`). ``cfg.hbm_cache`` selects the :class:`DeviceDataLoader`
+    on ``device`` (single-process only); ``drop_last`` overrides
+    ``cfg.drop_last`` when given."""
     if process_count is None:
         process_count = torch.distributed.get_world_size() if _multi_process() else 1
     if process_index is None:
@@ -500,4 +506,5 @@ def make_loader(cfg: DataConfig, seed: int = 0, process_index: Optional[int] = N
     return DataLoader(make_dataset(cfg), batch_size=cfg.batch_size,
                       shuffle=cfg.shuffle, drop_last=drop_last, seed=seed,
                       prefetch_batches=cfg.prefetch,
-                      process_index=process_index, process_count=process_count)
+                      process_index=process_index, process_count=process_count,
+                      microbatches=microbatches)

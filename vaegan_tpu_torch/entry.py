@@ -9,12 +9,22 @@ from seed 0) with ``use_pallas="all"``, so that its 12 BN sites run the
 returns the reconstruction; ``example_args`` is ``(generator, zeros (4, 96, 96,
 1))`` on ``device``.
 
-``__graft_entry__.py``'s ``dryrun_multichip(n)`` (the data-parallel step over
-an n-device mesh) waits for multi-device training in the port (ROADMAP.md
-A.7).
+``dryrun_multichip(n)`` (``__graft_entry__.py``'s) runs one data-parallel
+train step of a tiny config over n processes on the CPU (gloo), each started
+as ``python -m vaegan_tpu_torch.entry --dryrun-child RANK N STORE``, and
+prints rank 0's metrics. For n >= 4 the JAX dry run makes a 2-D mesh and adds
+tensor parallelism of the critic head and spatial sharding; the port's mesh
+is data x 1 and the line says that those two are not ported (ROADMAP.md A.9,
+A.10).
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
 
 import torch
 
@@ -41,3 +51,79 @@ def entry(device="cuda"):
 
     example_args = (generator, torch.zeros((BATCH, IMAGE_SIZE, IMAGE_SIZE, 1), device=dev))
     return forward, example_args
+
+
+def _dryrun_cfg(n: int) -> Config:
+    base = Config()
+    return base.replace(
+        generator=base.generator.replace(depth=1, length=1, feature_size=8),
+        discriminator=base.discriminator.replace(
+            num_stride_conv1=1, num_features_conv1=8, num_blocks=(1, 1),
+            num_strides_res=(1, 2), num_features_res=(16, 16), pool_size=2,
+            linear_widths=(16, 8, 8)),
+        data=base.data.replace(image_size=16, batch_size=2 * n))
+
+
+def _dryrun_child(rank: int, n: int, store: str) -> None:
+    from vaegan_tpu_torch.parallel import dist, make_mesh, make_parallel_train_step, shard_batch
+    from vaegan_tpu_torch.train.state import create_train_state
+
+    torch.set_num_threads(1)
+    dist.initialize(backend="gloo", init_method=f"file://{store}", world_size=n, rank=rank,
+                    device="cpu", timeout_s=300)
+    try:
+        cfg = _dryrun_cfg(n)
+        mesh = make_mesh()
+        state = create_train_state(cfg, device="cpu", seed=0)
+        step = make_parallel_train_step(cfg, mesh, do_g_update=True)
+        batch = torch.rand((2 * n, 16, 16, 1), generator=torch.Generator().manual_seed(1))
+        state, metrics = step(state, shard_batch(mesh, batch), 2)
+        assert state.step == 1
+        values = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in values.items() if v != v]
+        if bad:
+            raise RuntimeError(f"non-finite metrics {bad}")
+        if rank == 0:
+            note = "" if n < 4 else (
+                "; critic-head tensor parallelism and spatial sharding, which the JAX dry "
+                "run adds at this size, are not ported (ROADMAP.md A.9, A.10)")
+            print(f"dryrun_multichip({n}) ok (mesh data={mesh.num_data} x model=1, dp over "
+                  f"{n} gloo processes{note}):",
+                  {k: round(v, 3) for k, v in values.items()}, flush=True)
+    finally:
+        dist.shutdown()
+
+
+def dryrun_multichip(n_devices: int, timeout_s: float = 600.0) -> None:
+    """One data-parallel step over ``n_devices`` CPU processes (module
+    docstring); raises if any process fails or the run outlasts ``timeout_s``."""
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    with tempfile.TemporaryDirectory(prefix="vaegan_dryrun_") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "vaegan_tpu_torch.entry", "--dryrun-child", str(r),
+             str(n_devices), os.path.join(tmp, "store")],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(n_devices)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout_s))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    sys.stdout.write(outs[0][0])
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        sys.stderr.write("".join(outs[r][1] for r in failed))
+        raise RuntimeError(f"dryrun_multichip({n_devices}): processes {failed} failed")
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--dryrun-child":
+        _dryrun_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        sys.exit("usage: python -m vaegan_tpu_torch.entry --dryrun-child RANK N STORE")

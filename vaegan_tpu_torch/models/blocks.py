@@ -13,6 +13,10 @@ LeakyReLU slope 0.2; the shortcut is the identity unless the stride or the
 channel count changes. With ``use_pallas`` its BN -> LeakyReLU chains are fused
 at p = 0; the critic is built fused only when no gradient penalty is configured,
 since the kernel's backward is not twice-differentiable (``train.state``).
+
+``replica`` (``ops.replica``) reaches every BatchNorm and Dropout of a block: in
+a data-parallel step their statistics are global and their draws the global
+step's.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from vaegan_tpu_torch.models.layers import BatchNorm, Conv2D, Dropout, leaky_relu
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 
 
 class ResBlockVAE(nn.Module):
@@ -56,27 +61,30 @@ class ResBlockVAE(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool,
                 generator: Optional[torch.Generator] = None,
-                seeds: Optional[torch.Generator] = None) -> torch.Tensor:
+                seeds: Optional[torch.Generator] = None,
+                replica: Replica = LOCAL) -> torch.Tensor:
         act = lambda t: leaky_relu(t, self.slope)  # noqa: E731
-        drop = lambda t: self.dropout(t, train=train, generator=generator)  # noqa: E731
-        shortcut = self.shortcut[1](self.shortcut[0](x), train=train)
+        drop = lambda t: self.dropout(t, train=train, generator=generator,  # noqa: E731
+                                      replica=replica)
+        bn = dict(train=train, replica=replica)
+        shortcut = self.shortcut[1](self.shortcut[0](x), **bn)
         if self.res_mode == "standard":
             out = self.conv1(x)
             if self.use_pallas:  # BN -> act -> dropout, one fused pass
-                out = self.bn1(out, train=train, fuse=(self.slope, self.p), seeds=seeds)
+                out = self.bn1(out, fuse=(self.slope, self.p), seeds=seeds, **bn)
             else:
-                out = drop(act(self.bn1(out, train=train)))
+                out = drop(act(self.bn1(out, **bn)))
             out = self.conv2(out)
-            out = self.bn2(out, train=train)
+            out = self.bn2(out, **bn)
             return act(out + shortcut)
         if self.use_pallas:
-            out = self.bn1(x, train=train, fuse=(self.slope, self.p), seeds=seeds)
+            out = self.bn1(x, fuse=(self.slope, self.p), seeds=seeds, **bn)
             out = self.conv1(out)
-            out = self.bn2(out, train=train, fuse=(self.slope, 0.0))
+            out = self.bn2(out, fuse=(self.slope, 0.0), **bn)
         else:
-            out = drop(act(self.bn1(x, train=train)))
+            out = drop(act(self.bn1(x, **bn)))
             out = self.conv1(out)
-            out = act(self.bn2(out, train=train))
+            out = act(self.bn2(out, **bn))
         out = self.conv2(out)
         return out + shortcut
 
@@ -105,27 +113,30 @@ class ResBlockDiscriminator(nn.Module):
                 Conv2D(in_channels, out_channels, 1, res_stride, 0, **kw),
                 BatchNorm(out_channels, dtype=dtype))
 
-    def _bn_act(self, bn: BatchNorm, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def _bn_act(self, bn: BatchNorm, x: torch.Tensor, train: bool,
+                replica: Replica) -> torch.Tensor:
         if self.use_pallas:
-            return bn(x, train=train, fuse=(self.slope, 0.0))
-        return leaky_relu(bn(x, train=train), self.slope)
+            return bn(x, train=train, fuse=(self.slope, 0.0), replica=replica)
+        return leaky_relu(bn(x, train=train, replica=replica), self.slope)
 
     def forward(self, x: torch.Tensor, *, train: bool,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                replica: Replica = LOCAL) -> torch.Tensor:
         if self.shortcut is not None:
-            shortcut = self.shortcut[1](self.shortcut[0](x, train=train), train=train)
+            shortcut = self.shortcut[1](self.shortcut[0](x, train=train), train=train,
+                                        replica=replica)
         else:
             shortcut = x.to(self.conv1.dtype)
         if self.res_mode == "standard":
             out = self.conv1(x, train=train)
-            out = self.dropout(out, train=train, generator=generator)
-            out = self._bn_act(self.bn1, out, train)
+            out = self.dropout(out, train=train, generator=generator, replica=replica)
+            out = self._bn_act(self.bn1, out, train, replica)
             out = self.conv2(out, train=train)
-            out = self.bn2(out, train=train)
+            out = self.bn2(out, train=train, replica=replica)
             return leaky_relu(out + shortcut, self.slope)
-        out = self._bn_act(self.bn1, x, train)
+        out = self._bn_act(self.bn1, x, train, replica)
         out = self.conv1(out, train=train)
-        out = self.dropout(out, train=train, generator=generator)
-        out = self._bn_act(self.bn2, out, train)
+        out = self.dropout(out, train=train, generator=generator, replica=replica)
+        out = self._bn_act(self.bn2, out, train, replica)
         out = self.conv2(out, train=train)
         return out + shortcut

@@ -14,20 +14,34 @@ Every ``forward`` takes ``train`` explicitly, as the JAX modules do; the
 Random draws: a fused BatchNorm's dropout seed is a 64-bit int drawn from a CPU
 ``torch.Generator`` (``seeds``), so drawing it never waits on the device; the
 unfused dropout masks are drawn on the activation's device (``generator``).
+In a data-parallel step (``replica``, ``ops.replica``) the batch statistics
+are global and every draw is the global step's, cut to this process's rows.
+
+Recomputation (``cfg.train.remat``, :func:`remat`): a block run under
+``torch.utils.checkpoint`` runs its forward again in the backward. Its layers'
+side effects then must not happen twice, and its draws must be the first
+run's: the explicit generators are not among the states ``checkpoint``
+restores. So the first run writes what it drew and what it wrote to a tape
+(:class:`Tape`), and the rerun reads it back: a BatchNorm writes its running
+statistics and draws its seed once, a spectral layer advances ``weight_u`` /
+``weight_v`` once and the rerun normalizes by the first run's vectors, a
+Dropout reuses the first run's mask.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vaegan_tpu_torch.ops.fused import bn_act_dropout
 from vaegan_tpu_torch.ops.initializers import conv_init, kaiming_normal_
 from vaegan_tpu_torch.ops.norm import batch_norm, batch_stats
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.ops.spectral_norm import l2_normalize, spectral_normalize
 
 
@@ -65,6 +79,58 @@ def precision(dtype: torch.dtype):
 def draw_seed(seeds: Optional[torch.Generator]) -> int:
     """A kernel seed in [0, 2**63) from a CPU generator (the global one if None)."""
     return int(torch.randint(0, 2 ** 63 - 1, (), generator=seeds))
+
+
+class Tape:
+    """What the first run of a recomputed block drew and computed, keyed by
+    (layer, what); ``replaying`` once the first run is over."""
+
+    def __init__(self):
+        self.entries: Dict[Tuple[int, str], object] = {}
+        self.replaying = False
+
+    def once(self, layer: nn.Module, what: str, make: Callable[[], object]):
+        """``make()`` on the first run, its value again on the rerun."""
+        key = (id(layer), what)
+        if not self.replaying:
+            self.entries[key] = make()
+        return self.entries[key]
+
+
+def _tape(layer: nn.Module) -> Optional[Tape]:
+    return layer.__dict__.get("_tape")
+
+
+def _replaying(layer: nn.Module) -> bool:
+    tape = _tape(layer)
+    return tape is not None and tape.replaying
+
+
+def _once(layer: nn.Module, what: str, make: Callable[[], object]):
+    """``make()``, kept on the layer's tape when a recomputed block runs it."""
+    tape = _tape(layer)
+    return make() if tape is None else tape.once(layer, what, make)
+
+
+def remat(block: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``block(x, **kw)`` under ``torch.utils.checkpoint`` (non-reentrant, so
+    a grad-of-grad passes through it): its activations are recomputed in the
+    backward instead of kept. The block's layers share a :class:`Tape` for
+    the call, so the rerun repeats no side effect and redraws nothing."""
+    tape = Tape()
+    layers = list(block.modules())
+
+    def run(x):
+        for m in layers:
+            m.__dict__["_tape"] = tape
+        try:
+            return block(x, **kw)
+        finally:
+            for m in layers:
+                m.__dict__.pop("_tape", None)
+            tape.replaying = True
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class Conv2D(nn.Module):
@@ -107,12 +173,17 @@ class Conv2D(nn.Module):
         train-mode call advances ``weight_u``/``weight_v`` in place), else W."""
         if not self.spectral:
             return self.weight
+        if _replaying(self) and train:
+            # a recompute: W / sigma by the first run's vectors, no power iteration
+            u, v = _once(self, "uv", None)
+            return spectral_normalize(self.weight_orig, u, v, update=False)[0]
         w, u, v = spectral_normalize(self.weight_orig, self.weight_u, self.weight_v,
                                      update=train)
         if train:
             with torch.no_grad():
                 self.weight_u.copy_(u)
                 self.weight_v.copy_(v)
+            _once(self, "uv", lambda: (u, v))
         return w
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
@@ -160,7 +231,10 @@ class BatchNorm(nn.Module):
     kernel's backward continues into them) and a dropout seed drawn from
     ``seeds``; eval mode feeds it the running statistics at p = 0. The last
     call's ``(seed, input shape)`` is kept as ``last_draw``, so the mask can be
-    replayed (``fused.keep_mask``) to hold the fused path against the unfused one.
+    replayed (``fused.keep_mask``) to hold the fused path against the unfused one;
+    in a data-parallel step the shape is the global input's, the draw the
+    one-process step makes (this process's slice starts at
+    ``replica.index_base``).
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
@@ -178,23 +252,28 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool,
                 fuse: Optional[Tuple[float, float]] = None,
-                seeds: Optional[torch.Generator] = None) -> torch.Tensor:
+                seeds: Optional[torch.Generator] = None,
+                replica: Replica = LOCAL) -> torch.Tensor:
         if fuse is None:
             y, new_mean, new_var = batch_norm(
                 x.to(self.dtype), self.weight, self.bias, self.running_mean,
                 self.running_var, use_running_average=not train,
-                momentum=self.momentum, eps=self.eps)
+                momentum=self.momentum, eps=self.eps, replica=replica)
         else:
             slope, p = fuse
             m, v, new_mean, new_var = batch_stats(
                 x, self.running_mean, self.running_var, use_running_average=not train,
-                momentum=self.momentum)
+                momentum=self.momentum, replica=replica)
             p = float(p) if train else 0.0
-            seed = draw_seed(seeds) if p > 0.0 else 0
-            self.last_draw = (seed, tuple(x.shape))
+            seed, base = 0, 0
+            if p > 0.0:
+                seed = _once(self, "seed", lambda: draw_seed(seeds))
+                base = replica.index_base(x.numel())
+            if not _replaying(self):
+                self.last_draw = (seed, replica.global_shape(x.shape))
             y = bn_act_dropout(x.to(self.dtype), m, v, self.weight, self.bias, seed,
-                               float(slope), p, float(self.eps))
-        if train:
+                               float(slope), p, float(self.eps), base)
+        if train and not _replaying(self):
             # the port updates the running statistics in place
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
@@ -204,7 +283,8 @@ class BatchNorm(nn.Module):
 
 class Dropout(nn.Module):
     """Inverted dropout; ``channelwise=True`` reproduces ``nn.Dropout2d`` (whole
-    feature maps dropped). The mask is drawn from the given ``torch.Generator``,
+    feature maps dropped). The mask is drawn from the given ``torch.Generator``
+    (for the global batch, cut to this process's rows, in a data-parallel step),
     unless a keep-mask is injected: ``mask`` (NCHW, broadcastable to the input;
     set by ``inject_masks``) overrides the draw, read-only, as the JAX module's
     ``masks`` collection does for the parity harness."""
@@ -215,15 +295,20 @@ class Dropout(nn.Module):
         self.mask: Optional[torch.Tensor] = None
 
     def forward(self, x: torch.Tensor, *, train: bool,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                replica: Replica = LOCAL) -> torch.Tensor:
         if not train or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        if self.mask is not None:
-            mask = self.mask.to(x.device)
-        else:
+
+        def draw():
+            if self.mask is not None:
+                return self.mask.to(x.device)
             shape = (x.shape[0], x.shape[1], 1, 1) if self.channelwise else x.shape
-            mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
+            return replica.draw(shape, lambda s: torch.empty(s, device=x.device).bernoulli_(
+                keep, generator=generator))
+
+        mask = _once(self, "mask", draw)
         return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -13,6 +13,12 @@ latents (B, h, w, C); inside, the NCHW views of those buffers are channels_last
 tensors, so the layout change copies nothing. The critic flattens its pooled
 map in torch's (C, H, W) order, the notebook's (``interop`` permutes the JAX
 package's first linear accordingly).
+
+``remat`` (``cfg.train.remat``) runs every residual block of the encoder, the
+decoder and the critic under recomputation in a train forward that records a
+graph (``layers.remat``), as the JAX package's ``_block_runner`` wraps them in
+``nn.remat``. ``replica`` (``ops.replica``) makes a train forward part of a
+data-parallel step: global batch statistics, the global step's draws.
 """
 
 from __future__ import annotations
@@ -26,8 +32,16 @@ from torch import nn
 
 from vaegan_tpu_torch.config import DiscriminatorConfig, GeneratorConfig
 from vaegan_tpu_torch.models.blocks import ResBlockDiscriminator, ResBlockVAE
-from vaegan_tpu_torch.models.layers import BatchNorm, Conv2D, Linear, draw_seed, leaky_relu
+from vaegan_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2D,
+    Linear,
+    draw_seed,
+    leaky_relu,
+    remat,
+)
 from vaegan_tpu_torch.ops.fused import reparam_kl
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 
 
 def to_nchw(t: torch.Tensor) -> torch.Tensor:
@@ -40,9 +54,12 @@ def to_nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
-def _run(blocks: nn.Sequential, x, train, generator, seeds):
+def run_blocks(blocks, x, *, recompute: bool, train: bool, **kw):
+    """The blocks in order, each recomputed in the backward when ``recompute``
+    and the forward records a graph (a train step's)."""
+    recompute = recompute and train and torch.is_grad_enabled()
     for blk in blocks:
-        x = blk(x, train=train, generator=generator, seeds=seeds)
+        x = remat(blk, x, train=train, **kw) if recompute else blk(x, train=train, **kw)
     return x
 
 
@@ -51,8 +68,9 @@ class Encoder(nn.Module):
     doubling the channels plus ``length - 1`` level blocks."""
 
     def __init__(self, in_channels: int, depth: int, length: int, feature_size: int,
-                 **block_kw):
+                 remat: bool = False, **block_kw):
         super().__init__()
+        self.remat = remat
         blocks = OrderedDict()
         c = in_channels
         for i in range(length):
@@ -68,8 +86,9 @@ class Encoder(nn.Module):
                     c, c, "level", **block_kw)
         self.encoder = nn.Sequential(blocks)
 
-    def forward(self, x, *, train: bool, generator=None, seeds=None):
-        return _run(self.encoder, x, train, generator, seeds)
+    def forward(self, x, *, train: bool, generator=None, seeds=None, replica=LOCAL):
+        return run_blocks(self.encoder, x, recompute=self.remat, train=train,
+                          generator=generator, seeds=seeds, replica=replica)
 
 
 class Decoder(nn.Module):
@@ -77,8 +96,9 @@ class Decoder(nn.Module):
     level block to ``reconstruction_channels``. No output activation."""
 
     def __init__(self, in_channels: int, depth: int, length: int,
-                 reconstruction_channels: int = 1, **block_kw):
+                 reconstruction_channels: int = 1, remat: bool = False, **block_kw):
         super().__init__()
+        self.remat = remat
         blocks = OrderedDict()
         c = in_channels
         feature_size = in_channels // 2
@@ -94,17 +114,18 @@ class Decoder(nn.Module):
             c, reconstruction_channels, "level", **block_kw)
         self.decoder = nn.Sequential(blocks)
 
-    def forward(self, x, *, train: bool, generator=None, seeds=None):
-        return _run(self.decoder, x, train, generator, seeds)
+    def forward(self, x, *, train: bool, generator=None, seeds=None, replica=LOCAL):
+        return run_blocks(self.decoder, x, recompute=self.remat, train=train,
+                          generator=generator, seeds=seeds, replica=replica)
 
 
 class SpatialVAECodeProcessor(nn.Module):
     """Fully-convolutional mu / log_var heads; log-var clamped to ±logvar_bound.
     Eval: z = mu. Train: z = mu + exp(log_var / 2) * eps, with ``eps`` injected,
     else drawn in the ``reparam_kl`` kernel from a seed drawn from ``seeds``
-    (``use_pallas``; ``(seed, mu's shape)`` is kept as ``last_draw`` for a
+    (``use_pallas``; ``(seed, mu's global shape)`` is kept as ``last_draw`` for a
     replay with ``fused.reparam_noise``), else drawn on the device from
-    ``generator``."""
+    ``generator``; a data-parallel process draws its rows of the global noise."""
 
     def __init__(self, feature_depth: int, logvar_bound: float = 50.0,
                  init_scheme: str = "reference", dtype: torch.dtype = torch.float32,
@@ -118,7 +139,7 @@ class SpatialVAECodeProcessor(nn.Module):
 
     def forward(self, x, *, train: bool, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                seeds: Optional[torch.Generator] = None):
+                seeds: Optional[torch.Generator] = None, replica: Replica = LOCAL):
         log_var = torch.clamp(self.log_var(x), -self.logvar_bound, self.logvar_bound)
         mu = self.mu(x)
         if not train:
@@ -127,13 +148,13 @@ class SpatialVAECodeProcessor(nn.Module):
             # the fused KL rides along unused: the loss recomputes the KL from
             # (mu, log_var) with the configured reduction, so its cotangent is 0
             seed = draw_seed(seeds)
-            self.last_draw = (seed, tuple(mu.shape))
-            z, _ = reparam_kl(mu, log_var, seed)
+            self.last_draw = (seed, replica.global_shape(mu.shape))
+            z, _ = reparam_kl(mu, log_var, seed, replica.index_base(mu.numel()))
             return z, mu, log_var
         if eps is None:
             n, c, h, w = mu.shape
-            eps = torch.randn((n, h, w, c), generator=generator, device=mu.device,
-                              dtype=mu.dtype).permute(0, 3, 1, 2)
+            eps = replica.draw((n, h, w, c), lambda s: torch.randn(
+                s, generator=generator, device=mu.device, dtype=mu.dtype)).permute(0, 3, 1, 2)
         z = mu + torch.exp(0.5 * log_var) * eps.to(mu.dtype)
         return z, mu, log_var
 
@@ -143,12 +164,13 @@ class UnsupervisedGeneratorNetwork(nn.Module):
 
     def __init__(self, cfg: GeneratorConfig, init_scheme: str = "reference",
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 fuse_reparam: bool = False, generator: Optional[torch.Generator] = None):
+                 fuse_reparam: bool = False, generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         kw = dict(res_mode=cfg.res_mode, dropout_prob=cfg.dropout_prob,
                   init_scheme=init_scheme, dtype=dtype, use_pallas=use_pallas,
-                  generator=generator)
+                  generator=generator, remat=remat)
         self.encoder = Encoder(cfg.in_channels, cfg.depth, cfg.length, cfg.feature_size, **kw)
         # non-VAE: the encoder features are the code and no code head exists,
         # as in the JAX package
@@ -162,12 +184,13 @@ class UnsupervisedGeneratorNetwork(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                seeds: Optional[torch.Generator] = None):
+                seeds: Optional[torch.Generator] = None, replica: Replica = LOCAL):
         """VAE: ``(recon, mu, log_var)``; non-VAE: ``recon``. In train mode ``eps``
         is optional injected (B, h, w, C) noise, ``generator`` (on the device)
-        draws the unfused dropout masks and noise, and ``seeds`` (a CPU
-        generator) draws the fused kernels' seeds."""
-        kw = dict(train=train, generator=generator, seeds=seeds)
+        draws the unfused dropout masks and noise, ``seeds`` (a CPU generator)
+        draws the fused kernels' seeds, and ``replica`` places the forward in a
+        data-parallel step."""
+        kw = dict(train=train, generator=generator, seeds=seeds, replica=replica)
         h = self.encoder(to_nchw(x.contiguous()), **kw)
         if not self.cfg.is_vae:
             return to_nhwc(self.decoder(h, **kw))
@@ -182,12 +205,13 @@ class UnsupervisedGeneratorNetwork(nn.Module):
 
     def decode(self, z: torch.Tensor, *, train: bool = False,
                generator: Optional[torch.Generator] = None,
-               seeds: Optional[torch.Generator] = None) -> torch.Tensor:
+               seeds: Optional[torch.Generator] = None,
+               replica: Replica = LOCAL) -> torch.Tensor:
         """Latents (B, h, w, C) -> images. In train mode (the Larsen step's prior
-        sample decode) ``generator`` and ``seeds`` draw the dropout as in
+        sample decode) ``generator``, ``seeds`` and ``replica`` are as in
         :meth:`forward`."""
         return to_nhwc(self.decoder(to_nchw(z.contiguous()), train=train, generator=generator,
-                                    seeds=seeds))
+                                    seeds=seeds, replica=replica))
 
 
 def critic_pool_shape(cfg: DiscriminatorConfig, image_size: int) -> Tuple[int, int, int]:
@@ -212,9 +236,11 @@ class Discriminator(nn.Module):
 
     def __init__(self, cfg: DiscriminatorConfig, image_size: int,
                  init_scheme: str = "reference", dtype: torch.dtype = torch.float32,
-                 use_pallas: bool = False, generator: Optional[torch.Generator] = None):
+                 use_pallas: bool = False, generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         self.cfg, self.image_size, self.use_pallas = cfg, image_size, use_pallas
+        self.remat = remat
         self.conv1 = Conv2D(cfg.in_channels, cfg.num_features_conv1, 3, cfg.num_stride_conv1,
                             1, init_scheme=init_scheme, dtype=dtype, generator=generator)
         self.bn1 = BatchNorm(cfg.num_features_conv1, dtype=dtype)
@@ -239,7 +265,7 @@ class Discriminator(nn.Module):
         self.n_linear = len(cfg.linear_widths) + 1
 
     def forward(self, x: torch.Tensor, *, train: bool, return_features: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, replica: Replica = LOCAL):
         """``x`` (B, H, W, C) -> logits (B, 1) [, the tapped features in the JAX
         layout: (B, h, w, C) for ``res_out``/``pool``, (B, F) for ``fc1``]."""
         if x.shape[1] != self.image_size or x.shape[2] != self.image_size:
@@ -248,12 +274,12 @@ class Discriminator(nn.Module):
         act = lambda t: leaky_relu(t, 0.2)  # noqa: E731
         out = self.conv1(to_nchw(x.contiguous()))
         if self.use_pallas:
-            out = self.bn1(out, train=train, fuse=(0.2, 0.0))
+            out = self.bn1(out, train=train, fuse=(0.2, 0.0), replica=replica)
         else:
-            out = act(self.bn1(out, train=train))
-        for stage in self.res_layers:
-            for blk in stage:
-                out = blk(out, train=train, generator=generator)
+            out = act(self.bn1(out, train=train, replica=replica))
+        out = run_blocks([blk for stage in self.res_layers for blk in stage], out,
+                         recompute=self.remat, train=train, generator=generator,
+                         replica=replica)
         features = {"res_out": to_nhwc(out)}
         out = F.avg_pool2d(out, self.cfg.pool_size)
         features["pool"] = to_nhwc(out)

@@ -33,6 +33,12 @@ the stream:
   ``u1 = ((b1 >> 8) + 1) / 2**24``, ``u2 = (b2 >> 8) / 2**24``,
   ``eps = sqrt(-2 log u1) cos(2 pi u2)`` (the TPU kernel's rule).
 
+The index is ``base`` plus the element's flat position in the tensor: rows 1-4
+take an element-index ``base`` (a multiple of 4, one Philox call's words), so
+that a data-parallel process draws its slice ``[base, base + n)`` of the
+stream the one-process step draws over the global batch
+(``ops.replica.Replica.index_base``); ``base`` 0 is the one-process draw.
+
 ``LAUNCHES`` counts kernel launches per kernel name: one is added where a
 wrapper launches its kernel, and nowhere else. Channel and block sums are taken
 in a fixed order on the card (no float atomics), so a kernel gives the same bits
@@ -107,17 +113,24 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def _philox_words(count: int, stream: int, seed: int, device):
-    """The four words of counters (i, stream) for i in [0, count)."""
-    i = torch.arange(count, dtype=torch.int64, device=device)
+def _philox_words(count: int, stream: int, seed: int, device, start: int = 0):
+    """The four words of counters (i, stream) for i in [start, start + count)."""
+    i = torch.arange(start, start + count, dtype=torch.int64, device=device)
     zero = torch.zeros_like(i)
     return philox4x32_10(i & _MASK32, i >> 32, zero + stream, zero,
                          seed & _MASK32, (seed >> 32) & _MASK32)
 
 
-def dropout_bits(numel: int, seed: int, device) -> torch.Tensor:
-    """The 32-bit random word of every flat index in [0, numel), as int64."""
-    words = _philox_words((numel + 3) // 4, _STREAM_DROPOUT, seed, device)
+def _check_base(base: int) -> None:
+    if base < 0 or base % 4:
+        raise ValueError(f"the element-index base must be a non-negative multiple of 4, "
+                         f"got {base}")
+
+
+def dropout_bits(numel: int, seed: int, device, base: int = 0) -> torch.Tensor:
+    """The 32-bit random word of every flat index in [base, base + numel), as int64."""
+    _check_base(base)
+    words = _philox_words((numel + 3) // 4, _STREAM_DROPOUT, seed, device, base // 4)
     return torch.stack(words, dim=1).reshape(-1)[:numel]
 
 
@@ -131,21 +144,23 @@ def keep_scale(p: float) -> float:
     return float(np.float32(1.0 / (1.0 - p)))
 
 
-def keep_mask(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
-    """Bool keep-mask of the channels_last (N, C, H, W) ``x``, indexed by each
-    element's flat NHWC position."""
+def keep_mask(x: torch.Tensor, seed: int, p: float, base: int = 0) -> torch.Tensor:
+    """Bool keep-mask of the channels_last (N, C, H, W) ``x``, indexed by
+    ``base`` plus each element's flat NHWC position."""
     n, c, h, w = x.shape
-    u24 = (dropout_bits(x.numel(), seed, x.device) >> 8).to(torch.float32)
+    u24 = (dropout_bits(x.numel(), seed, x.device, base) >> 8).to(torch.float32)
     keep = u24 >= keep_threshold(p)
     return keep.view(n, h, w, c).permute(0, 3, 1, 2)
 
 
-def reparam_noise(shape, seed: int, device) -> torch.Tensor:
+def reparam_noise(shape, seed: int, device, base: int = 0) -> torch.Tensor:
     """The reparameterization noise of an (N, C, H, W) channels_last tensor of
-    ``shape``: float32 N(0, 1), a pure function of (seed, flat NHWC index)."""
+    ``shape``: float32 N(0, 1), a pure function of (seed, base + flat NHWC
+    index)."""
+    _check_base(base)
     n, c, h, w = shape
     numel = n * c * h * w
-    w0, w1, w2, w3 = _philox_words((numel + 1) // 2, _STREAM_REPARAM, seed, device)
+    w0, w1, w2, w3 = _philox_words((numel + 1) // 2, _STREAM_REPARAM, seed, device, base // 2)
     b1 = torch.stack((w0, w2), dim=1).reshape(-1)[:numel]
     b2 = torch.stack((w1, w3), dim=1).reshape(-1)[:numel]
     u1 = ((b1 >> 8).to(torch.float32) + 1.0) * _TWO_POW_M24
@@ -266,7 +281,7 @@ def _ticket(device, stream: int) -> torch.Tensor:
 # bn_act_dropout
 # ---------------------------------------------------------------------------
 
-def _check(x, mean, var, scale, bias, seed, p) -> None:
+def _check(x, mean, var, scale, bias, seed, p, base) -> None:
     if x.dim() != 4:
         raise ValueError(f"bn_act_dropout takes an (N, C, H, W) tensor, got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
@@ -286,6 +301,7 @@ def _check(x, mean, var, scale, bias, seed, p) -> None:
         raise ValueError(f"dropout p must be in [0, 1), got {p}")
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
+    _check_base(base)
 
 
 def _ch(v: torch.Tensor) -> torch.Tensor:
@@ -293,58 +309,60 @@ def _ch(v: torch.Tensor) -> torch.Tensor:
 
 
 def bn_act_dropout_reference(x, mean, var, scale, bias, seed: int, slope: float,
-                             p: float, eps: float = 1e-5) -> torch.Tensor:
+                             p: float, eps: float = 1e-5, base: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: the same steps in the same
     order, each rounded to f32, and the same Philox mask."""
-    _check(x, mean, var, scale, bias, seed, p)
+    _check(x, mean, var, scale, bias, seed, p, base)
     inv = torch.rsqrt(var + eps)
     mul = _ch(inv * scale)
     a = (x.float() - _ch(mean)) * mul + _ch(bias)
     y = torch.where(a > 0, a, a * slope)
     if p > 0.0:
-        y = torch.where(keep_mask(x, seed, p), y * keep_scale(p), torch.zeros((), device=x.device))
+        y = torch.where(keep_mask(x, seed, p, base), y * keep_scale(p),
+                        torch.zeros((), device=x.device))
     return _channels_last(y.to(x.dtype))
 
 
 def bn_act_dropout_forward(x, mean, var, scale, bias, seed: int, slope: float, p: float,
-                           eps: float = 1e-5) -> torch.Tensor:
+                           eps: float = 1e-5, base: int = 0) -> torch.Tensor:
     """y = dropout_p(leaky_relu(scale * (x - mean) * rsqrt(var + eps) + bias, slope)).
 
     ``x``: (N, C, H, W) float32/bfloat16 in channels_last memory format;
     ``mean``/``var``/``scale``/``bias``: contiguous float32 (C,); ``seed``: int in
-    [0, 2**64), the dropout stream is a pure function of (seed, flat NHWC index).
+    [0, 2**64), the dropout stream is a pure function of (seed, base + flat NHWC
+    index).
     """
     if _device_kind(x, "bn_act_dropout") == "cpu":
-        return bn_act_dropout_reference(x, mean, var, scale, bias, seed, slope, p, eps)
-    _check(x, mean, var, scale, bias, seed, p)
+        return bn_act_dropout_reference(x, mean, var, scale, bias, seed, slope, p, eps, base)
+    _check(x, mean, var, scale, bias, seed, p, base)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_fwd", (_P,) * 6 + (
         _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, _P))
+        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, _LC, ctypes.c_int, _P))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
                 bias.data_ptr(), x.numel(), x.shape[1], _DTYPE_CODE[x.dtype], slope, eps,
                 int(p > 0.0), keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed,
-                _sms(x.device) * 8, _stream(x.device))
+                base, _sms(x.device) * 8, _stream(x.device))
     _raise_on(rc, "bn_act_dropout")
     LAUNCHES["bn_act_dropout"] += 1
     return y
 
 
 def bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed: int, slope: float,
-                                      p: float, eps: float = 1e-5):
+                                      p: float, eps: float = 1e-5, base: int = 0):
     """Plain PyTorch version of the backward kernel: the forward's mask replayed,
     ga = leaky'(a) * mask * g / (1 - p), then ``(dx, dscale, dbias, dmean, dvar)``
     with dx = ga * scale * inv, dscale = sum ga * xhat, dbias = sum ga,
     dmean = -inv * scale * sum ga, dvar = -0.5 * scale * sum(ga * xhat) / (var + eps)."""
-    _check(x, mean, var, scale, bias, seed, p)
+    _check(x, mean, var, scale, bias, seed, p, base)
     inv = torch.rsqrt(var + eps)
     d = x.float() - _ch(mean)
     a = d * _ch(inv * scale) + _ch(bias)
     xhat = d * _ch(inv)
     gl = g.to(x.dtype).float()
     if p > 0.0:
-        gl = torch.where(keep_mask(x, seed, p), gl * keep_scale(p),
+        gl = torch.where(keep_mask(x, seed, p, base), gl * keep_scale(p),
                          torch.zeros((), device=x.device))
     ga = torch.where(a > 0, gl, gl * slope)
     dx = _channels_last(((ga * _ch(scale)) * _ch(inv)).to(x.dtype))
@@ -383,7 +401,7 @@ def bwd_launch_for(x: torch.Tensor, p: float) -> LaunchShape:
 
 
 def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: float,
-                            p: float, eps: float = 1e-5):
+                            p: float, eps: float = 1e-5, base: int = 0):
     """The forward's gradient: ``(dx, dscale, dbias, dmean, dvar)`` for the
     upstream gradient ``g`` of y (any memory format; made channels_last), with the
     forward's dropout mask replayed from ``seed``. One kernel launch; channel sums
@@ -392,8 +410,8 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
     g = _channels_last(g.to(x.dtype))
     if _device_kind(x, "bn_act_dropout backward") == "cpu":
         return bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed, slope,
-                                                 p, eps)
-    _check(x, mean, var, scale, bias, seed, p)
+                                                 p, eps, base)
+    _check(x, mean, var, scale, bias, seed, p, base)
     c = x.shape[1]
     shape = bwd_launch_for(x, p)
     with torch.cuda.device(x.device):
@@ -404,14 +422,14 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
         stream = _stream(x.device)
         fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_bwd", (_P,) * 13 + (
             _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, _P))
+            ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, _LC, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P))
         rc = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows.data_ptr(),
                 _ticket(x.device, stream).data_ptr(), mean.data_ptr(), var.data_ptr(),
                 scale.data_ptr(), bias.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
                 dmean.data_ptr(), dvar.data_ptr(), x.numel(), c, _DTYPE_CODE[x.dtype], slope,
                 eps, int(p > 0.0), keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed,
-                shape.threads, shape.vec, shape.blocks, CLUSTER, stream)
+                base, shape.threads, shape.vec, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "bn_act_dropout backward")
     LAUNCHES["bn_act_dropout_bwd"] += 1
     return dx, dscale, dbias, dmean, dvar
@@ -419,10 +437,10 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
 
 class _BnActDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mean, var, scale, bias, seed, slope, p, eps):
+    def forward(ctx, x, mean, var, scale, bias, seed, slope, p, eps, base):
         ctx.save_for_backward(x, mean, var, scale, bias)
-        ctx.args = (seed, slope, p, eps)
-        return bn_act_dropout_forward(x, mean, var, scale, bias, seed, slope, p, eps)
+        ctx.args = (seed, slope, p, eps, base)
+        return bn_act_dropout_forward(x, mean, var, scale, bias, seed, slope, p, eps, base)
 
     @staticmethod
     @once_differentiable
@@ -430,22 +448,22 @@ class _BnActDropout(torch.autograd.Function):
         x, mean, var, scale, bias = ctx.saved_tensors
         dx, dscale, dbias, dmean, dvar = bn_act_dropout_backward(
             x, gy, mean, var, scale, bias, *ctx.args)
-        return dx, dmean, dvar, dscale, dbias, None, None, None, None
+        return dx, dmean, dvar, dscale, dbias, None, None, None, None, None
 
 
 def bn_act_dropout(x, mean, var, scale, bias, seed: int, slope: float, p: float,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, base: int = 0) -> torch.Tensor:
     """Differentiable :func:`bn_act_dropout_forward`: the backward kernel gives
     the gradients of x, mean, var, scale and bias (autograd carries dmean and dvar
     into the batch statistics when they were computed from x)."""
-    return _BnActDropout.apply(x, mean, var, scale, bias, seed, slope, p, eps)
+    return _BnActDropout.apply(x, mean, var, scale, bias, seed, slope, p, eps, base)
 
 
 # ---------------------------------------------------------------------------
 # reparam_kl
 # ---------------------------------------------------------------------------
 
-def _check_reparam(mu, lv, seed) -> None:
+def _check_reparam(mu, lv, seed, base) -> None:
     if mu.dim() != 4 or mu.shape != lv.shape:
         raise ValueError(f"reparam_kl takes two (N, C, H, W) tensors of one shape, got "
                          f"{tuple(mu.shape)} and {tuple(lv.shape)}")
@@ -454,13 +472,14 @@ def _check_reparam(mu, lv, seed) -> None:
                         f"and device, got {mu.dtype}/{lv.dtype} on {mu.device}/{lv.device}")
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
+    _check_base(base)
 
 
-def reparam_kl_reference(mu, lv, seed: int):
+def reparam_kl_reference(mu, lv, seed: int, base: int = 0):
     """Plain PyTorch version of the forward kernel: ``(z, kl)`` with the same
     Philox noise and the same per-element arithmetic."""
-    _check_reparam(mu, lv, seed)
-    eps = reparam_noise(mu.shape, seed, mu.device)
+    _check_reparam(mu, lv, seed, base)
+    eps = reparam_noise(mu.shape, seed, mu.device, base)
     m, l = mu.float(), lv.float()
     z = _channels_last((m + torch.exp(0.5 * l) * eps).to(mu.dtype))
     kl = -0.5 * torch.sum(((1.0 + l) - m * m) - torch.exp(l))
@@ -481,15 +500,15 @@ def reparam_launch_for(mu: torch.Tensor) -> LaunchShape:
     return _reparam_launch_shape(mu.numel(), fits)
 
 
-def reparam_kl_forward(mu, lv, seed: int):
+def reparam_kl_forward(mu, lv, seed: int, base: int = 0):
     """``(z, kl)``: z = mu + exp(lv / 2) * eps with eps ~ N(0, 1) drawn in the
-    kernel from (seed, flat NHWC index), and the KL summed over batch and dims
-    (an f32 scalar) in the same launch. ``mu``/``lv``: (N, C, H, W)
+    kernel from (seed, base + flat NHWC index), and the KL summed over batch and
+    dims (an f32 scalar) in the same launch. ``mu``/``lv``: (N, C, H, W)
     float32/bfloat16, made channels_last."""
     mu, lv = _channels_last(mu), _channels_last(lv)
     if _device_kind(mu, "reparam_kl") == "cpu":
-        return reparam_kl_reference(mu, lv, seed)
-    _check_reparam(mu, lv, seed)
+        return reparam_kl_reference(mu, lv, seed, base)
+    _check_reparam(mu, lv, seed, base)
     shape = reparam_launch_for(mu)
     with torch.cuda.device(mu.device):
         z = torch.empty_like(mu, memory_format=torch.channels_last)
@@ -497,20 +516,20 @@ def reparam_kl_forward(mu, lv, seed: int):
         kl = torch.empty((), dtype=torch.float32, device=mu.device)
         stream = _stream(mu.device)
         fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_fwd", (_P,) * 6 + (
-            _LC, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, _P))
+            _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, ctypes.c_int, ctypes.c_int, _P))
         rc = fn(mu.data_ptr(), lv.data_ptr(), z.data_ptr(), rows.data_ptr(),
                 _ticket(mu.device, stream).data_ptr(), kl.data_ptr(), mu.numel(),
-                _DTYPE_CODE[mu.dtype], seed, shape.blocks, CLUSTER, stream)
+                _DTYPE_CODE[mu.dtype], seed, base, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "reparam_kl")
     LAUNCHES["reparam_kl"] += 1
     return z, kl
 
 
-def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int):
+def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int, base: int = 0):
     """Plain PyTorch version of the backward kernel: ``(dmu, dlv)`` with the
     forward's noise replayed; ``gkl`` None counts as 0."""
-    _check_reparam(mu, lv, seed)
-    eps = reparam_noise(mu.shape, seed, mu.device)
+    _check_reparam(mu, lv, seed, base)
+    eps = reparam_noise(mu.shape, seed, mu.device, base)
     m, l, g = mu.float(), lv.float(), gz.float()
     k = torch.zeros((), device=mu.device) if gkl is None else gkl.float()
     dmu = g + k * m
@@ -518,7 +537,7 @@ def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int):
     return _channels_last(dmu.to(mu.dtype)), _channels_last(dlv.to(lv.dtype))
 
 
-def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int):
+def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base: int = 0):
     """The forward's gradient ``(dmu, dlv)`` for the cotangents ``gz`` of z and
     ``gkl`` of the KL (a scalar tensor, or None for 0: the training step's loss
     recomputes the KL, so this output is unused there)."""
@@ -531,17 +550,17 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int):
                              f"shape {tuple(gkl.shape)} on {gkl.device}")
         gkl = gkl.detach().to(torch.float32).reshape(())
     if _device_kind(mu, "reparam_kl backward") == "cpu":
-        return reparam_kl_backward_reference(mu, lv, gz, gkl, seed)
-    _check_reparam(mu, lv, seed)
+        return reparam_kl_backward_reference(mu, lv, gz, gkl, seed, base)
+    _check_reparam(mu, lv, seed, base)
     n = mu.numel()
     dmu = torch.empty_like(mu, memory_format=torch.channels_last)
     dlv = torch.empty_like(lv, memory_format=torch.channels_last)
     fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_bwd", (_P,) * 6 + (
-        _LC, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, _P))
+        _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, ctypes.c_int, _P))
     with torch.cuda.device(mu.device):
         rc = fn(mu.data_ptr(), lv.data_ptr(), gz.data_ptr(),
                 None if gkl is None else gkl.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n,
-                _DTYPE_CODE[mu.dtype], seed, _sms(mu.device) * 8, _stream(mu.device))
+                _DTYPE_CODE[mu.dtype], seed, base, _sms(mu.device) * 8, _stream(mu.device))
     _raise_on(rc, "reparam_kl backward")
     LAUNCHES["reparam_kl_bwd"] += 1
     return dmu, dlv
@@ -549,11 +568,11 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int):
 
 class _ReparamKL(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mu, lv, seed):
+    def forward(ctx, mu, lv, seed, base):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(mu, lv)
-        ctx.seed = seed
-        return reparam_kl_forward(mu, lv, seed)
+        ctx.args = (seed, base)
+        return reparam_kl_forward(mu, lv, seed, base)
 
     @staticmethod
     @once_differentiable
@@ -561,13 +580,13 @@ class _ReparamKL(torch.autograd.Function):
         mu, lv = ctx.saved_tensors
         if gz is None:
             gz = torch.zeros_like(mu)
-        dmu, dlv = reparam_kl_backward(mu, lv, gz, gkl, ctx.seed)
-        return dmu, dlv, None
+        dmu, dlv = reparam_kl_backward(mu, lv, gz, gkl, *ctx.args)
+        return dmu, dlv, None, None
 
 
-def reparam_kl(mu, log_var, seed: int):
+def reparam_kl(mu, log_var, seed: int, base: int = 0):
     """Differentiable :func:`reparam_kl_forward`: ``(z, kl)``."""
-    return _ReparamKL.apply(mu, log_var, seed)
+    return _ReparamKL.apply(mu, log_var, seed, base)
 
 
 # ---------------------------------------------------------------------------
@@ -646,5 +665,10 @@ class _ReconLossSums(torch.autograd.Function):
 
 def recon_loss_sums(recon, target) -> torch.Tensor:
     """Differentiable :func:`recon_loss_sums_forward`; divide by the element
-    count for the mean-reduced L1 + MSE of the reference."""
+    count for the mean-reduced L1 + MSE of the reference. Inputs of two dtypes
+    (a bfloat16 step's reconstruction against its float32 batch) are both taken
+    in float32, exactly, as the TPU kernel casts each; the reconstruction's
+    gradient is rounded back to its dtype."""
+    if recon.dtype != target.dtype:
+        recon, target = recon.float(), target.float()
     return _ReconLossSums.apply(recon, target)

@@ -9,8 +9,11 @@ per-channel statistics reduce over dims (0, 2, 3). Two semantics matter:
    ``running = (1 - momentum) * running + momentum * batch``, momentum 0.1;
 2. eval mode normalizes with the running statistics.
 
-Cross-device statistics (``axis_name`` in the JAX package) wait for the
-multi-device slice.
+In a data-parallel step the statistics are global (the JAX package's
+``axis_name``, or GSPMD's reduction over a batch-sharded array): given a
+:class:`~vaegan_tpu_torch.ops.replica.Replica` of world > 1, the per-channel
+sum and sum of squares are all-reduced, differentiably, and divided by the
+global count, which is also the Bessel ``n``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 
 _RED = (0, 2, 3)
 
@@ -33,16 +38,24 @@ def batch_stats(
     *,
     use_running_average: bool,
     momentum: float = 0.1,
+    replica: Replica = LOCAL,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean, var) used for normalization plus the updated running stats — the
-    stats half of :func:`batch_norm`, exposed for the fused-kernel callers."""
+    stats half of :func:`batch_norm`, exposed for the fused-kernel callers.
+    Over all the processes' rows when ``replica`` has world > 1."""
     if use_running_average:
         return running_mean, running_var, running_mean, running_var
     xf = x.float()
-    mean = xf.mean(dim=_RED)
-    mean_sq = xf.square().mean(dim=_RED)
+    c = x.shape[1]
+    n = float(x.numel() // c)
+    if replica.parallel:
+        n *= replica.world
+        sums = replica.all_reduce(torch.cat((xf.sum(dim=_RED), xf.square().sum(dim=_RED))))
+        mean, mean_sq = sums[:c] / n, sums[c:] / n
+    else:
+        mean = xf.mean(dim=_RED)
+        mean_sq = xf.square().mean(dim=_RED)
     var = mean_sq - mean.square()
-    n = float(x.numel() // x.shape[1])
     bessel = n / max(n - 1.0, 1.0)
     new_mean = ((1.0 - momentum) * running_mean + momentum * mean).to(running_mean.dtype)
     new_var = ((1.0 - momentum) * running_var + momentum * (var * bessel)).to(running_var.dtype)
@@ -59,12 +72,13 @@ def batch_norm(
     use_running_average: bool,
     momentum: float = 0.1,
     eps: float = 1e-5,
+    replica: Replica = LOCAL,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Normalize an NCHW tensor per channel. Returns ``(y, new_running_mean,
     new_running_var)``; the running stats pass through unchanged in eval mode."""
     mean, var, new_mean, new_var = batch_stats(
         x, running_mean, running_var, use_running_average=use_running_average,
-        momentum=momentum)
+        momentum=momentum, replica=replica)
     inv = torch.rsqrt(var.float() + eps)
     scale_f = scale.float()
     scale_eff = (scale_f * inv).to(x.dtype)

@@ -1,0 +1,96 @@
+"""Process-group bootstrap (counterpart of ``vaegan_tpu/parallel/dist.py``).
+
+The JAX package's communication backend is XLA's collectives, started by
+``jax.distributed.initialize``; here it is ``torch.distributed``: NCCL between
+CUDA devices, gloo on the CPU. One process drives one device, the device
+``cuda:LOCAL_RANK``. Under ``torchrun`` the world comes from its environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``);
+a process started alone, with none of it, makes the degenerate world of one
+process on a free port of localhost. Without a process group ``rank()`` is 0
+and ``world_size()`` 1.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+from typing import Optional
+
+import torch
+import torch.distributed as td
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def local_device(device="cuda") -> torch.device:
+    """This process's device: ``cuda:LOCAL_RANK`` for a CUDA device given
+    without an index (raising when there is no CUDA), else ``device``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return dev
+
+
+def initialize(backend: Optional[str] = None, init_method: Optional[str] = None,
+               world_size: Optional[int] = None, rank: Optional[int] = None,
+               device="cuda", timeout_s: float = 600.0) -> torch.device:
+    """Start the default process group and return this process's device.
+
+    ``backend``: ``"nccl"`` on a CUDA device, ``"gloo"`` on the CPU unless
+    given (gloo also takes CUDA tensors, through the host: two processes on one
+    card, which NCCL refuses). ``init_method``/``world_size``/``rank``: as
+    ``torch.distributed.init_process_group`` takes them; with none given, the
+    ``torchrun`` environment, or a world of one. ``timeout_s`` bounds every
+    collective, so a process that waits for a missing peer fails instead of
+    hanging."""
+    dev = local_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if init_method is None and world_size is None and "WORLD_SIZE" not in os.environ:
+        init_method, world_size, rank = f"tcp://127.0.0.1:{_free_port()}", 1, 0
+    kw = dict(backend=backend, init_method=init_method, world_size=world_size, rank=rank,
+              timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "nccl":
+        kw["device_id"] = dev
+    td.init_process_group(**{k: v for k, v in kw.items() if v is not None})
+    return dev
+
+
+def is_initialized() -> bool:
+    return td.is_available() and td.is_initialized()
+
+
+def rank(group=None) -> int:
+    return td.get_rank(group) if is_initialized() else 0
+
+
+def world_size(group=None) -> int:
+    return td.get_world_size(group) if is_initialized() else 1
+
+
+def is_multihost() -> bool:
+    """Whether more than one process takes part (the JAX package's
+    ``process_count() > 1``)."""
+    return world_size() > 1
+
+
+def barrier(group=None) -> None:
+    """Wait for every process of the group (no-op without one)."""
+    if world_size(group) > 1:
+        td.barrier(group=group)
+
+
+def shutdown() -> None:
+    """Destroy the default process group, if there is one."""
+    if is_initialized():
+        td.destroy_process_group()

@@ -22,6 +22,13 @@
 The host syncs of a run are the metric flush, the NaN guard at that cadence,
 the grid write and the checkpoint save; a step itself never waits for the card.
 
+Data parallelism (``mesh``, ``parallel.train_data_parallel``): every process
+runs this loop over its rows of each global batch with the same step seeds,
+and its steps report the global metrics, so every process takes the same NaN
+guard decision and issues the same collectives in the same order. The sinks,
+the grids (gathered from every process's rows) and the checkpoint writes are
+rank 0's, with a barrier after each save; every process restores.
+
 Per-step seeds. The JAX loop draws a step's randomness from
 ``fold_in(key(seed), global_step)``. The port's step takes an int (it seeds a
 CPU ``torch.Generator`` for the fused kernels' seeds and one on the device for
@@ -45,6 +52,7 @@ import torch
 from vaegan_tpu_torch.config import Config
 from vaegan_tpu_torch.data.pipeline import device_prefetch, make_loader
 from vaegan_tpu_torch.models.layers import precision
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.train.state import DTYPES, TrainState, create_train_state, resolve_device
 from vaegan_tpu_torch.train.step import (
     kept_buffers,
@@ -62,10 +70,12 @@ class TrainingDiverged(RuntimeError):
     """Raised by the opt-in NaN guard (``cfg.train.nan_check``)."""
 
 
-def make_sampler(cfg: Config) -> Callable:
+def make_sampler(cfg: Config, replica: Replica = LOCAL) -> Callable:
     """``sample(state, batch, seed)`` -> the ``gen_imgs`` that ``step(state,
     batch, seed)`` is about to train on (with ``grad_accum > 1``, those of
-    microbatch 0, from its own seed, as the JAX sampler draws).
+    microbatch 0, from its own seed, as the JAX sampler draws); in a
+    data-parallel run (``replica``) this process's rows of them, from a forward
+    with the step's global statistics and draws.
 
     The step seeds a CPU generator (the fused kernels' seeds) and a device
     generator (masks, noise) from ``seed``, and its generator forward is their
@@ -86,7 +96,8 @@ def make_sampler(cfg: Config) -> Callable:
         seeds = torch.Generator().manual_seed(seed)
         rng = torch.Generator(device=batch.device).manual_seed(seed)
         with kept_buffers(state.generator), precision(dtype):
-            out = state.generator(batch, train=True, generator=rng, seeds=seeds)
+            out = state.generator(batch, train=True, generator=rng, seeds=seeds,
+                                  replica=replica)
         return out[0] if cfg.generator.is_vae else out
 
     return sample
@@ -94,6 +105,20 @@ def make_sampler(cfg: Config) -> Callable:
 
 def _device(state: TrainState) -> torch.device:
     return next(state.generator.parameters()).device
+
+
+def _gather_rows(replica: Replica, t: torch.Tensor) -> torch.Tensor:
+    """The processes' rows of a tensor, concatenated in rank order."""
+    if not replica.parallel:
+        return t
+    parts = [torch.empty_like(t) for _ in range(replica.world)]
+    torch.distributed.all_gather(parts, t.contiguous(), group=replica.group)
+    return torch.cat(parts)
+
+
+def _barrier(replica: Replica) -> None:
+    if replica.parallel:
+        torch.distributed.barrier(group=replica.group)
 
 
 def train(
@@ -104,6 +129,7 @@ def train(
     step_fns: Optional[object] = None,
     resume: bool = False,
     device="cuda",
+    mesh=None,
 ) -> Tuple[TrainState, MetricsLogger]:
     """Run ``cfg.train.n_epochs`` of training; returns ``(final_state, logger)``.
 
@@ -116,9 +142,14 @@ def train(
     metrics)``. ``resume``: restore the latest checkpoint under
     ``cfg.train.checkpoint_dir`` and continue after its step.
     ``cfg.train.rng_impl`` names a JAX PRNG and is ignored (see
-    :func:`step_seed`).
+    :func:`step_seed`). ``mesh``: a ``parallel.Mesh`` for a data-parallel run
+    (module docstring), given with its ``loader``, ``state`` and ``step_fns``
+    (``parallel.train_data_parallel`` builds them); a new ``logger`` then has
+    no sink on ranks other than 0.
     """
     tcfg = cfg.train
+    replica = LOCAL if mesh is None else mesh.replica
+    lead = replica.rank == 0
     paper = cfg.optim.scheme == "three"
     dev = resolve_device(device) if state is None else _device(state)
     if loader is None:
@@ -128,7 +159,7 @@ def train(
     if state is None:
         state = create_train_state(cfg, device=dev)
     if logger is None:
-        logger = MetricsLogger(flush_every=tcfg.log_every)
+        logger = MetricsLogger(sinks=None if lead else [], flush_every=tcfg.log_every)
 
     lazy_gp = lazy_gp_enabled(cfg)
     if step_fns is None and paper:
@@ -177,12 +208,13 @@ def train(
             start_step = state.step
 
     sample_dir = Path(tcfg.sample_dir)
-    if start_step == 0:
-        # a fresh run wipes the folder like the reference; a resumed one keeps the
-        # interrupted run's grids, which the skipped steps would not write again
-        shutil.rmtree(sample_dir, ignore_errors=True)
-    sample_dir.mkdir(parents=True, exist_ok=True)
-    sampler = make_sampler(cfg)
+    if lead:
+        if start_step == 0:
+            # a fresh run wipes the folder like the reference; a resumed one keeps
+            # the interrupted run's grids, which the skipped steps would not write
+            shutil.rmtree(sample_dir, ignore_errors=True)
+        sample_dir.mkdir(parents=True, exist_ok=True)
+    sampler = make_sampler(cfg, replica)
 
     n_batches = len(loader) if hasattr(loader, "__len__") else -1
     global_step = 0
@@ -242,12 +274,16 @@ def train(
                         f"last checkpoint: {ckpt.latest_step() if ckpt else None}")
 
             if sample_imgs is not None:
-                from vaegan_tpu_torch.utils.imaging import save_image_grid
-                save_image_grid(sample_imgs[:25], str(sample_dir / f"{batches_done}.png"),
-                                nrow=5)
+                sample_imgs = _gather_rows(replica, sample_imgs)
+                if lead:
+                    from vaegan_tpu_torch.utils.imaging import save_image_grid
+                    save_image_grid(sample_imgs[:25], str(sample_dir / f"{batches_done}.png"),
+                                    nrow=5)
             if (ckpt is not None and tcfg.checkpoint_every > 0
                     and (global_step + 1) % tcfg.checkpoint_every == 0):
-                ckpt.save(state)
+                if lead:
+                    ckpt.save(state)
+                _barrier(replica)
             global_step += 1
             if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
                 budget_hit = True
@@ -256,8 +292,10 @@ def train(
     logger.flush()
     if ckpt is not None:
         # no force: a step the periodic save already wrote is kept
-        ckpt.save(state)
-        ckpt.wait()
+        if lead:
+            ckpt.save(state)
+            ckpt.wait()
+        _barrier(replica)
     elapsed = time.time() - t0
     executed = global_step - start_step
     logger.history.append({

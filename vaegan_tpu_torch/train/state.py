@@ -45,7 +45,8 @@ def _generator(cfg: Config, g: torch.Generator) -> UnsupervisedGeneratorNetwork:
     mode = pallas_mode(cfg.train.use_pallas)
     return UnsupervisedGeneratorNetwork(
         cfg.generator, init_scheme=cfg.train.init_scheme, dtype=DTYPES[cfg.train.dtype],
-        use_pallas=mode == "all", fuse_reparam=mode in ("losses", "all"), generator=g)
+        use_pallas=mode == "all", fuse_reparam=mode in ("losses", "all"), generator=g,
+        remat=cfg.train.remat)
 
 
 def build_generator(cfg: Config, device="cuda",
@@ -68,8 +69,9 @@ def build_models(cfg: Config, device="cuda", seed: Optional[int] = None
     half's pixel loss (``recon_loss_sums``). The critic fuses its BN + LeakyReLU
     chains only when no gradient penalty is configured: the kernel's backward is
     not twice-differentiable, and the penalty takes a grad-of-grad through the
-    critic. ``cfg.train.remat`` is accepted and ignored (recomputation in the
-    backward is a memory option the port does not implement yet).
+    critic. ``cfg.train.remat`` recomputes every residual block of both
+    networks in the backward (``models.layers.remat``), as the JAX package's
+    ``nn.remat`` does.
     """
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(cfg.train.seed if seed is None else seed)
@@ -78,7 +80,7 @@ def build_models(cfg: Config, device="cuda", seed: Optional[int] = None
         cfg.discriminator, cfg.data.image_size, init_scheme=cfg.train.init_scheme,
         dtype=DTYPES[cfg.train.dtype],
         use_pallas=pallas_mode(cfg.train.use_pallas) == "all" and not uses_gp(cfg),
-        generator=g)
+        generator=g, remat=cfg.train.remat)
     return gen.to(dev), critic.to(dev)
 
 

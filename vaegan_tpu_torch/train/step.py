@@ -82,6 +82,19 @@ and ``d_masks_real`` / ``d_masks_tilde`` / ``d_masks_prior`` (the paper
 critic's three). :func:`fused_draws` and :func:`paper_draws` give a fused
 step's own draws in that form. An accumulating step takes ``eps``, ``alpha``
 and ``z_p`` only, cut along the batch like the images.
+
+Data parallelism (``replica``, ``ops.replica``; ``parallel.make_parallel_train_step``
+builds these steps with the process's replica). Each process runs the step on
+its rows of the global batch and computes what the one-process step computes on
+the whole of it: the models' batch statistics are all-reduced, every draw is
+the global step's (module ``ops.replica``), and each loss is written as this
+process's share of the global loss, a local mean over the world size for a
+mean and a local sum for a sum (the notebook's batch-summed KL), so the sum of
+the shares' gradients is the global loss's gradient. The gradients of each
+optimizer group are summed over the processes in one all-reduce of one flat
+buffer between ``torch.autograd.grad`` and the optimizer (DDP reduces only
+inside ``.backward()``, which these steps do not call), and the metrics in one
+more, so every process reports the global metrics and applies the same update.
 """
 
 from __future__ import annotations
@@ -96,6 +109,7 @@ from vaegan_tpu_torch.config import Config, pallas_mode
 from vaegan_tpu_torch.models import ResBlockVAE, UnsupervisedGeneratorNetwork, inject_masks
 from vaegan_tpu_torch.models.layers import precision
 from vaegan_tpu_torch.ops import fused
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.train.state import DTYPES, G_METRICS, TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -188,7 +202,8 @@ def _ema_update(cfg: Config, g_ema: Optional[Dict[str, torch.Tensor]],
 def draw_record(generator: UnsupervisedGeneratorNetwork) -> DrawRecord:
     """``(seed, input shape)`` of each fused dropout site (at the path of the
     block's Dropout module) and of the ``reparam_kl`` noise (``"eps"``), as the
-    generator's last fused train forward through each left them."""
+    generator's last fused train forward through each left them (the global
+    input's shape in a data-parallel step: the draws are the global step's)."""
     rec: DrawRecord = {}
     for name, m in generator.named_modules():
         if isinstance(m, ResBlockVAE) and m.use_pallas and m.p > 0.0 \
@@ -239,6 +254,34 @@ def _grads(loss: torch.Tensor, params, retain_graph: bool = False) -> Tuple[torc
     JAX gradient tree would), so the optimizer still decays it."""
     grads = torch.autograd.grad(loss, params, allow_unused=True, retain_graph=retain_graph)
     return tuple(torch.zeros_like(p) if g is None else g for p, g in zip(params, grads))
+
+
+def _reduce_grads(replica: Replica, grads):
+    """The gradients summed over the processes: one all-reduce of one flat
+    buffer (no-op on one process)."""
+    if not replica.parallel:
+        return grads
+    flat = replica.all_reduce_(torch._utils._flatten_dense_tensors(list(grads)))
+    return torch._utils._unflatten_dense_tensors(flat, list(grads))
+
+
+def _reduce_metrics(replica: Replica, *groups: Dict[str, torch.Tensor]):
+    """Each metric dict summed over the processes (the shares of a global
+    metric), in one all-reduce; the dicts as given on one process."""
+    if not replica.parallel:
+        return groups
+    keys = [(i, k) for i, g in enumerate(groups) for k in g]
+    flat = replica.all_reduce_(torch.stack([groups[i][k].detach().float().reshape(())
+                                            for i, k in keys]))
+    out = [{} for _ in groups]
+    for (i, k), v in zip(keys, flat.unbind(0)):
+        out[i][k] = v
+    return out
+
+
+def _kl_share(cfg: Config, replica: Replica, kl: torch.Tensor) -> torch.Tensor:
+    """This process's share of the global KL: its sum, or its mean's share."""
+    return kl if cfg.loss.kl_reduction == "sum" else replica.share(kl)
 
 
 def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
@@ -297,12 +340,12 @@ def _cut(batch: torch.Tensor, k: int):
     return batch.chunk(k)
 
 
-def _gen_forward(cfg: Config, gen, batch, seeds, draws, inject):
+def _gen_forward(cfg: Config, gen, batch, seeds, draws, inject, replica: Replica = LOCAL):
     """The generator's train forward: (gen_imgs, mu, log_var), zeros for a
     non-VAE's mu and log_var."""
     eps = inject.get("eps")
     with inject_masks(gen, inject.get("g_masks")):
-        out = gen(batch, train=True, generator=draws, seeds=seeds,
+        out = gen(batch, train=True, generator=draws, seeds=seeds, replica=replica,
                   eps=None if eps is None else torch.as_tensor(eps, device=batch.device))
     if cfg.generator.is_vae:
         return out
@@ -311,9 +354,10 @@ def _gen_forward(cfg: Config, gen, batch, seeds, draws, inject):
 
 
 def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
-                 gp_lambda_scale: float):
+                 gp_lambda_scale: float, replica: Replica = LOCAL):
     """D-half loss: critic on real, on detached fakes, gradient penalty on the
-    interpolates. Returns (d_loss, real_loss, fake_loss, gp).
+    interpolates. Returns (d_loss, real_loss, fake_loss, gp), this process's
+    shares of them.
 
     ``cfg.train.critic_batching``: ``"separate"`` runs one critic forward per
     batch, as the reference does; ``"concat"`` scores real and fake in one
@@ -328,39 +372,43 @@ def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
     batching = cfg.train.critic_batching
     b = batch.shape[0]
 
-    def d(x, masks=None):
+    def d(x, masks=None, parts=1):
         with inject_masks(critic, masks):
-            return critic(x, train=True, generator=draws)
+            return critic(x, train=True, generator=draws, replica=replica.concat(parts))
 
     def alpha():
         a = inject.get("alpha")
         if a is None:
-            a = torch.rand((b, 1, 1, 1), generator=draws, device=batch.device)
+            a = replica.draw((b, 1, 1, 1), lambda s: torch.rand(s, generator=draws,
+                                                                device=batch.device))
         return torch.as_tensor(a, device=batch.device)
 
+    share = replica.share
     if batching == "concat3" and use_gp:
         interp = losses.interpolates(batch, gen_sg, alpha())
-        all3 = d(torch.cat([batch, gen_sg.to(batch.dtype), interp]))
+        all3 = d(torch.cat([batch, gen_sg.to(batch.dtype), interp]), parts=3)
         (gi,) = torch.autograd.grad(all3[2 * b:].float().sum(), interp, create_graph=True)
-        gp = losses.penalty_of(gi)
+        gp = share(losses.penalty_of(gi))
         # use_gp implies wgan; a bce critic takes the concat branch below
-        real_loss, fake_loss = losses.wgan_critic_loss(all3[:b], all3[b:2 * b])
+        real_loss, fake_loss = map(share, losses.wgan_critic_loss(all3[:b], all3[b:2 * b]))
         return real_loss + fake_loss + lam_gp * gp, real_loss, fake_loss, gp
 
     if batching in CONCAT:
-        both = d(torch.cat([batch, gen_sg.to(batch.dtype)]))
+        both = d(torch.cat([batch, gen_sg.to(batch.dtype)]), parts=2)
         real_logits, fake_logits = both[:b], both[b:]
     else:
         real_logits = d(batch, inject.get("d_masks_real"))
         fake_logits = d(gen_sg, inject.get("d_masks_fake"))
     if lcfg.adversarial == "bce":
-        real_loss = losses.bce_with_logits(real_logits, 1.0)
-        fake_loss = losses.bce_with_logits(fake_logits, 0.0)
+        real_loss = share(losses.bce_with_logits(real_logits, 1.0))
+        fake_loss = share(losses.bce_with_logits(fake_logits, 0.0))
     else:  # wgan (also "none": the critic still trains, unused by G)
-        real_loss, fake_loss = losses.wgan_critic_loss(real_logits, fake_logits)
+        real_loss, fake_loss = map(share, losses.wgan_critic_loss(real_logits, fake_logits))
     if use_gp:
-        gp = losses.gradient_penalty(lambda x: d(x, inject.get("d_masks_interp")),
-                                     batch, gen_sg, alpha())
+        # the inner gradient of the local logits' sum is the global one's: the
+        # backward of the all-reduced BN statistics sums every process's share
+        gp = share(losses.gradient_penalty(lambda x: d(x, inject.get("d_masks_interp")),
+                                           batch, gen_sg, alpha()))
     else:
         gp = torch.zeros((), device=batch.device)
     d_loss = real_loss + fake_loss + lam_gp * gp
@@ -368,33 +416,36 @@ def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
 
 
 def _gen_losses(cfg: Config, critic, batch, g_imgs, mu, lv, draws, inject,
-                kl_scale: float = 1.0):
+                kl_scale: float = 1.0, replica: Replica = LOCAL):
     """G-half loss. The reference runs the critic on gen_imgs even at adversarial
     weight 0 (its forward still advances BN and SN state); only the port's and
     the JAX package's own ``adversarial="none"`` skips it. ``kl_scale`` scales
     the KL term (accumulation's sum-reduced KL). Returns (g_loss, adv, recon,
-    kl)."""
+    kl), this process's shares of them."""
     lcfg = cfg.loss
     want_feats = lcfg.reconstruction == "dis_l"
     no_adv = lcfg.adversarial == "none"
     adv = torch.zeros((), device=batch.device)
     if not (no_adv and not want_feats):
         with inject_masks(critic, inject.get("d_masks_gen")):
-            out = critic(g_imgs, train=True, return_features=want_feats, generator=draws)
+            out = critic(g_imgs, train=True, return_features=want_feats, generator=draws,
+                         replica=replica)
         logits, feats = out if want_feats else (out, None)
         if lcfg.adversarial == "bce":
             adv = losses.bce_with_logits(logits, 1.0)
         elif not no_adv:
             adv = losses.wgan_generator_loss(logits)
     if want_feats:
-        _, real_feats = critic(batch, train=True, return_features=True, generator=draws)
+        _, real_feats = critic(batch, train=True, return_features=True, generator=draws,
+                               replica=replica)
         recon = losses.feature_matching_loss(real_feats.detach(), feats)
     elif pallas_mode(cfg.train.use_pallas) in ("losses", "all"):
         sums = fused.recon_loss_sums(g_imgs, batch)
         recon = (sums[0] + sums[1]) / g_imgs.numel()
     else:
         recon = losses.pixel_reconstruction_loss(g_imgs, batch)
-    kl = losses.kl_divergence(mu, lv, lcfg.kl_reduction)
+    adv, recon = replica.share(adv), replica.share(recon)
+    kl = _kl_share(cfg, replica, losses.kl_divergence(mu, lv, lcfg.kl_reduction))
     g_loss = (lcfg.adversarial_weight * adv + lcfg.reconstruction_weight * recon
               + lcfg.kl_weight * kl_scale * kl)
     return g_loss, adv, recon, kl
@@ -402,7 +453,7 @@ def _gen_losses(cfg: Config, critic, batch, g_imgs, mu, lv, draws, inject,
 
 def make_train_step(cfg: Config, do_g_update: bool,
                     inject: Optional[Dict[str, object]] = None, do_gp: bool = True,
-                    gp_lambda_scale: float = 1.0) -> Callable:
+                    gp_lambda_scale: float = 1.0, replica: Replica = LOCAL) -> Callable:
     """The notebook's two-optimizer step. Returns
     ``step(state, batch, seed) -> (state, metrics)``: ``batch`` is (B, H, W, C) on
     the state's device, ``seed`` an int that decides every random draw; the state
@@ -414,12 +465,15 @@ def make_train_step(cfg: Config, do_g_update: bool,
     the scheduler that skips GP steps (:func:`make_step_variants`), never derived
     from the config here. ``inject``: see the module docstring; ``g_masks`` with
     ``use_pallas="all"`` raises, because the fused kernel draws its own masks.
+    ``replica``: this process's place in a data-parallel step (``batch`` and
+    ``inject`` are then its rows; module docstring).
     """
     inject = dict(inject or {})
     _refuse_fused_masks(cfg, inject, ("g_masks",))
     _refuse_concat_masks(cfg, inject, ("d_masks_real", "d_masks_fake", "d_masks_interp"))
     if cfg.train.grad_accum > 1:
-        return _make_accum_train_step(cfg, do_g_update, inject, do_gp, gp_lambda_scale)
+        return _make_accum_train_step(cfg, do_g_update, inject, do_gp, gp_lambda_scale,
+                                      replica)
     dtype = DTYPES[cfg.train.dtype]
     clip = cfg.loss.clip_value
 
@@ -429,36 +483,40 @@ def make_train_step(cfg: Config, do_g_update: bool,
         with precision(dtype):
             # ---- generator forward, ONCE; its graph serves the G half ----------
             with torch.set_grad_enabled(do_g_update):
-                gen_imgs, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject)
+                gen_imgs, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject, replica)
             gen_sg = gen_imgs.detach()
 
             # ---- discriminator half --------------------------------------------
             d_params = list(critic.parameters())
             d_loss, real_loss, fake_loss, gp = _critic_loss(
-                cfg, critic, batch, gen_sg, draws, inject, do_gp, gp_lambda_scale)
-            _apply(state.opt_d, d_params, _grads(d_loss, d_params))
+                cfg, critic, batch, gen_sg, draws, inject, do_gp, gp_lambda_scale, replica)
+            _apply(state.opt_d, d_params, _reduce_grads(replica, _grads(d_loss, d_params)))
             if clip is not None:
                 _clamp(d_params, clip)
 
             # ---- generator half, scored by the UPDATED critic ------------------
+            g_metrics = {}
             if do_g_update:
                 g_loss, adv, recon, kl = _gen_losses(cfg, critic, batch, gen_imgs, mu, lv,
-                                                     draws, inject)
+                                                     draws, inject, replica=replica)
                 g_params = list(gen.parameters())
-                _apply(state.opt_g, g_params, _grads(g_loss, g_params))
+                _apply(state.opt_g, g_params, _reduce_grads(replica, _grads(g_loss, g_params)))
                 _ema_update(cfg, state.g_ema, gen)
-                state.g_metrics = dict(zip(G_METRICS, (t.detach() for t in
-                                                       (g_loss, adv, recon, kl))))
+                g_metrics = dict(zip(G_METRICS, (t.detach() for t in
+                                                 (g_loss, adv, recon, kl))))
         state.step += 1
-        metrics = {"d_loss": d_loss.detach(), "d_real_loss": real_loss.detach(),
-                   "d_fake_loss": fake_loss.detach(), "gp": gp.detach(), **state.g_metrics}
-        return state, metrics
+        d_metrics, g_metrics = _reduce_metrics(replica, {
+            "d_loss": d_loss.detach(), "d_real_loss": real_loss.detach(),
+            "d_fake_loss": fake_loss.detach(), "gp": gp.detach()}, g_metrics)
+        if do_g_update:
+            state.g_metrics = g_metrics
+        return state, {**d_metrics, **state.g_metrics}
 
     return step
 
 
 def _make_accum_train_step(cfg: Config, do_g_update: bool, inject: dict, do_gp: bool,
-                           gp_lambda_scale: float) -> Callable:
+                           gp_lambda_scale: float, replica: Replica) -> Callable:
     """The two-optimizer step over ``cfg.train.grad_accum`` microbatches (port of
     ``make_accum_train_step``; see the module docstring)."""
     k = int(cfg.train.grad_accum)
@@ -479,14 +537,15 @@ def _make_accum_train_step(cfg: Config, do_g_update: bool, inject: dict, do_gp: 
             for x, inj, s in zip(micro, injects, mseeds):
                 seeds, draws = _generators(s, batch.device)
                 with torch.no_grad():
-                    gen_sg = _gen_forward(cfg, gen, x, seeds, draws, inj)[0]
-                out = _critic_loss(cfg, critic, x, gen_sg, draws, inj, do_gp, gp_lambda_scale)
+                    gen_sg = _gen_forward(cfg, gen, x, seeds, draws, inj, replica)[0]
+                out = _critic_loss(cfg, critic, x, gen_sg, draws, inj, do_gp, gp_lambda_scale,
+                                   replica)
                 d_sum = _add(d_sum, _grads(out[0], d_params))
                 d_msum = _add(d_msum, [t.detach() for t in out])
                 # pass 2's critic forwards continue this microbatch's stream here,
                 # as the full step's G half continues its D half's
                 resume_at.append(draws.get_state())
-            _apply(state.opt_d, d_params, [g / k for g in d_sum])
+            _apply(state.opt_d, d_params, _reduce_grads(replica, [g / k for g in d_sum]))
             if clip is not None:
                 _clamp(d_params, clip)
             d_loss, real_loss, fake_loss, gp = (t / k for t in d_msum)
@@ -498,23 +557,27 @@ def _make_accum_train_step(cfg: Config, do_g_update: bool, inject: dict, do_gp: 
                 with kept_buffers(gen):      # the recompute keeps pass 1's BN statistics
                     for x, inj, s, at in zip(micro, injects, mseeds, resume_at):
                         seeds, draws = _generators(s, batch.device)
-                        g_imgs, mu, lv = _gen_forward(cfg, gen, x, seeds, draws, inj)
+                        g_imgs, mu, lv = _gen_forward(cfg, gen, x, seeds, draws, inj, replica)
                         draws.set_state(at)
-                        out = _gen_losses(cfg, critic, x, g_imgs, mu, lv, draws, inj, kl_scale)
+                        out = _gen_losses(cfg, critic, x, g_imgs, mu, lv, draws, inj, kl_scale,
+                                          replica)
                         g_sum = _add(g_sum, _grads(out[0], g_params))
                         g_msum = _add(g_msum, [t.detach() for t in out[1:]])
-                _apply(state.opt_g, g_params, [g / k for g in g_sum])
+                _apply(state.opt_g, g_params, _reduce_grads(replica, [g / k for g in g_sum]))
                 _ema_update(cfg, state.g_ema, gen)
                 adv, recon, kl_sum = g_msum
                 adv, recon = adv / k, recon / k
                 kl = kl_sum if lcfg.kl_reduction == "sum" else kl_sum / k
                 g_loss = (lcfg.adversarial_weight * adv + lcfg.reconstruction_weight * recon
                           + lcfg.kl_weight * kl)
-                state.g_metrics = dict(zip(G_METRICS, (g_loss, adv, recon, kl)))
         state.step += 1
-        metrics = {"d_loss": d_loss, "d_real_loss": real_loss, "d_fake_loss": fake_loss,
-                   "gp": gp, **state.g_metrics}
-        return state, metrics
+        d_metrics, g_metrics = _reduce_metrics(
+            replica, {"d_loss": d_loss, "d_real_loss": real_loss, "d_fake_loss": fake_loss,
+                      "gp": gp},
+            dict(zip(G_METRICS, (g_loss, adv, recon, kl))) if do_g_update else {})
+        if do_g_update:
+            state.g_metrics = g_metrics
+        return state, {**d_metrics, **state.g_metrics}
 
     return step
 
@@ -530,29 +593,33 @@ def _paper_groups(gen: UnsupervisedGeneratorNetwork, critic):
 
 
 def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
-                  kl_scale: float = 1.0):
+                  kl_scale: float = 1.0, replica: Replica = LOCAL):
     """Algorithm 1's forward over one (micro)batch. Returns ``((enc_l, dec_l,
     dis_l), (l_prior, l_llike, l_gan, bce_real, bce_fake), (x~ record, prior
-    decode record))``, the records being :func:`draw_record`'s."""
+    decode record))``, the records being :func:`draw_record`'s; the losses are
+    this process's shares."""
     lcfg, dev = cfg.loss, batch.device
-    x_tilde, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject)
+    x_tilde, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject, replica)
     rec_x = draw_record(gen)
     z_p = inject.get("z_p")
-    z_p = (torch.randn(mu.shape, generator=draws, device=dev, dtype=mu.dtype) if z_p is None
-           else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
+    z_p = (replica.draw(mu.shape, lambda s: torch.randn(s, generator=draws, device=dev,
+                                                        dtype=mu.dtype))
+           if z_p is None else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
     with inject_masks(gen, inject.get("g_masks_p")):
-        x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds)
+        x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds, replica=replica)
     rec_p = {k: v for k, v in draw_record(gen).items() if k.startswith("decoder.")}
 
-    def d(x, masks=None):
+    def d(x, masks=None, parts=1):
         with inject_masks(critic, masks):
-            return critic(x, train=True, return_features=True, generator=draws)
+            return critic(x, train=True, return_features=True, generator=draws,
+                          replica=replica.concat(parts))
 
     if cfg.train.critic_batching in CONCAT:
         # one forward scores real, x~ and x_p, so dis_l_shared_dropout has no pair
         # of forwards to act on
         b = batch.shape[0]
-        logits, feats = d(torch.cat([batch, x_tilde.to(batch.dtype), x_p.to(batch.dtype)]))
+        logits, feats = d(torch.cat([batch, x_tilde.to(batch.dtype), x_p.to(batch.dtype)]),
+                          parts=3)
         l_real, l_tilde, l_p = logits[:b], logits[b:2 * b], logits[2 * b:]
         f_real, f_tilde = feats[:b], feats[b:2 * b]
     else:
@@ -566,10 +633,11 @@ def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
         l_tilde, f_tilde = d(x_tilde, m_tilde)
         l_p, _ = d(x_p, inject.get("d_masks_prior"))
 
-    l_prior = losses.kl_divergence(mu, lv, lcfg.kl_reduction)
-    l_llike = losses.feature_matching_loss(f_real, f_tilde)
-    bce_real = losses.bce_with_logits(l_real, 1.0)
-    bce_fake = losses.bce_with_logits(l_tilde, 0.0) + losses.bce_with_logits(l_p, 0.0)
+    share = replica.share
+    l_prior = _kl_share(cfg, replica, losses.kl_divergence(mu, lv, lcfg.kl_reduction))
+    l_llike = share(losses.feature_matching_loss(f_real, f_tilde))
+    bce_real = share(losses.bce_with_logits(l_real, 1.0))
+    bce_fake = share(losses.bce_with_logits(l_tilde, 0.0) + losses.bce_with_logits(l_p, 0.0))
     l_gan = bce_real + bce_fake
     enc_l = lcfg.kl_weight * kl_scale * l_prior + lcfg.reconstruction_weight * l_llike
     dec_l = (cfg.optim.gamma * lcfg.reconstruction_weight * l_llike
@@ -585,29 +653,32 @@ def _paper_grads(groups, group_losses):
             for i, (params, loss) in enumerate(zip(groups, group_losses))]
 
 
-def _paper_update(cfg: Config, state: TrainState, groups, grads) -> None:
+def _paper_update(cfg: Config, state: TrainState, groups, grads,
+                  replica: Replica = LOCAL) -> None:
     """All three optimizers after the losses (one ``opt_g`` holds the encoder
     and decoder groups: see ``train.state``), the clamp for WGAN configs only
     (the notebook's WGAN device; Algorithm 1 has none, and the default
-    ``clip_value`` would cripple a BCE critic), then the EMA."""
+    ``clip_value`` would cripple a BCE critic), then the EMA. Each optimizer's
+    gradients are summed over the processes first."""
     (enc, dec, dis), (g_enc, g_dec, g_dis) = groups, grads
-    _apply(state.opt_g, enc + dec, list(g_enc) + list(g_dec))
-    _apply(state.opt_d, dis, g_dis)
+    _apply(state.opt_g, enc + dec, _reduce_grads(replica, list(g_enc) + list(g_dec)))
+    _apply(state.opt_d, dis, _reduce_grads(replica, g_dis))
     if cfg.loss.clip_value is not None and cfg.loss.adversarial == "wgan":
         _clamp(dis, cfg.loss.clip_value)
     _ema_update(cfg, state.g_ema, state.generator)
 
 
-def _paper_metrics(state: TrainState, g_loss, d_loss, l_gan, l_llike, l_prior, bce_real,
-                   bce_fake) -> Metrics:
-    state.g_metrics = dict(zip(G_METRICS, (t.detach() for t in
-                                           (g_loss, l_gan, l_llike, l_prior))))
-    return {"d_loss": d_loss.detach(), "d_real_loss": bce_real.detach(),
-            "d_fake_loss": bce_fake.detach(), "gp": torch.zeros((), device=d_loss.device),
-            **state.g_metrics}
+def _paper_metrics(state: TrainState, replica: Replica, g_loss, d_loss, l_gan, l_llike,
+                   l_prior, bce_real, bce_fake) -> Metrics:
+    d_metrics, state.g_metrics = _reduce_metrics(
+        replica, {"d_loss": d_loss.detach(), "d_real_loss": bce_real.detach(),
+                  "d_fake_loss": bce_fake.detach()},
+        dict(zip(G_METRICS, (t.detach() for t in (g_loss, l_gan, l_llike, l_prior)))))
+    return {**d_metrics, "gp": torch.zeros((), device=d_loss.device), **state.g_metrics}
 
 
-def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = None) -> Callable:
+def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = None,
+                          replica: Replica = LOCAL) -> Callable:
     """Larsen et al. Algorithm 1 (three optimizers; module docstring). Returns
     ``step(state, batch, seed) -> (state, metrics)`` like :func:`make_train_step`.
     Metrics: ``d_loss`` = dis_l, ``d_real_loss`` = the BCE on the real batch,
@@ -616,7 +687,7 @@ def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = Non
     L_prior. After a call, ``step.draws`` holds the :func:`draw_record` of its x~
     forward (``"x"``) and prior decode (``"p"``); :func:`paper_draws` rebuilds
     them as an ``inject``. ``g_masks`` / ``g_masks_p`` with ``use_pallas="all"``
-    raise, as in :func:`make_train_step`."""
+    raise, as in :func:`make_train_step`; ``replica`` as there."""
     if not cfg.generator.is_vae:
         raise ValueError("the Larsen Algorithm-1 step requires a VAE code distribution "
                          "(generator.is_vae=True); use make_train_step for plain-AE "
@@ -625,7 +696,7 @@ def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = Non
     _refuse_fused_masks(cfg, inject, ("g_masks", "g_masks_p"))
     _refuse_concat_masks(cfg, inject, ("d_masks_real", "d_masks_tilde", "d_masks_prior"))
     if cfg.train.grad_accum > 1:
-        return _make_paper_accum_step(cfg, inject)
+        return _make_paper_accum_step(cfg, inject, replica)
     dtype = DTYPES[cfg.train.dtype]
 
     def step(state: TrainState, batch: torch.Tensor, seed: int) -> Tuple[TrainState, Metrics]:
@@ -633,21 +704,22 @@ def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = Non
         groups = _paper_groups(state.generator, state.critic)
         with precision(dtype):
             group_losses, aux, records = _paper_losses(cfg, state.generator, state.critic,
-                                                       batch, seeds, draws, inject)
+                                                       batch, seeds, draws, inject,
+                                                       replica=replica)
             grads = _paper_grads(groups, group_losses)
-            _paper_update(cfg, state, groups, grads)
+            _paper_update(cfg, state, groups, grads, replica)
         step.draws = dict(zip(("x", "p"), records))
         enc_l, dec_l, dis_l = group_losses
         l_prior, l_llike, l_gan, bce_real, bce_fake = aux
         state.step += 1
-        return state, _paper_metrics(state, enc_l + dec_l, dis_l, l_gan, l_llike, l_prior,
-                                     bce_real, bce_fake)
+        return state, _paper_metrics(state, replica, enc_l + dec_l, dis_l, l_gan, l_llike,
+                                     l_prior, bce_real, bce_fake)
 
     step.draws = None
     return step
 
 
-def _make_paper_accum_step(cfg: Config, inject: dict) -> Callable:
+def _make_paper_accum_step(cfg: Config, inject: dict, replica: Replica) -> Callable:
     """The Algorithm-1 step over ``cfg.train.grad_accum`` microbatches (port of
     ``_make_paper_accum_step``): one pass, each group's gradients summed, all
     three optimizers after the last microbatch."""
@@ -665,17 +737,17 @@ def _make_paper_accum_step(cfg: Config, inject: dict) -> Callable:
             for j, (x, inj) in enumerate(zip(micro, injects)):
                 seeds, draws = _generators(micro_seed(seed, j), batch.device)
                 group_losses, aux, _ = _paper_losses(cfg, state.generator, state.critic, x,
-                                                     seeds, draws, inj, kl_scale)
+                                                     seeds, draws, inj, kl_scale, replica)
                 for i, g in enumerate(_paper_grads(groups, group_losses)):
                     sums[i] = _add(sums[i], g)
                 enc_l, dec_l, dis_l = group_losses
                 msum = _add(msum, [t.detach() for t in (enc_l + dec_l, dis_l, *aux)])
-            _paper_update(cfg, state, groups, [[g / k for g in s] for s in sums])
+            _paper_update(cfg, state, groups, [[g / k for g in s] for s in sums], replica)
         g_loss, d_loss, l_prior, l_llike, l_gan, bce_real, bce_fake = (t / k for t in msum)
         if lcfg.kl_reduction == "sum":
             l_prior = l_prior * k          # the full batch's KL is the sum over microbatches
         state.step += 1
-        return state, _paper_metrics(state, g_loss, d_loss, l_gan, l_llike, l_prior,
+        return state, _paper_metrics(state, replica, g_loss, d_loss, l_gan, l_llike, l_prior,
                                      bce_real, bce_fake)
 
     return step
