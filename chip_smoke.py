@@ -820,16 +820,18 @@ def critic_draws(torch, critic, batch, rng, device, forwards=("real", "fake", "i
 
 GRAD_MEDIAN_TOL = 1e-3     # median over a net's tensors of |g_a - g_b|_2 / |g_b|_2
 GRAD_MAX_TOL = 1e-2        # max over a net's tensors of max |g_a - g_b| / max |g_net|
+NET_NAMES = {"g": "generator", "d": "critic"}
 
 
 def step_errors(a, b):
     """Per net ("g", "d"): (median relative L2 error of its gradient tensors,
     largest element error over the net's largest gradient), and the metrics whose
-    relative error exceeds 2e-4 (+1e-5 absolute)."""
+    relative error exceeds 2e-4 (+1e-5 absolute). A net ``b`` has no
+    gradients for (it was not updated) is left out."""
     bad = [k for k, want in b["metrics"].items()
            if not abs(a["metrics"][k] - want) <= 1e-5 + 2e-4 * abs(want)]
     out = {}
-    for net in ("g", "d"):
+    for net in (n for n in ("g", "d") if b["grads"].get(n)):
         ga, gb = a["grads"][net], b["grads"][net]
         scale = max(float(t.abs().max()) for t in gb.values())
         rel = sorted(float((ga[k] - r).norm()) / max(float(r.norm()), 1e-30) for k, r in gb.items())
@@ -848,10 +850,10 @@ def compare_steps(what, a, b):
     2e-2 (critic)."""
     errs, bad = step_errors(a, b)
     ok = not bad and all(m <= GRAD_MEDIAN_TOL and w <= GRAD_MAX_TOL for m, w in errs.values())
-    log(f"{what}: generator gradients median rel L2 err {errs['g'][0]:.3e}, max err / max "
-        f"grad {errs['g'][1]:.3e}; critic {errs['d'][0]:.3e}, {errs['d'][1]:.3e}; metrics out "
-        f"of tolerance {bad}; d_loss {a['metrics']['d_loss']!r} vs {b['metrics']['d_loss']!r}, "
-        f"g_loss {a['metrics']['g_loss']!r} vs {b['metrics']['g_loss']!r} -> "
+    nets = "; ".join(f"{NET_NAMES[n]} gradients median rel L2 err {m:.3e}, max err / max "
+                     f"grad {w:.3e}" for n, (m, w) in errs.items())
+    log(f"{what}: {nets}; metrics out of tolerance {bad}; d_loss {a['metrics']['d_loss']!r} "
+        f"vs {b['metrics']['d_loss']!r}, g_loss {a['metrics']['g_loss']!r} vs {b['metrics']['g_loss']!r} -> "
         f"{'agree' if ok else 'DISAGREE'}")
     return ok
 
@@ -2290,13 +2292,20 @@ def dp_rank(rank, world, store, out):
         dist.shutdown()
 
 
-def dp_pair_steps(torch, vt, mesh):
+def dp_pair_steps(torch, vt, mesh, forced=None):
     """Two steps (G+D, then critic only) of ``vaegan_256_dp`` in float32 at
     global batch :data:`DP_RANK_BATCH` on this process's rows of the global
-    batch, cuDNN deterministic and TF32 off: the metrics and the BN running
-    statistics after each step, the gradients each optimizer applied in the
-    first step (rank 0 only: the ranks' parameters are compared by checksum),
-    a checksum of each parameter and the seconds spent in all-reduces a step."""
+    batch, cuDNN deterministic and TF32 off. Returns the metrics and the BN
+    running statistics after each step, the seconds spent in all-reduces a
+    step, a checksum of each parameter and, on rank 0 alone (the ranks are
+    compared by checksum), the gradients each optimizer was stepped with at
+    each step and the final state of both networks and of the EMA.
+
+    ``forced`` (the one-rank reference of phase 11.4) holds, for each step,
+    the two-rank run's gradients by optimizer: each optimizer records its own
+    gradients, then steps with those in their place, so that every step of
+    the reference starts from the two-rank run's weights and optimizer
+    state."""
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dp_config(vt, tempfile.gettempdir(), DP_RANK_BATCH, dtype="float32")
@@ -2314,13 +2323,30 @@ def dp_pair_steps(torch, vt, mesh):
         spent[0] += time.perf_counter() - t0
         return res
 
-    out = {"metrics": [], "allreduce_s": [], "bn": []}
-    grads = record_grads(state)
+    step_with = {}
+    if forced is not None:
+        for key, opt, module in (("g", state.opt_g, state.generator),
+                                 ("d", state.opt_d, state.critic)):
+            def forcing(*a, _key=key, _named=list(module.named_parameters()), _inner=opt.step,
+                        **k):
+                for n, p in _named:
+                    p.grad = step_with[_key][n]
+                return _inner(*a, **k)
+
+            opt.step = forcing
+    grads = record_grads(state)    # outermost: the step's own gradients
+    out = {"metrics": [], "allreduce_s": [], "bn": [], "grads": []}
     torch.distributed.all_reduce = timed
     try:
         for i, do_g in enumerate((True, False)):
             batch = torch.rand((DP_RANK_BATCH, 256, 256, 1), generator=data).cuda()
             spent[0] = 0.0
+            for g in grads.values():
+                g.clear()
+            if forced is not None:
+                step_with.clear()
+                step_with.update({net: {k: v.cuda() for k, v in g.items()}
+                                  for net, g in forced[i].items()})
             step = vt.parallel.make_parallel_train_step(cfg, mesh, do_g)
             state, m = step(state, vt.parallel.shard_batch(mesh, batch), 9000 + i)
             torch.cuda.synchronize()
@@ -2329,31 +2355,75 @@ def dp_pair_steps(torch, vt, mesh):
             out["bn"].append({f"{net}.{k}": v.cpu() for net in ("generator", "critic")
                               for k, v in getattr(state, net).state_dict().items()
                               if k.endswith(("running_mean", "running_var"))})
-            if i == 0 and mesh.rank == 0:
-                out["grads"] = {net: {k: v.cpu() for k, v in g.items()}
-                                for net, g in grads.items()}
+            if mesh.rank == 0:
+                out["grads"].append({net: {k: v.cpu() for k, v in g.items()}
+                                     for net, g in grads.items() if g})
     finally:
         torch.distributed.all_reduce = inner
+    step_with.clear()
     out["checksums"] = {f"{net}.{k}": float(p.detach().double().sum())
                         for net in ("generator", "critic")
                         for k, p in getattr(state, net).named_parameters()}
+    if mesh.rank == 0:
+        out["state"] = {f"{net}.{k}": v.cpu() for net in ("generator", "critic")
+                        for k, v in getattr(state, net).state_dict().items()}
+        out["state"].update({f"g_ema.{k}": v.cpu() for k, v in state.g_ema.items()})
+    del state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_bn(got, want):
+    """Per BN statistic, its largest |diff| over its tolerance, 1e-4 of the
+    tensor's largest value + 1e-5 (the card picks convolution algorithms by
+    batch size: 4 rows a rank, 8 on one, so a channel whose mean cancels to
+    near 0 carries the error of its terms)."""
+    return {k: float((got[k] - w).abs().max()) / (1e-5 + 1e-4 * float(w.abs().max()))
+            for k, w in want.items()}
+
+
+def held_state(got, want):
+    """Per final state tensor (BN statistics aside: :func:`held_bn`), its
+    largest |diff| over the tolerance of tests/test_torch_parallel.py:
+    parameters and EMA 1e-5 + 1e-4 |w| per element, spectral vectors 1e-3,
+    counters exact."""
+    out = {}
+    for k, w in want.items():
+        if k.endswith(("running_mean", "running_var")):
+            continue
+        if k.endswith("num_batches_tracked"):
+            out[k] = 0.0 if bool((got[k] == w).all()) else float("inf")
+            continue
+        diff = (got[k].double() - w.double()).abs()
+        tol = 1e-3 if k.endswith(("weight_u", "weight_v")) else 1e-5 + 1e-4 * w.double().abs()
+        out[k] = float((diff / tol).max())
     return out
 
 
 def phase_dp_ranks(torch, vt, mesh, dev, tmp, env, card_line):
-    """Phase 11.4: two gloo processes on the one card against this process's
-    one-rank step (:func:`dp_pair_steps`); returns the all-reduce seconds a
-    step."""
+    """Phase 11.4: two gloo processes on the one card, then this process's
+    one-rank step forced onto their gradients step by step
+    (:func:`dp_pair_steps`); returns the all-reduce seconds a step.
+
+    Why forced: RMSprop's first update moves each weight by about 10 lr
+    sign(g). Where a gradient element is at the noise level of the two runs'
+    summation orders, its sign, and so the weight after the update, is noise;
+    measured on an H100, the critic's BN statistics after an update then part
+    from a free-running one-rank run's by 13x (after the first step) and 188x
+    (after the second) their tolerance. The forced reference takes each step
+    from the two-rank run's weights and optimizer state, so what the two-rank
+    step computes after an update is held as tightly as before one: the
+    metrics and every gradient of both steps, the BN statistics after each,
+    and the final parameters, spectral vectors and EMA."""
     log(f"== phase 11.4: two gloo processes on {dev} (each its own Python process) against "
         f"this process's one-rank step, vaegan_256_dp in float32 at global batch "
-        f"{DP_RANK_BATCH}, two steps (G+D, critic only), cuDNN deterministic; tolerances "
-        "those of tests/test_torch_parallel.py for the metrics of both steps (2e-4 relative "
-        "+ 1e-5) and the generator's BN statistics after the first step (1e-4, here of each "
-        "tensor's largest value, + 1e-5: the card picks convolution algorithms by batch "
-        "size), phase 6's for the first step's gradients; each parameter's checksum equal "
-        "on both ranks ==")
-    ref = dp_pair_steps(torch, vt, mesh)
-    torch.backends.cudnn.deterministic = False
+        f"{DP_RANK_BATCH}, two steps (G+D, critic only), cuDNN deterministic; the one-rank "
+        "step records its own gradients and then steps with the two ranks', so each of its "
+        "steps starts from their state; tolerances: metrics of both steps those of "
+        "tests/test_torch_parallel.py (2e-4 relative + 1e-5), gradients of both steps "
+        "phase 6's, BN statistics of both networks after each step 1e-4 of each tensor's "
+        "largest value + 1e-5, final parameters and EMA 1e-5 + 1e-4 |w|, spectral vectors "
+        "1e-3; each parameter's checksum and every metric equal on both ranks ==")
     torch.cuda.empty_cache()
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke, sys; chip_smoke.dp_rank(int(sys.argv[1]), "
@@ -2373,38 +2443,39 @@ def phase_dp_ranks(torch, vt, mesh, dev, tmp, env, card_line):
         raise SystemExit("a gloo rank failed")
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
              for r in range(2)]
+    ref = dp_pair_steps(torch, vt, mesh, forced=ranks[0]["grads"])
+    torch.backends.cudnn.deterministic = False
+    got = ranks[0]
     bad_m = [(i, metrics_close(m, w)) for i, (m, w) in
-             enumerate(zip(ranks[0]["metrics"], ref["metrics"])) if metrics_close(m, w)]
-    # per tensor, against 1e-4 of its largest value: the card's convolutions
-    # pick their algorithms by batch size (4 a rank, 8 on one), so a channel
-    # whose mean cancels to near 0 carries the error of its terms. Held: the
-    # generator's after the first step, whose forward precedes every update.
-    # Shown: the critic's after it (its G-half forward runs the updated
-    # critic) and all after the second step; an update moves a weight by ~10
-    # lr sign(g) under RMSprop, and where g is at noise level its sign is noise
-    bn_err = [{k: float((got[k] - w).abs().max()) / (1e-5 + 1e-4 * float(w.abs().max()))
-               for k, w in want.items()} for got, want in zip(ranks[0]["bn"], ref["bn"])]
-    bad_bn = [k for k, e in bn_err[0].items() if e > 1.0 and k.startswith("generator.")]
-    grads_ok = compare_steps(
-        "two gloo ranks against one rank, step 0 (G+D)",
-        {"metrics": ranks[0]["metrics"][0], "grads": ranks[0]["grads"]},
-        {"metrics": ref["metrics"][0], "grads": ref["grads"]})
+             enumerate(zip(got["metrics"], ref["metrics"])) if metrics_close(m, w)]
+    grads_ok = all(compare_steps(
+        f"two gloo ranks against one rank, step {i} ({'G+D' if i == 0 else 'critic only'})",
+        {"metrics": got["metrics"][i], "grads": got["grads"][i]},
+        {"metrics": ref["metrics"][i], "grads": ref["grads"][i]}) for i in range(2))
+    bn_err = [held_bn(g, w) for g, w in zip(got["bn"], ref["bn"])]
+    state_err = held_state(got["state"], ref["state"])
     same = ranks[0]["checksums"] == ranks[1]["checksums"] and \
         ranks[0]["metrics"] == ranks[1]["metrics"]
-    for i, (m, w) in enumerate(zip(ranks[0]["metrics"], ref["metrics"])):
+    bitwise = all(torch.equal(got["state"][k], w) for k, w in ref["state"].items()
+                  if not k.endswith(("running_mean", "running_var")))
+    for i, (m, w) in enumerate(zip(got["metrics"], ref["metrics"])):
         log(f"step {i}: two ranks " + ", ".join(f"{k}={m[k]:.7g}" for k in w)
             + "; one rank " + ", ".join(f"{k}={w[k]:.7g}" for k in w))
-    shown = lambda errs, net: max(e for k, e in errs.items() if k.startswith(net))  # noqa: E731
-    log(f"two gloo ranks against one rank: metrics out of tolerance {bad_m}; the "
-        f"generator's BN statistics after step 0 out of tolerance {bad_bn[:4]} (the largest "
-        f"|diff| {shown(bn_err[0], 'generator'):.3f} of its tolerance); shown, past an "
-        f"update: the critic's after step 0 {shown(bn_err[0], 'critic'):.3f}, all after "
-        f"step 1 {max(bn_err[1].values()):.3f} of that tolerance; ranks agree on every "
-        f"parameter's checksum and metric {same}; all-reduce time a step (host clock, through gloo) "
-        f"{[round(s * 1e3, 3) for s in ranks[0]['allreduce_s']]} ms [{card_line}]")
-    if bad_m or bad_bn or not same or not grads_ok:
+    worst = lambda errs, net: max(e for k, e in errs.items() if k.startswith(net))  # noqa: E731
+    bad_bn = [(i, k) for i, errs in enumerate(bn_err) for k, e in errs.items() if e > 1.0]
+    bad_state = [k for k, e in state_err.items() if e > 1.0]
+    log(f"two gloo ranks against one rank: metrics out of tolerance {bad_m}; BN statistics "
+        f"out of tolerance {bad_bn[:4]} (the largest |diff| over its tolerance: generator "
+        f"{[round(worst(e, 'generator'), 3) for e in bn_err]}, critic "
+        f"{[round(worst(e, 'critic'), 3) for e in bn_err]} after steps 0, 1); final state out "
+        f"of tolerance {bad_state[:4]} (the largest |diff| {max(state_err.values()):.3g} of "
+        f"its tolerance; parameters, spectral vectors and EMA bitwise equal {bitwise}); ranks "
+        f"agree on every parameter's checksum and metric {same}; all-reduce time a step "
+        f"(host clock, through gloo) {[round(s * 1e3, 3) for s in got['allreduce_s']]} ms "
+        f"[{card_line}]")
+    if bad_m or bad_bn or bad_state or not same or not grads_ok:
         raise SystemExit("the two-rank step disagrees with the one-rank step")
-    return ranks[0]["allreduce_s"]
+    return got["allreduce_s"]
 
 
 def phase_dp(torch, vt, bounds, card_line, sites, latent):

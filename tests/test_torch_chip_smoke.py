@@ -512,3 +512,49 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     prof = types.SimpleNamespace(events=lambda: [ev(0, 1000), ev(500, 1500), ev(3000, 3500),
                                                  ev(0, 9000, "cpu"), ev(4000, 4000)])
     assert chip_smoke.device_busy_ms(prof, DT) == pytest.approx(2.0)
+
+
+def test_phase11_ranks_held_state_and_statistics():
+    """Phase 11.4's holds: a final state tensor within its tolerance reads at
+    most 1, one element past it more, a counter that differs reads inf; a BN
+    statistic is held against 1e-4 of its tensor's largest value + 1e-5."""
+    import torch
+
+    want = {"critic.c.weight_orig": torch.tensor([1.0, -2.0, 0.0]),
+            "critic.c.weight_u": torch.tensor([0.5, 0.5]),
+            "critic.bn.running_mean": torch.tensor([3.0]),
+            "critic.bn.num_batches_tracked": torch.tensor(2),
+            "g_ema.w": torch.tensor([4.0])}
+    got = {k: v.clone() for k, v in want.items()}
+    got["critic.c.weight_orig"] += torch.tensor([1e-4, 0.0, 0.0])
+    got["critic.c.weight_u"] += 9e-4
+    got["critic.bn.running_mean"] += 100.0             # left to held_bn
+    errs = chip_smoke.held_state(got, want)
+    assert "critic.bn.running_mean" not in errs
+    assert errs["critic.c.weight_orig"] == pytest.approx(1e-4 / (1e-5 + 1e-4), rel=1e-3)
+    assert errs["critic.c.weight_u"] == pytest.approx(0.9, rel=1e-3)
+    assert errs["critic.bn.num_batches_tracked"] == 0.0 and errs["g_ema.w"] == 0.0
+    got["critic.c.weight_orig"][2] = 1e-5 * 1.5
+    got["critic.bn.num_batches_tracked"] += 1
+    errs = chip_smoke.held_state(got, want)
+    assert errs["critic.c.weight_orig"] == pytest.approx(1.5)
+    assert errs["critic.bn.num_batches_tracked"] == float("inf")
+    bn = chip_smoke.held_bn({"m": torch.tensor([10.0, 0.002])}, {"m": torch.tensor([10.0, 0.0])})
+    assert bn["m"] == pytest.approx(0.002 / (1e-5 + 1e-3))
+
+
+def test_step_errors_leave_out_a_net_that_was_not_updated():
+    """A critic-only step records no generator gradients: the comparison holds
+    the critic's and the metrics alone."""
+    import torch
+
+    rec = {"metrics": {"d_loss": 1.0, "g_loss": 2.0},
+           "grads": {"d": {"w": torch.tensor([1.0, -1.0])}}}
+    other = {"metrics": {"d_loss": 1.0, "g_loss": 2.0},
+             "grads": {"d": {"w": torch.tensor([1.0, -1.001])}}}
+    errs, bad = chip_smoke.step_errors(other, rec)
+    assert set(errs) == {"d"} and not bad
+    assert errs["d"][1] == pytest.approx(1e-3, rel=1e-3)
+    assert chip_smoke.compare_steps("critic only", other, rec)
+    rec["grads"]["g"] = {}
+    assert set(chip_smoke.step_errors(other, rec)[0]) == {"d"}

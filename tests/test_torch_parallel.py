@@ -464,7 +464,7 @@ def test_mesh_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="processes"):
         make_mesh(num_data=2)
     mesh = make_mesh()
-    assert mesh.shape == {"data": 1, "model": 1} and not mesh.replica.parallel
+    assert mesh.num_data == 1 and mesh.rank == 0 and not mesh.replica.parallel
     with pytest.raises(NotImplementedError, match="A.10"):
         make_parallel_train_step(tiny_cfg(), mesh, batch_spec="spatial")
     with pytest.raises(ValueError, match="meaningless"):

@@ -24,8 +24,9 @@ import pytest
 import torch
 
 import vaegan_tpu_torch as vt
-from vaegan_tpu_torch.models import ResBlockDiscriminator, ResBlockVAE
+from vaegan_tpu_torch.models import ResBlockDiscriminator, ResBlockVAE, layers
 from vaegan_tpu_torch.ops import fused
+from vaegan_tpu_torch.ops.replica import Replica
 from vaegan_tpu_torch.train import make_paper_train_step, make_train_step
 from vaegan_tpu_torch.train.step import draw_record
 
@@ -178,6 +179,36 @@ def test_bn_writes_running_stats_once_per_forward():
     assert torch.equal(critic2.res_layers[0][0].conv1.weight_u,
                        critic.res_layers[0][0].conv1.weight_u)
     assert not torch.equal(critic.res_layers[0][0].conv1.weight_u, u_before)
+
+
+@pytest.mark.parametrize("channelwise", [False, True])
+def test_remat_tape_keeps_the_local_bool_mask(monkeypatch, channelwise):
+    """Under remat a Dropout keeps its mask on the block's tape until the
+    backward. In a data-parallel step the mask is drawn in float32 for the
+    global batch and cut to this process's rows; the tape must hold those
+    rows alone, as a bool tensor with a storage of its own (one byte an
+    element of the local mask), and the output must be the one without
+    remat."""
+    tapes = []
+
+    class Recording(layers.Tape):
+        def __init__(self):
+            super().__init__()
+            tapes.append(self)
+
+    monkeypatch.setattr(layers, "Tape", Recording)
+    drop = layers.Dropout(0.5, channelwise=channelwise)
+    x = torch.rand(2, 3, 4, 4, requires_grad=True)
+    replica = Replica(rank=1, world=2)
+    kw = dict(train=True, replica=replica)
+    y = layers.remat(drop, x, generator=torch.Generator().manual_seed(0), **kw)
+    (mask,) = tapes[0].entries.values()
+    local = (2, 3, 1, 1) if channelwise else tuple(x.shape)
+    assert mask.dtype == torch.bool and tuple(mask.shape) == local
+    assert mask.untyped_storage().nbytes() == mask.numel()
+    assert torch.equal(y, drop(x, generator=torch.Generator().manual_seed(0), **kw))
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.where(mask, 2.0, 0.0).expand_as(x))
 
 
 # ---------------------------------------------------------------------------

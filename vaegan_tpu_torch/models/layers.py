@@ -308,8 +308,10 @@ class Dropout(nn.Module):
             return replica.draw(shape, lambda s: torch.empty(s, device=x.device).bernoulli_(
                 keep, generator=generator))
 
-        mask = _once(self, "mask", draw)
-        return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        # a bool copy of this process's rows: what a recomputed block keeps on
+        # its tape for the backward (not the float draw over the global batch)
+        mask = _once(self, "mask", lambda: draw().bool())
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @contextlib.contextmanager

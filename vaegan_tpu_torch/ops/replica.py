@@ -39,6 +39,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional, Sequence
 
 import torch
+import torch.distributed.nn.functional
 
 
 def rank_rows(batch_size: int, rank: int, world: int, microbatches: int = 1) -> torch.Tensor:
@@ -125,33 +126,23 @@ class Replica:
         return local_mean / self.world if self.parallel else local_mean
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the processes, differentiable (its backward is
-        the sum of the cotangents, itself differentiable)."""
-        return _AllReduceSum.apply(t, self.group) if self.parallel else t
+        """The sum of ``t`` over the processes, differentiable:
+        ``torch.distributed.nn.functional.all_reduce``, whose backward sums the
+        cotangents through the same autograd function, so the penalty's
+        grad-of-grad passes through it. Every process must run the backward
+        too, in the same order (it is a collective). Newer torch releases mark
+        the function deprecated (a ``FutureWarning``) in favour of
+        ``torch.distributed._functional_collectives``; it still runs."""
+        if not self.parallel:
+            return t
+        return torch.distributed.nn.functional.all_reduce(
+            t, group=torch.distributed.group.WORLD if self.group is None else self.group)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the processes in place (no graph); returns it."""
         if self.parallel:
             torch.distributed.all_reduce(t, group=self.group)
         return t
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the processes. The backward of a sum of every process's input
-    is, on each process, the sum of every process's cotangent: the same
-    function again, so grad-of-grad passes through it. Every process must run
-    the backward too, in the same order (it is a collective)."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone(memory_format=torch.contiguous_format)
-        torch.distributed.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return _AllReduceSum.apply(g, ctx.group), None
 
 
 LOCAL = Replica()

@@ -49,20 +49,13 @@ class Mesh:
     num_data: int
     rank: int = 0
     group: Optional[Any] = None
-    data_axis: str = "data"
-    model_axis: str = "model"
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return {self.data_axis: self.num_data, self.model_axis: 1}
 
     @property
     def replica(self) -> Replica:
         return Replica(rank=self.rank, world=self.num_data, group=self.group)
 
 
-def make_mesh(num_data: int = -1, num_model: int = 1, group=None,
-              data_axis: str = "data", model_axis: str = "model") -> Mesh:
+def make_mesh(num_data: int = -1, num_model: int = 1, group=None) -> Mesh:
     """The data mesh over the processes of ``group`` (the default process
     group; without one, the world of this process alone). ``num_data`` -1
     takes every process; another value must be the world size."""
@@ -75,8 +68,7 @@ def make_mesh(num_data: int = -1, num_model: int = 1, group=None,
         raise ValueError(f"make_mesh needs num_data={num_data} processes, the process group "
                          f"has {world}; start one process per device (torchrun "
                          "--nproc_per_node=N)")
-    return Mesh(num_data=num_data, rank=dist.rank(group), group=group, data_axis=data_axis,
-                model_axis=model_axis)
+    return Mesh(num_data=num_data, rank=dist.rank(group), group=group)
 
 
 def batch_sharding(mesh: Mesh, batch_size: int, grad_accum: int = 1,
@@ -113,7 +105,7 @@ def _state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     return out
 
 
-def state_shardings(state: TrainState, mesh: Mesh, model_axis: str = "model") -> Dict[str, slice]:
+def state_shardings(state: TrainState, mesh: Mesh) -> Dict[str, slice]:
     """Per state tensor, what a process holds of it: everything is replicated
     (no model axis, :func:`make_mesh`)."""
     return {k: replicated(mesh) for k in _state_tensors(state)}
@@ -149,7 +141,7 @@ def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:
     return state
 
 
-def shard_state(state: TrainState, mesh: Mesh, model_axis: str = "model") -> TrainState:
+def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
     """Place the state per :func:`state_shardings`: replicated on every
     process (:func:`replicate_state`)."""
     return replicate_state(state, mesh)
@@ -169,7 +161,7 @@ def _shard_inject(inject: Optional[dict], mesh: Mesh, grad_accum: int) -> Option
 
 
 def make_parallel_train_step(cfg: Config, mesh: Mesh, do_g_update: bool = True,
-                             state_spec=None, batch_spec=None, do_gp: bool = True,
+                             batch_spec=None, do_gp: bool = True,
                              gp_lambda_scale: float = 1.0,
                              inject: Optional[Dict[str, object]] = None) -> Callable:
     """The data-parallel step: ``step(state, batch, seed) -> (state,
@@ -178,9 +170,9 @@ def make_parallel_train_step(cfg: Config, mesh: Mesh, do_g_update: bool = True,
     the global metrics on every process. Every process passes the same
     ``seed``. ``cfg.optim.scheme == "three"`` builds the Larsen step, which has
     no penalty to skip (``do_gp=False`` raises). ``inject`` takes global-batch
-    draws (``train.step``), cut to this process's rows. ``state_spec`` is
-    accepted for the JAX signature (everything is replicated); a
-    ``batch_spec`` (spatial sharding) raises."""
+    draws (``train.step``), cut to this process's rows. The state is
+    replicated (there is no ``state_spec``); a ``batch_spec`` (spatial
+    sharding) raises."""
     if batch_spec is not None:
         raise NotImplementedError(_NOT_PORTED["spatial"])
     inject = _shard_inject(inject, mesh, cfg.train.grad_accum)

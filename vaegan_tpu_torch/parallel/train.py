@@ -49,8 +49,7 @@ def train_data_parallel(
     if mesh is None:
         dev = (dist.local_device(device) if dist.is_initialized()
                else dist.initialize(device=device))
-        mesh = make_mesh(num_data=cfg.parallel.num_data, num_model=cfg.parallel.num_model,
-                         data_axis=cfg.parallel.data_axis, model_axis=cfg.parallel.model_axis)
+        mesh = make_mesh(num_data=cfg.parallel.num_data, num_model=cfg.parallel.num_model)
     else:
         dev = dist.local_device(device)
     n_data, k = mesh.num_data, cfg.train.grad_accum

@@ -53,6 +53,7 @@ from vaegan_tpu_torch.config import Config
 from vaegan_tpu_torch.data.pipeline import device_prefetch, make_loader
 from vaegan_tpu_torch.models.layers import precision
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
+from vaegan_tpu_torch.parallel import dist
 from vaegan_tpu_torch.train.state import DTYPES, TrainState, create_train_state, resolve_device
 from vaegan_tpu_torch.train.step import (
     kept_buffers,
@@ -114,11 +115,6 @@ def _gather_rows(replica: Replica, t: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(replica.world)]
     torch.distributed.all_gather(parts, t.contiguous(), group=replica.group)
     return torch.cat(parts)
-
-
-def _barrier(replica: Replica) -> None:
-    if replica.parallel:
-        torch.distributed.barrier(group=replica.group)
 
 
 def train(
@@ -283,7 +279,7 @@ def train(
                     and (global_step + 1) % tcfg.checkpoint_every == 0):
                 if lead:
                     ckpt.save(state)
-                _barrier(replica)
+                dist.barrier(replica.group)
             global_step += 1
             if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
                 budget_hit = True
@@ -295,7 +291,7 @@ def train(
         if lead:
             ckpt.save(state)
             ckpt.wait()
-        _barrier(replica)
+        dist.barrier(replica.group)
     elapsed = time.time() - t0
     executed = global_step - start_step
     logger.history.append({
