@@ -103,7 +103,22 @@ Phases, each of which exits non-zero on failure:
    plain versions, timed beside their bounds; 11.4 two gloo processes on the
    one card against this process's one-rank step (float32, global batch 8;
    the CPU test's tolerances), with the all-reduce time a step; 11.5 ``cli
-   train --dp`` under ``torchrun --nproc_per_node=1``, its launches counted.
+   train --dp`` under ``torchrun --nproc_per_node=1``, its launches counted;
+12. the data x model mesh (``vaegan_256_dp`` at full width; every multi-process
+   run uses gloo through the host, since NCCL refuses two ranks on one card, so
+   these runs check correctness and say nothing of NVLink): 12.1 a 2 x 2 mesh
+   (tensor parallelism of the critic head and H split over the model axis),
+   four gloo processes on the card, two float32 steps at global batch 8 held
+   against this process's one-rank step as 11.4 holds two ranks, with each
+   process's halo / gather / sum time a step; 12.2 rows 1-4 on rank (1, 1)'s
+   rows and H stripe of the DP step's bfloat16 sites at batch 32 (the stripe
+   index map), bitwise against their plain versions and against the kernel
+   on the global tensor, timed beside their bounds; 12.3 tensor parallelism
+   alone through ``train_data_parallel`` (``parallel.num_model`` 2, two gloo
+   processes): 11.1's runs with each step's launches exact, and the saved
+   checkpoint restored into one process; 12.4 ``cli train --dp`` with
+   ``num_model`` 2 under ``torchrun --nproc_per_node=2`` (gloo), launches
+   counted, and ``entry.dryrun_multichip(4)`` on the CPU.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -163,6 +178,11 @@ FLOAT_ATOMIC = re.compile(r"\b(RED|ATOM|ATOMG|ATOMS)\.\S*F(16x2|32|64)\b")
 # each kernel's hot loop reads these arrays with one wide access per 4 elements
 KERNEL_INPUTS = {"bn_act_dropout_fwd_kernel": 1, "bn_act_dropout_bwd_kernel": 2,
                  "reparam_fwd_kernel": 2, "reparam_bwd_kernel": 3, "recon_sums_kernel": 2}
+# each kernel's bool template arguments, in order
+KERNEL_FLAGS = {"bn_act_dropout_fwd_kernel": ("dropout", "striped"),
+                "bn_act_dropout_bwd_kernel": ("dropout", "striped"),
+                "reparam_fwd_kernel": ("striped",), "reparam_bwd_kernel": ("striped",),
+                "recon_sums_kernel": ()}
 
 
 def sass_functions(text):
@@ -228,9 +248,10 @@ def hot_loop_instructions(code, inputs):
 
 def kernel_counts(libs, cuobjdump):
     """From ``cuobjdump -sass`` of each built library: {(kernel, dtype, vec,
-    dropout): instructions per element} of every kernel with a vectorised loop
-    (vec and dropout None where the kernel has no such template argument), and the
-    names of the kernels that hold a float atomic."""
+    dropout, striped): instructions per element} of every kernel instance with a
+    vectorised loop (vec and dropout None, striped False, where the kernel has no
+    such template argument), and the names of the kernels that hold a float
+    atomic."""
     counts, atomics = {}, []
     for lib in libs.values():
         text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
@@ -239,7 +260,7 @@ def kernel_counts(libs, cuobjdump):
             if any(FLOAT_ATOMIC.search(x) for _, x in code):
                 atomics.append(name)
             for kernel, inputs in KERNEL_INPUTS.items():
-                m = re.search(kernel + r"I(13__nv_bfloat16|f)(?:Li(\d)E)?(?:Lb(\d)E)?", name)
+                m = re.search(kernel + r"I(13__nv_bfloat16|f)(?:Li(\d)E)?((?:Lb\dE)*)", name)
                 if m:
                     break
             else:
@@ -247,8 +268,10 @@ def kernel_counts(libs, cuobjdump):
             n = hot_loop_instructions(code, inputs)
             if n is not None:
                 dtype = "bfloat16" if m.group(1).startswith("13") else "float32"
+                flags = dict(zip(KERNEL_FLAGS[kernel],
+                                 (f == "1" for f in re.findall(r"Lb(\d)E", m.group(3)))))
                 counts[(kernel, dtype, int(m.group(2)) if m.group(2) else None,
-                        bool(int(m.group(3))) if m.group(3) else None)] = n
+                        flags.get("dropout"), flags.get("striped", False))] = n
     return counts, atomics
 
 
@@ -262,10 +285,11 @@ class Bounds:
     def __init__(self, bw, instr_rate, counts):
         self.bw, self.instr_rate, self.counts = bw, instr_rate, counts
 
-    def __call__(self, nbytes, n, kernel, dtype, vec=None, dropout=None):
-        """(least ms, "bytes" or "operations", byte ms, instruction ms)."""
+    def __call__(self, nbytes, n, kernel, dtype, vec=None, dropout=None, striped=False):
+        """(least ms, "bytes" or "operations", byte ms, instruction ms) of the
+        kernel's instance for a contiguous or a ``striped`` index map."""
         tb = nbytes / self.bw
-        ti = self.counts[(kernel, str(dtype)[6:], vec, dropout)] * n / self.instr_rate
+        ti = self.counts[(kernel, str(dtype)[6:], vec, dropout, striped)] * n / self.instr_rate
         return max(tb, ti) * 1e3, "bytes" if tb >= ti else "operations", tb * 1e3, ti * 1e3
 
 
@@ -2292,14 +2316,61 @@ def dp_rank(rank, world, store, out):
         dist.shutdown()
 
 
-def dp_pair_steps(torch, vt, mesh, forced=None):
+def timed_collectives(torch, vt, spent):
+    """Add to ``spent[kind]`` the host seconds of every
+    ``torch.distributed.all_reduce`` (the card synchronised before and after),
+    by kind: ``"halo"`` and ``"gather"`` for the sums of zero-padded parts that
+    ``Replica.halo`` and ``Replica.gather`` make, forward and backward (a
+    cotangent has the shape its forward's sum had, which the wrapped methods
+    note down), ``"sum"`` for every other. Returns a function that undoes the
+    patches."""
+    import torch.distributed as td
+
+    Replica = vt.ops.replica.Replica
+    inner_reduce, inner_gather, inner_halo = td.all_reduce, Replica.gather, Replica.halo
+    kinds, halo = {}, []
+
+    def gather(self, t, dim):
+        shape = list(t.shape)
+        shape[dim] *= self.num_model
+        kinds.setdefault((tuple(shape), t.dtype), "halo" if halo else "gather")
+        return inner_gather(self, t, dim)
+
+    def halo_(self, x, top, bottom):
+        halo.append(1)
+        try:
+            return inner_halo(self, x, top, bottom)
+        finally:
+            halo.pop()
+
+    def all_reduce(t, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner_reduce(t, *a, **k)
+        torch.cuda.synchronize()
+        kind = kinds.get((tuple(t.shape), t.dtype), "sum")
+        spent[kind] = spent.get(kind, 0.0) + time.perf_counter() - t0
+        return res
+
+    def undo():
+        td.all_reduce, Replica.gather, Replica.halo = inner_reduce, inner_gather, inner_halo
+
+    td.all_reduce, Replica.gather, Replica.halo = all_reduce, gather, halo_
+    return undo
+
+
+def dp_pair_steps(torch, vt, mesh, forced=None, spatial=False, tp=False):
     """Two steps (G+D, then critic only) of ``vaegan_256_dp`` in float32 at
-    global batch :data:`DP_RANK_BATCH` on this process's rows of the global
-    batch, cuDNN deterministic and TF32 off. Returns the metrics and the BN
-    running statistics after each step, the seconds spent in all-reduces a
-    step, a checksum of each parameter and, on rank 0 alone (the ranks are
-    compared by checksum), the gradients each optimizer was stepped with at
-    each step and the final state of both networks and of the EMA.
+    global batch :data:`DP_RANK_BATCH` on this process's part of the global
+    batch (its rows, and its H stripe when ``spatial``; the critic head split
+    over the model axis when ``tp``: ``parallel.shard_state``), cuDNN
+    deterministic and TF32 off. Returns the metrics and the BN running
+    statistics after each step, the host seconds spent in collectives a step
+    (in all, and by kind: halo, gather, sum; :func:`timed_collectives`), a
+    checksum of each parameter
+    and, on data row 0 alone (the others are compared by checksum), the
+    gradients each optimizer was stepped with at each step and the final
+    state of both networks and of the EMA.
 
     ``forced`` (the one-rank reference of phase 11.4) holds, for each step,
     the two-rank run's gradients by optimizer: each optimizer records its own
@@ -2309,20 +2380,11 @@ def dp_pair_steps(torch, vt, mesh, forced=None):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dp_config(vt, tempfile.gettempdir(), DP_RANK_BATCH, dtype="float32")
-    state = vt.parallel.replicate_state(vt.create_train_state(cfg, device="cuda", seed=SEED),
-                                        mesh)
+    place = vt.parallel.shard_state if tp else vt.parallel.replicate_state
+    state = place(vt.create_train_state(cfg, device="cuda", seed=SEED), mesh)
+    spec = vt.parallel.BatchSpec(spatial=spatial)
     data = torch.Generator().manual_seed(SEED + 12)
-    spent = [0.0]
-    inner = torch.distributed.all_reduce
-
-    def timed(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = inner(*a, **k)
-        torch.cuda.synchronize()
-        spent[0] += time.perf_counter() - t0
-        return res
-
+    spent = {}
     step_with = {}
     if forced is not None:
         for key, opt, module in (("g", state.opt_g, state.generator),
@@ -2335,23 +2397,28 @@ def dp_pair_steps(torch, vt, mesh, forced=None):
 
             opt.step = forcing
     grads = record_grads(state)    # outermost: the step's own gradients
-    out = {"metrics": [], "allreduce_s": [], "bn": [], "grads": []}
-    torch.distributed.all_reduce = timed
+    out = {"metrics": [], "allreduce_s": [], "collective_s": [], "bn": [], "grads": [],
+           "step_s": []}
+    undo = timed_collectives(torch, vt, spent)
     try:
         for i, do_g in enumerate((True, False)):
             batch = torch.rand((DP_RANK_BATCH, 256, 256, 1), generator=data).cuda()
-            spent[0] = 0.0
+            spent.clear()
             for g in grads.values():
                 g.clear()
             if forced is not None:
                 step_with.clear()
                 step_with.update({net: {k: v.cuda() for k, v in g.items()}
                                   for net, g in forced[i].items()})
-            step = vt.parallel.make_parallel_train_step(cfg, mesh, do_g)
-            state, m = step(state, vt.parallel.shard_batch(mesh, batch), 9000 + i)
+            step = vt.parallel.make_parallel_train_step(cfg, mesh, do_g, batch_spec=spec)
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, vt.parallel.shard_batch(mesh, batch, spec=spec), 9000 + i)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
             out["metrics"].append({k: float(v) for k, v in m.items()})
-            out["allreduce_s"].append(spent[0])
+            out["allreduce_s"].append(sum(spent.values()))
+            out["collective_s"].append(dict(spent))
             out["bn"].append({f"{net}.{k}": v.cpu() for net in ("generator", "critic")
                               for k, v in getattr(state, net).state_dict().items()
                               if k.endswith(("running_mean", "running_var"))})
@@ -2359,7 +2426,7 @@ def dp_pair_steps(torch, vt, mesh, forced=None):
                 out["grads"].append({net: {k: v.cpu() for k, v in g.items()}
                                      for net, g in grads.items() if g})
     finally:
-        torch.distributed.all_reduce = inner
+        undo()
     step_with.clear()
     out["checksums"] = {f"{net}.{k}": float(p.detach().double().sum())
                         for net in ("generator", "critic")
@@ -2425,24 +2492,7 @@ def phase_dp_ranks(torch, vt, mesh, dev, tmp, env, card_line):
         "largest value + 1e-5, final parameters and EMA 1e-5 + 1e-4 |w|, spectral vectors "
         "1e-3; each parameter's checksum and every metric equal on both ranks ==")
     torch.cuda.empty_cache()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke, sys; chip_smoke.dp_rank(int(sys.argv[1]), "
-         "2, sys.argv[2], sys.argv[3])", str(r), os.path.join(tmp, "store"),
-         os.path.join(tmp, f"rank{r}.pt")], cwd=HERE, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        for r, text in enumerate(logs):
-            log(f"rank {r}: rc {procs[r].returncode}\n{text[-3000:]}")
-        raise SystemExit("a gloo rank failed")
-    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
-             for r in range(2)]
+    ranks = run_ranks("11.4", 2, "dp_rank", tmp, env)
     ref = dp_pair_steps(torch, vt, mesh, forced=ranks[0]["grads"])
     torch.backends.cudnn.deterministic = False
     got = ranks[0]
@@ -2613,6 +2663,481 @@ def phase_dp(torch, vt, bounds, card_line, sites, latent):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the data x model mesh (vaegan_256_dp)
+# ---------------------------------------------------------------------------
+
+MESH_MODEL = 2              # the model axis of every phase-12 mesh
+STRIPE_BATCH = 32           # the global batch whose rank (1, 1) part phase 12.2 times
+TP_BATCH = 8                # the global batch of 12.3's and 12.4's TP-only runs
+
+
+def split_kernels(cfg):
+    """State-dict names of the critic kernels tensor parallelism over
+    :data:`MESH_MODEL` processes splits (``linear_1``-``linear_3`` at the
+    notebook's widths)."""
+    widths = tuple(cfg.discriminator.linear_widths) + (1,)
+    return [f"linear_{j}.weight" for j, w in enumerate(widths, 1) if w % MESH_MODEL == 0]
+
+
+def whole_from_slices(torch, parts, split):
+    """A dict of tensors from the model axis's dicts ``parts`` (in model
+    order): each name in ``split`` put back together along its rows, every
+    other one model index 0's."""
+    return {k: torch.cat([p[k] for p in parts]) if k in split else v
+            for k, v in parts[0].items()}
+
+
+def mesh_rank(rank, world, store, out):
+    """One of the four gloo processes of phase 12.1 (run as ``python -c "import
+    chip_smoke; chip_smoke.mesh_rank(...)"``): :func:`dp_pair_steps` on the
+    2 x 2 mesh with the critic head split and H split over the model axis,
+    its results saved to ``out``."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.parallel import dist
+
+    dist.initialize(backend="gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                    device="cuda:0", timeout_s=600)
+    try:
+        mesh = vt.parallel.make_mesh(num_model=MESH_MODEL)
+        res = dp_pair_steps(torch, vt, mesh, spatial=True, tp=True)
+        torch.save(res, out)
+    finally:
+        dist.shutdown()
+
+
+def run_ranks(what, n, call, tmp, env, timeout=600):
+    """``n`` processes of ``python -c "import chip_smoke, sys; chip_smoke.<call>(...)"``
+    each with its rank, the world size, a store and an output file; raises
+    when one fails; returns their saved results in rank order."""
+    import torch
+
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke, sys; chip_smoke.{call}(int(sys.argv[1]), "
+         f"{n}, sys.argv[2], sys.argv[3])", str(r), os.path.join(tmp, f"{call}_store"),
+         os.path.join(tmp, f"{call}{r}.pt")], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        for r, text in enumerate(logs):
+            log(f"{what} rank {r}: rc {procs[r].returncode}\n{text[-3000:]}")
+        raise SystemExit(f"{what}: a gloo rank failed")
+    return [torch.load(os.path.join(tmp, f"{call}{r}.pt"), weights_only=True) for r in range(n)]
+
+
+def phase_mesh_ranks(torch, vt, tmp, env, card_line):
+    """Phase 12.1: four gloo processes on the one card as a 2 x 2 mesh, then
+    this process's one-rank step forced onto their gradients step by step
+    (:func:`dp_pair_steps`, as phase 11.4), the split kernels' gradients and
+    final state put back together from data row 0's two model indices."""
+    world = 2 * MESH_MODEL
+    log(f"== phase 12.1: a 2 x {MESH_MODEL} mesh (critic head split and H split over the model "
+        f"axis), {world} gloo processes on the card against this process's one-rank step, "
+        f"vaegan_256_dp in float32 at global batch {DP_RANK_BATCH} (each process 2 rows x 128 "
+        "rows of H), two steps (G+D, critic only), cuDNN deterministic; phase 11.4's scheme "
+        "and tolerances, each split kernel's gradient and state held whole (data row 0's two "
+        "slices); copies compared by checksum; gloo through the host: no NVLink figure ==")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks("12.1", world, "mesh_rank", tmp, env)
+    wall = time.perf_counter() - t0
+    cfg = dp_config(vt, tmp, DP_RANK_BATCH)
+    split = split_kernels(cfg)
+    row0 = ranks[:MESH_MODEL]
+    got = {"metrics": ranks[0]["metrics"], "bn": ranks[0]["bn"],
+           "grads": [{net: whole_from_slices(torch, [r["grads"][i][net] for r in row0],
+                                             split if net == "d" else ())
+                      for net in ranks[0]["grads"][i]} for i in range(2)],
+           "state": whole_from_slices(torch, [r["state"] for r in row0],
+                                      {f"critic.{k}" for k in split})}
+    ref = dp_pair_steps(torch, vt, vt.parallel.Mesh(num_data=1), forced=got["grads"])
+    torch.backends.cudnn.deterministic = False
+    bad_m = [(i, metrics_close(m, w)) for i, (m, w) in
+             enumerate(zip(got["metrics"], ref["metrics"])) if metrics_close(m, w)]
+    grads_ok = all(compare_steps(
+        f"2 x 2 mesh against one rank, step {i} ({'G+D' if i == 0 else 'critic only'})",
+        {"metrics": got["metrics"][i], "grads": got["grads"][i]},
+        {"metrics": ref["metrics"][i], "grads": ref["grads"][i]}) for i in range(2))
+    bn_err = [held_bn(g, w) for g, w in zip(got["bn"], ref["bn"])]
+    state_err = held_state(got["state"], ref["state"])
+    bitwise = all(torch.equal(got["state"][k], w) for k, w in ref["state"].items()
+                  if not k.endswith(("running_mean", "running_var")))
+    # copies: replicated parameters on all four, a split kernel on its model index's two
+    sums = [r["checksums"] for r in ranks]
+    same = all(sums[r][k] == sums[r % MESH_MODEL if k.split(".", 1)[1] in split else 0][k]
+               for r in range(world) for k in sums[0]) and \
+        all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    for i, (m, w) in enumerate(zip(got["metrics"], ref["metrics"])):
+        log(f"step {i}: 2 x 2 " + ", ".join(f"{k}={m[k]:.7g}" for k in w)
+            + "; one rank " + ", ".join(f"{k}={w[k]:.7g}" for k in w))
+    bad_bn = [(i, k) for i, errs in enumerate(bn_err) for k, e in errs.items() if e > 1.0]
+    bad_state = [k for k, e in state_err.items() if e > 1.0]
+    for r, res in enumerate(ranks):
+        log(f"rank {r} (data {r // MESH_MODEL}, model {r % MESH_MODEL}): step wall "
+            f"{[round(s * 1e3, 1) for s in res['step_s']]} ms; host time in collectives by "
+            "kind a step " + "; ".join(
+                ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in sorted(c.items()))
+                for c in res["collective_s"]) + f" [{card_line}, gloo]")
+    log(f"2 x 2 mesh against one rank: metrics out of tolerance {bad_m}; BN statistics out of "
+        f"tolerance {bad_bn[:4]} (largest |diff| over its tolerance "
+        f"{[round(max(e.values()), 3) for e in bn_err]} after steps 0, 1); final state out of "
+        f"tolerance {bad_state[:4]} (the largest |diff| {max(state_err.values()):.3g} of its "
+        f"tolerance; bitwise equal {bitwise}); copies agree on every checksum and metric "
+        f"{same}; the four processes {wall:.1f} s with their start [{card_line}]")
+    if bad_m or bad_bn or bad_state or not same or not grads_ok:
+        raise SystemExit("the 2 x 2 mesh step disagrees with the one-rank step")
+    return {"step_s": [r["step_s"] for r in ranks],
+            "collective_s": [r["collective_s"] for r in ranks], "wall_s": wall}
+
+
+def phase_stripe_kernels(torch, sites, latent, bounds):
+    """Phase 12.2: rows 1-4 on rank (1, 1)'s part of the DP step's bfloat16
+    sites at global batch :data:`STRIPE_BATCH` on a 2 x 2 mesh with H split:
+    its rows and H stripe, drawn through the stripe index map; each kernel is
+    held bitwise against its plain version with the same map, and rows 1 and
+    3 against the kernel on the global tensor cut to the same part."""
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.ops.replica import Replica
+
+    rep = Replica(rank=1, world=2, model_rank=1, num_model=MESH_MODEL, spatial=True)
+    log(f"== phase 12.2: rows 1-4 with the stripe index map on rank (1, 1)'s rows and H stripe "
+        f"of the 12 generator sites of a vaegan_256_dp step (bfloat16, global batch "
+        f"{STRIPE_BATCH}: {STRIPE_BATCH // 2} rows x H/{MESH_MODEL} each), bitwise against "
+        "their plain versions with the same map and (rows 1, 3) against the kernel on the "
+        "global tensor cut to the part; kernel: median of 5 CUDA-event windows of 20 launches; "
+        "plain: one window of 2; the contiguous map (L = G) is phase 11.3's ==")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    bf16 = torch.bfloat16
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+               "max_abs_err": 0.0, "sites": 0, "dtype": "bfloat16", "batch": STRIPE_BATCH,
+               "part": f"rows {STRIPE_BATCH // 2}-{STRIPE_BATCH - 1}, stripe 1 of {MESH_MODEL}"}
+           for k in ("bn_act_dropout", "bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd")}
+
+    def note(name, k_ms, p_ms, b, err):
+        o = out[name]
+        o["ms"] += k_ms
+        o["plain_ms"] += p_ms
+        o["bound_ms"] += b[0]
+        o["bound_by"] = "operations" if b[1] != "bytes" else o["bound_by"]
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+        o["sites"] += 1
+
+    for i, (c, h, w) in enumerate(sites):
+        p = 0.5 if i % 2 == 0 else 0.0          # bn1 drops at 0.5, bn2 at 0
+        mean = torch.randn(c, device="cuda", generator=g) * 0.3
+        var = torch.rand(c, device="cuda", generator=g) + 0.5
+        scale = torch.rand(c, device="cuda", generator=g) + 0.5
+        bias = torch.randn(c, device="cuda", generator=g) * 0.1
+        full = cl(torch.randn(STRIPE_BATCH, c, h, w, device="cuda", generator=g).to(bf16))
+        x = cl(rep.take(full, 2))
+        gy = cl(torch.randn(x.shape, device="cuda", generator=g).to(bf16))
+        base, big_l, big_g = rep.index_map(x.shape)
+        n, seed = x.numel(), 6200 + i
+        args = (mean, var, scale, bias, seed, SLOPE, p, 1e-5, base, (big_l, big_g))
+        y = fused.bn_act_dropout_forward(x, *args)
+        r = fused.bn_act_dropout_reference(x, *args)
+        cut = rep.take(fused.bn_act_dropout_forward(full, *args[:-2]), 2)
+        k = fused.bn_act_dropout_backward(x, gy, *args)
+        kr = fused.bn_act_dropout_backward_reference(x, gy, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, r) and torch.equal(y, cut) and torch.equal(k[0], kr[0])):
+            raise SystemExit(f"row 1/2 site {i} on the stripe: y or dx is not bitwise the plain "
+                             "version's, or y is not the global kernel's part")
+        del full, cut
+        err = max(check_close(f"row 2 site {i} {nm}", k[j], kr[j], bf16, True)
+                  for j, nm in enumerate(("dscale", "dbias", "dmean", "dvar"), 1))
+        k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(x, *args))
+        p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(x, *args), reps=2,
+                       windows=1, warmup=1)
+        b1 = bounds(2 * n * 2 + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", bf16, None, p > 0,
+                    p > 0)
+        note("bn_act_dropout", k1, p1, b1, 0.0)
+        k2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward(x, gy, *args))
+        p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(x, gy, *args),
+                       reps=2, windows=1, warmup=1)
+        launch = fused.bwd_launch_for(x, p, True)
+        b2 = bounds(3 * n * 2 + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", bf16, launch.vec,
+                    p > 0, p > 0)
+        note("bn_act_dropout_bwd", k2, p2, b2, err)
+        log(f"site {i:2d} C={c:3d} HxW={h}x{w} p={p} base={base} L={big_l} G={big_g}: y and dx "
+            f"bitwise equal, y the global kernel's part, sums max_abs_err={err:.3e}; row 1 "
+            f"kernel_ms={k1:.4f} plain_ms={p1:.4f} bound_ms={b1[0]:.4f} ({b1[1]}); row 2 "
+            f"kernel_ms={k2:.4f} plain_ms={p2:.4f} bound_ms={b2[0]:.4f} ({b2[1]})")
+        del x, gy, y, r, k, kr
+        torch.cuda.empty_cache()
+
+    h, w, c = latent
+    full_mu = cl(torch.randn((STRIPE_BATCH, c, h, w), device="cuda", generator=g)).to(bf16)
+    full_lv = cl(torch.randn((STRIPE_BATCH, c, h, w), device="cuda", generator=g) * 0.5).to(bf16)
+    mu, lv = cl(rep.take(full_mu, 2)), cl(rep.take(full_lv, 2))
+    gz = cl(torch.randn(mu.shape, device="cuda", generator=g)).to(bf16)
+    base, big_l, big_g = rep.index_map(mu.shape)
+    st, n = (big_l, big_g), mu.numel()
+    z, kl = fused.reparam_kl_forward(mu, lv, 88, base, st)
+    zr, klr = fused.reparam_kl_reference(mu, lv, 88, base, st)
+    cut = rep.take(fused.reparam_kl_forward(full_mu, full_lv, 88)[0], 2)
+    d = fused.reparam_kl_backward(mu, lv, gz, None, 88, base, st)
+    dr = fused.reparam_kl_backward_reference(mu, lv, gz, None, 88, base, st)
+    torch.cuda.synchronize()
+    if not (torch.equal(z, zr) and torch.equal(z, cut)
+            and all(torch.equal(a, b) for a, b in zip(d, dr))):
+        raise SystemExit("rows 3/4 on the stripe: z, dmu or dlv is not bitwise the plain "
+                         "version's, or z is not the global kernel's part")
+    del full_mu, full_lv, cut
+    err3 = check_close("row 3 kl", kl, klr, bf16, True)
+    k3 = time_cuda(torch, lambda j: fused.reparam_kl_forward(mu, lv, 88, base, st))
+    p3 = time_cuda(torch, lambda j: fused.reparam_kl_reference(mu, lv, 88, base, st), reps=2,
+                   windows=1, warmup=1)
+    b3 = bounds(3 * n * 2 + 4, n, "reparam_fwd_kernel", bf16, striped=True)
+    note("reparam_kl", k3, p3, b3, err3)
+    k4 = time_cuda(torch, lambda j: fused.reparam_kl_backward(mu, lv, gz, None, 88, base, st))
+    p4 = time_cuda(torch, lambda j: fused.reparam_kl_backward_reference(mu, lv, gz, None, 88,
+                                                                        base, st),
+                   reps=2, windows=1, warmup=1)
+    b4 = bounds(5 * n * 2, n, "reparam_bwd_kernel", bf16, striped=True)
+    note("reparam_kl_bwd", k4, p4, b4, 0.0)
+    log(f"rows 3/4 {tuple(mu.shape)} base={base} L={big_l} G={big_g}: z, dmu, dlv bitwise "
+        f"equal, z the global kernel's part, kl {float(kl)!r} vs plain {float(klr)!r}; row 3 "
+        f"kernel_ms={k3:.4f} plain_ms={p3:.4f} bound_ms={b3[0]:.4f} ({b3[1]}); row 4 "
+        f"kernel_ms={k4:.4f} plain_ms={p4:.4f} bound_ms={b4[0]:.4f} ({b4[1]})")
+    for name, o in out.items():
+        log(f"{name} with the stripe map over {o['sites']} site(s): kernel {o['ms']:.4f} ms, "
+            f"plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}; "
+            f"{100 * o['bound_ms'] / o['ms']:.1f}% of the bound's time)")
+    del mu, lv, gz, z, zr, d, dr
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_config(vt, tmp, **train):
+    """:func:`dp_config` at global batch :data:`TP_BATCH` with
+    ``parallel.num_model`` :data:`MESH_MODEL`: tensor parallelism of the
+    critic head through ``train_data_parallel``."""
+    cfg = dp_config(vt, tmp, TP_BATCH, **train)
+    return cfg.replace(parallel=cfg.parallel.replace(num_model=MESH_MODEL))
+
+
+def tp_rank(rank, world, store, out):
+    """One of the two gloo processes of phase 12.3 (run as :func:`mesh_rank`
+    is): phase 11.1's three runs of ``train_data_parallel`` (:func:`dp_loop`)
+    of :func:`tp_config`, launches counted from 0 just before them, folders
+    next to ``store``; saves each step's launches, the checks, the seconds a
+    step of the resumed run and the final critic state."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.checkpoint import CheckpointManager
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.parallel import dist
+    from vaegan_tpu_torch.utils.metrics import MetricsLogger
+
+    dist.initialize(backend="gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                    device="cuda:0", timeout_s=600)
+    try:
+        cfg = tp_config(vt, os.path.dirname(store))
+        mesh = vt.parallel.make_mesh(num_model=MESH_MODEL)
+        logger_class, made = launch_logger(fused, MetricsLogger), []
+
+        def logger(**kw):
+            made.append(logger_class(sinks=[], **kw))
+            return made[-1]
+
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        state, per_step, history, diff = dp_loop(torch, vt, cfg, mesh, fused, logger,
+                                                 device="cuda:0")
+        torch.cuda.synchronize()
+        last = made[-1].history[-1]
+        res = {"launches": dict(fused.LAUNCHES), "per_step": per_step, "diff": diff,
+               "finite": all(v == v and abs(v) != float("inf") for m in history
+                             for v in m.values()),
+               "steps": len(per_step), "step_s": last["_wall_s"] / max(last["_steps"], 1),
+               "grids": sorted(os.listdir(cfg.train.sample_dir)),
+               "kept": CheckpointManager(cfg.train.checkpoint_dir).all_steps(),
+               "critic": {k: v.cpu() for k, v in state.critic.state_dict().items()}}
+        torch.save(res, out)
+    finally:
+        dist.shutdown()
+
+
+def phase_mesh(torch, vt, bounds, card_line, sites, latent):
+    """Phase 12: the data x model mesh of ``vaegan_256_dp`` (module
+    docstring)."""
+    import shutil
+
+    from vaegan_tpu_torch.checkpoint import CheckpointManager
+
+    tmp = tempfile.mkdtemp(prefix="vaegan_mesh_")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    try:
+        # ---- 12.1 the 2 x 2 step against one rank
+        mesh_steps = phase_mesh_ranks(torch, vt, tmp, env, card_line)
+
+        # ---- 12.2 rows 1-4 on a stripe
+        kernels = phase_stripe_kernels(torch, sites, latent, bounds)
+
+        # ---- 12.3 tensor parallelism alone through the loop: the counts are set to
+        # 0 in each process just before its runs and read just after
+        cfg = tp_config(vt, tmp)
+        log(f"== phase 12.3: train_data_parallel of vaegan_256_dp with parallel.num_model="
+            f"{MESH_MODEL} (the critic head split over the model axis, each process the whole "
+            f"global batch of {TP_BATCH}; bfloat16, use_pallas='all', remat on), {MESH_MODEL} "
+            "gloo processes on the card: phase 11.1's three runs (2 steps and a checkpoint, a "
+            "resume that restores it bitwise, 2 more steps) with each step's launches exact; "
+            "the last checkpoint restored into a one-process state ==")
+        t0 = time.perf_counter()
+        runs = run_ranks("12.3", MESH_MODEL, "tp_rank", tmp, env, timeout=900)
+        wall = time.perf_counter() - t0
+        split = split_kernels(cfg)
+        bad = []
+        for r, res in enumerate(runs):
+            wrong = [i for i, (got, (g, grid)) in enumerate(zip(res["per_step"], DP_PLAN))
+                     if got != dp_step_launches(g, grid)]
+            log(f"tp rank {r}: {res['steps']} steps, launches {res['launches']}, per step "
+                f"{res['per_step']}; metrics finite={res['finite']}, restore of step 2 bitwise "
+                f"{'equal' if not res['diff'] else 'DIFFERS at ' + str(res['diff'][:4])}, grids "
+                f"{res['grids']}, checkpoints {res['kept']}; a step of the resumed run "
+                f"{res['step_s'] * 1e3:.1f} ms [{card_line}, gloo]")
+            if (wrong or res["steps"] != len(DP_PLAN) or not res["finite"] or res["diff"]
+                    or res["kept"] != [2, 4] or res["grids"] != ["0.png", "2.png"]
+                    or not all(res["launches"].values())):
+                bad.append(r)
+        whole = whole_from_slices(torch, [res["critic"] for res in runs], split)
+        one = CheckpointManager(cfg.train.checkpoint_dir).restore(
+            vt.create_train_state(cfg.replace(parallel=cfg.parallel.replace(num_model=1)),
+                                  device="cuda", seed=SEED))
+        restored = {k: v.cpu() for k, v in one.critic.state_dict().items()}
+        same = restored.keys() == whole.keys() and all(torch.equal(restored[k], whole[k])
+                                                       for k in whole)
+        shapes = {k: tuple(runs[0]["critic"][k].shape) for k in split}
+        log(f"tp path: split kernels {shapes} on each process; the step-4 checkpoint restored "
+            f"into a one-process state equals the processes' critic put back together "
+            f"bitwise: {same}; the two processes {wall:.1f} s with their start [{card_line}]")
+        del one, restored, whole
+        torch.cuda.empty_cache()
+        if bad or not same:
+            raise SystemExit(f"tp path: wrong launches, a non-finite metric, a restore that "
+                             f"differs or missing grids or checkpoints on ranks {bad}, or a "
+                             "checkpoint that does not restore into one process")
+
+        # ---- 12.4 cli train --dp with num_model 2, and the dry run
+        log(f"== phase 12.4: torchrun --standalone --nproc_per_node={MESH_MODEL} -m "
+            "vaegan_tpu_torch.cli train --dp --device cuda:0 (gloo, which the process group "
+            f"picks since the processes share the card; vaegan_256_dp with "
+            f"parallel.num_model={MESH_MODEL}, use_pallas all, remat on, global batch "
+            f"{TP_BATCH}, {DP_CLI_STEPS} steps), launches counted per process; "
+            "entry.dryrun_multichip(4) on the CPU ==")
+        with open(os.path.join(tmp, "count.py"), "w") as f:
+            f.write(CLI_COUNTING)
+        c = tp_config(vt, tmp, n_critics=1, n_epochs=1,
+                      sample_dir=os.path.join(tmp, "cli_samples"), checkpoint_dir=None)
+        with open(os.path.join(tmp, "cfg_tp.json"), "w") as f:
+            json.dump(c.to_dict(), f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={MESH_MODEL}", os.path.join(tmp, "count.py"), "train", "--dp",
+             "--device", "cuda:0", "--config",
+             os.path.join(tmp, "cfg_tp.json"), "--max-steps", str(DP_CLI_STEPS),
+             "--checkpoint", os.path.join(tmp, "cli_tp_ck")], cwd=HERE, env=env,
+            capture_output=True, text=True, timeout=600)
+        want = {k: DP_CLI_STEPS * v + SAMPLER_LAUNCHES[k]
+                for k, v in DP_STEP_LAUNCHES[True].items()}
+        cli_launches = [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+                        if line.startswith("launches ")]
+        done = proc.stdout.count(f"done: {DP_CLI_STEPS} steps")
+        log(f"cli train --dp (num_model {MESH_MODEL}): rc {proc.returncode} after "
+            f"{time.perf_counter() - t0:.1f} s, 'done' on {done} processes; launches per "
+            f"process {cli_launches} (want {want} each)")
+        if proc.returncode != 0 or cli_launches != [want] * MESH_MODEL or done != MESH_MODEL:
+            log(proc.stdout[-3000:])
+            log(proc.stderr[-3000:])
+            raise SystemExit("cli train --dp with a model axis failed or launched the wrong "
+                             "kernels")
+        from vaegan_tpu_torch.entry import dryrun_multichip
+
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            dryrun_multichip(4)
+        line = printed.getvalue().strip()
+        log(f"{line} ({time.perf_counter() - t0:.1f} s)")
+        if "dryrun_multichip(4) ok (mesh data=2 x model=2, dp + critic-head tp + spatial " \
+                "sharding" not in line:
+            raise SystemExit("dryrun_multichip(4) did not run the 2-D mesh")
+        return {"mesh": mesh_steps, "kernels": kernels, "tp_launches": runs[0]["launches"],
+                "tp_step_s": [res["step_s"] for res in runs], "cli_launches": cli_launches[0]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# One tree's kernel phases (5, 11.3 and, where the tree has it, 12.2), run from the
+# root of that tree with its own chip_smoke.py and package: :func:`paired_kernels`.
+KERNEL_TIMES = """
+import json, os, subprocess, sys
+import torch
+import chip_smoke as cs
+import vaegan_tpu_torch as vt
+from vaegan_tpu_torch.ops import _build
+
+kind = torch.cuda.get_device_name(0)
+props = torch.cuda.get_device_properties(0)
+clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True).stdout.split()[0]
+libs = _build.build_all()
+counts, _ = cs.kernel_counts(libs, os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"))
+bounds = cs.Bounds(cs.card_bandwidth(kind),
+                   props.multi_processor_count * cs.LANES_PER_SM * float(clock) * 1e6, counts)
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+cfg = vt.preset("vaegan_infer")
+gen = vt.create_generator_state(cfg.replace(train=cfg.train.replace(use_pallas="all")),
+                                device="cuda", seed=cs.SEED).generator
+sites = cs.fused_sites(torch, gen, cfg.data.image_size, cfg.generator.in_channels)
+latent = vt.latent_shape(cfg)
+pick = lambda d: {k: {f: v[f] for f in ("ms", "bound_ms")} for k, v in d.items()}
+out = {"instructions": {" ".join(str(a) for a in k if a is not None): v for k, v in counts.items()},
+       "training": pick(cs.phase_train_kernels(torch, sites, latent, bounds)),
+       "dp": pick(cs.phase_dp_kernels(torch, sites, latent, bounds, 32))}
+if hasattr(cs, "phase_stripe_kernels"):
+    out["stripe"] = pick(cs.phase_stripe_kernels(torch, sites, latent, bounds))
+print("PAIR " + json.dumps(out), flush=True)
+"""
+
+
+def paired_kernels(trees, timeout=900):
+    """Rows 1-5's kernel and bound milliseconds at the training, DP and (where
+    a tree has phase 12.2) stripe sites, and each kernel instance's hot-loop
+    instructions per element (:func:`kernel_counts`), for each checkout in ``trees`` in
+    turn, each from its own root with its own build (:data:`KERNEL_TIMES`):
+    give a parent's tree and this one as parent, this, this, parent to compare
+    two versions on one card. Prints one ``PAIR`` line per tree."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    for tree in trees:
+        root = os.path.abspath(tree)
+        env = dict(os.environ, PYTHONPATH=root)
+        proc = subprocess.run([sys.executable, "-c", KERNEL_TIMES], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=timeout)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("PAIR ")]
+        if proc.returncode or not line:
+            sys.exit(f"{tree}: rc {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        log(f"PAIR {os.path.relpath(root, HERE)} [{smi}] {line[0][5:]}")
+
+
 def ptxas_summary(report: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: the
     registers, shared memory and spills of each entry function."""
@@ -2625,8 +3150,10 @@ def ptxas_summary(report: str):
                 if short in name:
                     templated = name.split(short)[1].startswith("I")
                     args = ["bf16" if "nv_bfloat16" in name else "f32"] if templated else []
-                    args += [v for tag, v in (("Li4E", "4"), ("Li1E", "1"), ("Lb1E", "dropout"),
-                                              ("Lb0E", "no dropout")) if tag in name]
+                    args += [v for tag, v in (("Li4E", "4"), ("Li1E", "1")) if tag in name]
+                    bits = re.findall(r"Lb(\d)E", name.split(short)[1].split("EEv")[0])
+                    args += [flag if bit == "1" else f"no {flag}"
+                             for flag, bit in zip(KERNEL_FLAGS.get(short, ()), bits)]
                     name = short + (f"<{', '.join(args)}>" if args else "")
                     break
         elif "spill stores" in line and name:
@@ -2883,6 +3410,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 11
     dp = phase_dp(torch, vt, bounds, card_line, sites, vt.latent_shape(cfg))
+
+    # ---------------------------------------------------------------- phase 12
+    mesh = phase_mesh(torch, vt, bounds, card_line, sites, vt.latent_shape(cfg))
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
@@ -2891,18 +3421,24 @@ def main() -> int:
             f"{k} {v[0] * 1e3:.3f} ms" for k, v in concat["numbers"].items())
         + f"; paper concat step {concat['paper_s'] * 1e3:.3f} ms; vaegan_256_dp G+D step at "
         f"global batch {dp['batch']} with remat {dp['step_s'] * 1e3:.3f} ms = "
-        f"{dp['batch'] / dp['step_s']:.2f} images/s")
+        f"{dp['batch'] / dp['step_s']:.2f} images/s; 2 x 2 mesh (4 gloo processes, float32, "
+        f"batch {DP_RANK_BATCH}) step wall by process "
+        f"{[[round(t * 1e3, 1) for t in r] for r in mesh['mesh']['step_s']]} ms; TP-only loop "
+        f"step ({MESH_MODEL} gloo processes, bfloat16, batch {TP_BATCH}) "
+        f"{[round(t * 1e3, 1) for t in mesh['tp_step_s']]} ms")
 
     # launches: the data-parallel path's (phase 11: train_data_parallel of
     # vaegan_256_dp, all five kernels); each other path's launches (the notebook
-    # loop of phase 8, the paper loop of phase 9 and the notebook's accumulating
-    # step among them) stand beside them, with row 1's serving figures, rows
-    # 1-2's figures at the critic's sites and rows 1-4's at the DP step's shapes
-    # with an index base ("dp")
+    # loop of phase 8, the paper loop of phase 9, the notebook's accumulating
+    # step, and phase 12's tensor-parallel loop and CLI, one process's count)
+    # stand beside them, with row 1's serving figures, rows 1-2's figures at the
+    # critic's sites, rows 1-4's at the DP step's shapes with an index base
+    # ("dp") and on a stripe of them ("stripe")
     src = "vaegan_tpu_torch/csrc/"
     paths = {"paper": paper["paper"], "accum": paper["accum"], **concat["paths"],
              "cli_train": cli_launches, "loop": loop_launches, "dp": dp["launches"],
-             "cli_train_dp": dp["cli_launches"]}
+             "cli_train_dp": dp["cli_launches"], "tp_loop": mesh["tp_launches"],
+             "cli_train_dp_tp": mesh["cli_launches"]}
 
     def critic_figures(row, run=paper["critic"]):
         c = run[row]
@@ -2944,6 +3480,8 @@ def main() -> int:
                      "bound_bytes_ms": k["bytes_ms"], "bound_instr_ms": k["instr_ms"]})
     for row in rows[1:4]:
         row["dp"] = dp["kernels"][row["name"]]
+    for row in rows[:4]:
+        row["stripe"] = mesh["kernels"][row["name"]]
     # the least any one-launch kernel on row 5's grid takes: an empty kernel's time
     rows[-1]["launch_floor_ms"] = train_kernels["recon_loss_sums"]["floor_ms"]
     rows[1]["critic_sites"] = critic_figures("bn_act_dropout_bwd")

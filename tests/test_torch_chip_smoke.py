@@ -94,10 +94,11 @@ def test_float_atomics_are_told_from_integer_ones(ins, is_float):
     assert bool(chip_smoke.FLOAT_ATOMIC.search(ins)) == is_float
 
 
-# The forward kernel of row 1 as two instances, without and with dropout (a
-# template argument): the same loop, the dropout one with two more instructions.
+# The forward kernel of row 1 as three instances, without dropout, with it on the
+# contiguous index map and with it on the striped map (template arguments): the same
+# loop, the dropout one with two more instructions, the striped one with two more again.
 FWD_INSTANCES = """
-        Function : _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelIfLb0EEEvPKT_PS1_PKfS6_S6_S6_xiffffjji
+        Function : _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelIfLb0ELb0EEEvPKT_PS1_PKfS6_S6_S6_xiffffjjN6vaegan9StripeMapEi
         /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
         /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
         /*0020*/                   FMUL R4, R4, R9 ;                     /* 0x0000000904047220 */
@@ -105,7 +106,7 @@ FWD_INSTANCES = """
         /*0040*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
         /*0050*/                   EXIT ;                                /* 0x000000000000794d */
         ..........
-        Function : _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelIfLb1EEEvPKT_PS1_PKfS6_S6_S6_xiffffjji
+        Function : _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelIfLb1ELb0EEEvPKT_PS1_PKfS6_S6_S6_xiffffjjN6vaegan9StripeMapEi
         /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
         /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
         /*0020*/                   IMAD.HI.U32 R6, R4, 0x1, RZ ;         /* 0x0000000104067827 */
@@ -115,13 +116,26 @@ FWD_INSTANCES = """
         /*0060*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
         /*0070*/                   EXIT ;                                /* 0x000000000000794d */
         ..........
+        Function : _ZN12_GLOBAL__N_125bn_act_dropout_fwd_kernelIfLb1ELb1EEEvPKT_PS1_PKfS6_S6_S6_xiffffjjN6vaegan9StripeMapEi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
+        /*0020*/                   IMAD.HI.U32 R7, R5, R8, RZ ;          /* 0x0000000805077227 */
+        /*0030*/                   IMAD R7, R7, R10, R11 ;               /* 0x0000000a07077224 */
+        /*0040*/                   IMAD.HI.U32 R6, R4, 0x1, RZ ;         /* 0x0000000104067827 */
+        /*0050*/                   FMUL R4, R4, R9 ;                     /* 0x0000000904047220 */
+        /*0060*/                   FSEL R4, R4, RZ, P1 ;                 /* 0x000000ff04047208 */
+        /*0070*/                   STG.E.128 desc[UR4][R12.64], R4 ;     /* 0x000000040c007986 */
+        /*0080*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
+        /*0090*/                   EXIT ;                                /* 0x000000000000794d */
+        ..........
 """
 
 
 def test_each_dropout_instance_has_its_own_count(monkeypatch):
-    """``kernel_counts`` keys each instance of row 1's forward on its dropout
-    argument, so a p = 0.5 site's bound reads the p = 0.5 loop (6 instructions a
-    pass of 4 elements) and a p = 0 site's the p = 0 loop (4)."""
+    """``kernel_counts`` keys each instance of row 1's forward on its dropout and
+    index-map arguments, so a p = 0.5 site's bound reads the p = 0.5 loop (6
+    instructions a pass of 4 elements), a p = 0 site's the p = 0 loop (4), and a
+    p = 0.5 site on a stripe the striped loop (8)."""
     import subprocess
     import torch
 
@@ -129,12 +143,16 @@ def test_each_dropout_instance_has_its_own_count(monkeypatch):
         a, 0, stdout=FWD_INSTANCES))
     counts, atomics = chip_smoke.kernel_counts({"bn_act_dropout": "lib.so"}, "cuobjdump")
     key = ("bn_act_dropout_fwd_kernel", "float32", None)
-    assert counts == {key + (False,): pytest.approx(4 / 4), key + (True,): pytest.approx(6 / 4)}
+    assert counts == {key + (False, False): pytest.approx(4 / 4),
+                      key + (True, False): pytest.approx(6 / 4),
+                      key + (True, True): pytest.approx(8 / 4)}
     assert atomics == []
     bounds = chip_smoke.Bounds(bw=1e12, instr_rate=1e9, counts=counts)
     n = 1000
-    for dropout, per_element in ((False, 1.0), (True, 1.5)):
-        ms, by, _, instr_ms = bounds(8, n, "bn_act_dropout_fwd_kernel", torch.float32, None, dropout)
+    for dropout, striped, per_element in ((False, False, 1.0), (True, False, 1.5),
+                                          (True, True, 2.0)):
+        ms, by, _, instr_ms = bounds(8, n, "bn_act_dropout_fwd_kernel", torch.float32, None,
+                                     dropout, striped)
         assert by == "operations" and instr_ms == ms == pytest.approx(per_element * n / 1e9 * 1e3)
 
 
@@ -558,3 +576,83 @@ def test_step_errors_leave_out_a_net_that_was_not_updated():
     assert chip_smoke.compare_steps("critic only", other, rec)
     rec["grads"]["g"] = {}
     assert set(chip_smoke.step_errors(other, rec)[0]) == {"d"}
+
+
+# ---------------------------------------------------------------- phase 12
+def test_tp_config_is_the_dp_config_with_a_model_axis(tmp_path):
+    """Phases 12.3-12.4 run phase 11's configuration at batch ``TP_BATCH`` with
+    ``parallel.num_model`` 2, and split exactly the notebook critic's
+    ``linear_1``-``linear_3`` kernels (``linear_4`` has one output)."""
+    import vaegan_tpu_torch as vt
+
+    cfg = chip_smoke.tp_config(vt, str(tmp_path))
+    ref = chip_smoke.dp_config(vt, str(tmp_path), chip_smoke.TP_BATCH)
+    assert cfg.parallel.num_model == chip_smoke.MESH_MODEL == 2
+    assert cfg.replace(parallel=ref.parallel) == ref
+    assert chip_smoke.split_kernels(cfg) == ["linear_1.weight", "linear_2.weight",
+                                             "linear_3.weight"]
+    state = vt.create_train_state(cfg.replace(
+        discriminator=cfg.discriminator.replace(linear_widths=(8, 4, 2)),
+        data=cfg.data.replace(image_size=32)), device="cpu")
+    assert [f"{n}.weight" for n, _ in vt.train.state.tp_linears(state.critic, 2)] == \
+        chip_smoke.split_kernels(cfg)
+
+
+def test_whole_from_slices_puts_split_tensors_back_in_model_order():
+    import torch
+
+    parts = [{"a.weight": torch.tensor([[1.0], [2.0]]), "b": torch.tensor([5.0])},
+             {"a.weight": torch.tensor([[3.0], [4.0]]), "b": torch.tensor([5.0])}]
+    whole = chip_smoke.whole_from_slices(torch, parts, {"a.weight"})
+    assert whole["a.weight"].flatten().tolist() == [1.0, 2.0, 3.0, 4.0]
+    assert whole["b"] is parts[0]["b"]
+
+
+def test_phase12_stripe_part_is_the_global_tensors_part():
+    """Phase 12.2 cuts rank (1, 1)'s rows and H stripe of each site of a
+    batch-32 global tensor: rows 16-31, the lower half of H; its index map
+    starts at the first element of row 16's lower half."""
+    import torch
+
+    from vaegan_tpu_torch.ops.replica import Replica
+
+    rep = Replica(rank=1, world=2, model_rank=1, num_model=chip_smoke.MESH_MODEL, spatial=True)
+    full = torch.arange(chip_smoke.STRIPE_BATCH * 3 * 4 * 2).view(chip_smoke.STRIPE_BATCH, 3,
+                                                                 4, 2)
+    part = rep.take(full, 2)
+    assert part.shape == (16, 3, 2, 2) and torch.equal(part, full[16:, :, 2:])
+    assert rep.index_map(part.shape) == ((16 * 4 + 2) * 2 * 3, 2 * 2 * 3, 4 * 2 * 3)
+
+
+def test_timed_collectives_attribute_halos_gathers_and_sums(monkeypatch):
+    """``timed_collectives`` books each all-reduce of a halo, of a gather and of
+    a plain sum under its kind, in the forward and in the backward (whose
+    cotangent sums run outside the wrapped methods), and undoes its patches."""
+    import types
+
+    import torch
+    import torch.distributed as td
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.ops.replica import Replica
+
+    shapes = []
+    monkeypatch.setattr(td, "all_reduce", lambda t, *a, **k: shapes.append(tuple(t.shape)))
+    card = types.SimpleNamespace(cuda=types.SimpleNamespace(synchronize=lambda: None))
+    spent = {}
+    before = (td.all_reduce, Replica.gather, Replica.halo)
+    undo = chip_smoke.timed_collectives(card, vt, spent)
+    rep = Replica(num_model=2, model_group=object(), spatial=True)
+    x = torch.rand((2, 3, 4, 5), requires_grad=True)
+    h = torch.rand((2, 6), requires_grad=True)
+    out = (rep.halo(x, 1, 1).sum() + rep.gather(h, 1).sum()
+           + rep.all_reduce(h.sum(1), "model").sum())
+    assert set(spent) == {"halo", "gather", "sum"} and len(shapes) == 3
+    spent.clear()
+    out.backward()
+    assert set(spent) == {"halo", "gather", "sum"} and len(shapes) == 6
+    undo()
+    assert (td.all_reduce, Replica.gather, Replica.halo) == before
+    spent.clear()
+    rep.gather(h, 1)
+    assert spent == {}

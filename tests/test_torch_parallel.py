@@ -134,13 +134,14 @@ PLAN = {
 }
 
 
-def run_world(tmp: Path, plan: dict, world: int = WORLD) -> list:
-    """Each case of ``plan`` over ``world`` gloo processes; their results in
-    rank order."""
+def run_world(tmp: Path, plan: dict, world: int = WORLD, num_model: int = 1) -> list:
+    """Each case of ``plan`` over ``world`` gloo processes (a mesh of
+    ``world / num_model`` x ``num_model``); their results in rank order."""
     torch.save(plan, tmp / "plan.pt")
     env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(world), str(tmp),
-                               str(tmp / "plan.pt"), str(tmp / f"rank{r}.pt")],
+                               str(tmp / "plan.pt"), str(tmp / f"rank{r}.pt"),
+                               str(num_model)],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
@@ -443,9 +444,10 @@ def test_replica_draws_and_takes_the_global_rows():
     whole = torch.rand((8, 3), generator=torch.Generator().manual_seed(0))
     assert torch.equal(Replica(1, 2).draw((4, 3), lambda s: torch.rand(s, generator=g)),
                        whole[4:])
-    assert Replica(1, 2).index_base(12) == 12
+    # rank 1's first element of a (2, 3, 2, 2) global tensor: whole images, L = G
+    assert Replica(1, 2).index_map((1, 3, 2, 2)) == (12, 12, 12)
     with pytest.raises(ValueError, match="multiple of 4"):
-        Replica(1, 2).index_base(6)
+        Replica(1, 2).index_map((1, 3, 1, 2))
 
 
 def test_batch_not_divisible_raises(tmp_path):
@@ -458,25 +460,52 @@ def test_batch_not_divisible_raises(tmp_path):
         rank_rows(6, 0, 4)
 
 
-def test_mesh_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A.9"):
+def test_mesh_refuses_what_it_cannot_place():
+    """A mesh that is not the world, a stripe count that does not divide a
+    stage's H, a kernel whose output width the model axis does not divide,
+    an axis the mesh does not have, and a penalty-less paper step."""
+    from vaegan_tpu_torch.parallel import BatchSpec, batch_sharding
+
+    with pytest.raises(ValueError, match="processes"):
         make_mesh(num_data=1, num_model=2)
     with pytest.raises(ValueError, match="processes"):
         make_mesh(num_data=2)
     mesh = make_mesh()
     assert mesh.num_data == 1 and mesh.rank == 0 and not mesh.replica.parallel
-    with pytest.raises(NotImplementedError, match="A.10"):
-        make_parallel_train_step(tiny_cfg(), mesh, batch_spec="spatial")
+    assert mesh.shape == {"data": 1, "model": 1}
     with pytest.raises(ValueError, match="meaningless"):
         make_parallel_train_step(paper_cfg(), mesh, do_gp=False)
+    with pytest.raises(ValueError, match="second axis"):
+        batch_sharding(mesh, spatial_axis="spatial")
+    # three stripes divide no stage of a 16-row image; two do, but not the
+    # critic's avg-pool of a 16-row map by 8
+    three = Mesh(num_data=1, num_model=3)
+    with pytest.raises(ValueError, match="encoder-depth_0"):
+        make_parallel_train_step(tiny_cfg(), three, batch_spec=BatchSpec(spatial=True))
+    cfg = tiny_cfg()
+    cfg = cfg.replace(discriminator=cfg.discriminator.replace(num_strides_res=(1, 1),
+                                                              pool_size=16))
+    with pytest.raises(ValueError, match="avg-pool"):
+        make_parallel_train_step(cfg, Mesh(num_data=1, num_model=2),
+                                 batch_spec=BatchSpec(spatial=True))
+    # a kernel of 8 outputs splits over 2 or 4 processes, not over 3
+    lin = vt.models.layers.Linear(4, 8)
+    assert lin.rows(1, 4) == slice(2, 4)
+    with pytest.raises(ValueError, match="cannot be split"):
+        lin.rows(0, 3)
 
 
-def test_dryrun_multichip_two_processes(capfd):
+@pytest.mark.parametrize("n", [2, 4])
+def test_dryrun_multichip_two_processes(capfd, n):
+    """Two processes: data 2 x model 1. Four: the JAX dry run's data 2 x
+    model 2 mesh with the critic head split and H split over the model axis."""
     from vaegan_tpu_torch.entry import dryrun_multichip
 
-    dryrun_multichip(2)
+    dryrun_multichip(n)
     out = capfd.readouterr().out
-    assert "dryrun_multichip(2) ok" in out, out
+    assert f"dryrun_multichip({n}) ok" in out, out
+    if n == 4:
+        assert "mesh data=2 x model=2, dp + critic-head tp + spatial sharding" in out, out
 
 
 def test_cli_train_dp_under_torchrun(tmp_path):

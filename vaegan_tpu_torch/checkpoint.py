@@ -8,6 +8,14 @@ is written under a temporary name in the same directory and ``os.replace``d into
 place, so a run killed mid-save leaves a tmp file that no later run reads, never
 a truncated checkpoint. The last ``max_to_keep`` steps are kept.
 
+Under tensor parallelism (``parallel.shard_state``) each process holds rows of
+the critic head's kernels and of their optimizer state. The file keeps the
+one-process layout all the same: a save gathers those tensors over the model
+axis first (every process of data row 0 takes part, process 0 writes), and a
+restore into a state that holds slices cuts them from the whole tensors. So a
+tensor-parallel run's checkpoint loads into a one-process state, and the other
+way round.
+
 Checkpoints of the JAX package (orbax directories) are not read here: bring
 those across with ``interop.load_jax_train_state``.
 """
@@ -21,6 +29,7 @@ from typing import List, Optional
 
 import torch
 
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^(\d+)\.pt$")
@@ -29,6 +38,52 @@ FORMAT = 1
 
 def _device(state: TrainState) -> torch.device:
     return next(state.generator.parameters()).device
+
+
+def _split_linears(state: TrainState):
+    """``(name, layer, index of its weight among the critic's parameters)`` of
+    each critic linear that holds a slice of its kernel."""
+    index = {id(p): i for i, p in enumerate(state.critic.parameters())}
+    return [(name, m, index[id(m.weight)]) for name, m in state.critic.named_modules()
+            if getattr(m, "tp", (0, 1))[1] > 1]
+
+
+def _whole(state: TrainState, replica: Replica):
+    """The critic's and its optimizer's state dicts with each sliced kernel,
+    and its optimizer state of the kernel's shape, gathered over the model
+    axis (a collective of the model axis)."""
+    critic, opt_d = state.critic.state_dict(), state.opt_d.state_dict()
+    split = _split_linears(state)
+    if not split:
+        return critic, opt_d
+    opt_d = dict(opt_d, state={i: dict(v) for i, v in opt_d["state"].items()})
+    with torch.no_grad():
+        for name, m, i in split:
+            shape = m.weight.shape
+            critic[f"{name}.weight"] = replica.gather(m.weight.detach(), 0)
+            for k, v in opt_d["state"].get(i, {}).items():
+                if isinstance(v, torch.Tensor) and v.shape == shape:
+                    opt_d["state"][i][k] = replica.gather(v, 0)
+    return critic, opt_d
+
+
+def _cut(template: TrainState, payload: dict) -> dict:
+    """``payload`` with each whole kernel that ``template`` holds a slice of
+    cut to that slice (and its optimizer state)."""
+    split = _split_linears(template)
+    if not split:
+        return payload
+    critic = dict(payload["critic"])
+    opt_d = dict(payload["opt_d"], state={i: dict(v) for i, v in
+                                          payload["opt_d"]["state"].items()})
+    for name, m, i in split:
+        rows = m.rows(*m.tp)
+        whole = critic[f"{name}.weight"].shape
+        critic[f"{name}.weight"] = critic[f"{name}.weight"][rows]
+        for k, v in opt_d["state"].get(i, {}).items():
+            if isinstance(v, torch.Tensor) and v.shape == whole:
+                opt_d["state"][i][k] = v[rows].clone()
+    return dict(payload, critic=critic, opt_d=opt_d)
 
 
 class CheckpointManager:
@@ -48,18 +103,32 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state: TrainState, *, force: bool = False) -> None:
+    def save(self, state: TrainState, *, force: bool = False,
+             replica: Replica = LOCAL) -> None:
         """Persist ``state`` under its step number. An already-saved step is
         kept unless ``force=True``, which overwrites it (a re-import must not
-        leave the old weights in place)."""
+        leave the old weights in place). In a parallel run every process calls
+        it with its ``replica``: process 0 writes, after data row 0 has
+        gathered the critic head's slices (module docstring)."""
+        if replica.rank != 0:
+            return
         step = int(state.step)
         path = self._path(step)
-        if os.path.exists(path) and not force:
+        skip = os.path.exists(path) and not force
+        if _split_linears(state):
+            # the gather below is a collective of the model axis, so its processes must
+            # agree; process 0 decides, since the others may not see its directory
+            flag = torch.tensor([float(skip and replica.lead)], device=_device(state))
+            skip = bool(replica.all_reduce_(flag, "model").item())
+        if skip:
+            return
+        critic, opt_d = _whole(state, replica)
+        if not replica.lead:
             return
         payload = {
             "format": FORMAT, "step": step,
-            "generator": state.generator.state_dict(), "critic": state.critic.state_dict(),
-            "opt_g": state.opt_g.state_dict(), "opt_d": state.opt_d.state_dict(),
+            "generator": state.generator.state_dict(), "critic": critic,
+            "opt_g": state.opt_g.state_dict(), "opt_d": opt_d,
             "g_metrics": dict(state.g_metrics), "g_ema": state.g_ema,
         }
         tmp = f"{path}.tmp{os.getpid()}"
@@ -82,8 +151,9 @@ class CheckpointManager:
         """Load the checkpoint at ``step`` (default the latest) into ``template``
         (its modules and optimizers, in place, on the template's device) and
         return it. The template must match the checkpoint: the same modules and,
-        with or without a generator EMA, the same as it was saved."""
-        payload = self._load(step, _device(template))
+        with or without a generator EMA, the same as it was saved; a template
+        that holds slices of the critic head's kernels gets its slices."""
+        payload = _cut(template, self._load(step, _device(template)))
         if (payload["g_ema"] is None) != (template.g_ema is None):
             raise ValueError(
                 f"checkpoint {'carries' if payload['g_ema'] is not None else 'has no'} "

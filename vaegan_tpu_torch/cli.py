@@ -319,7 +319,10 @@ def main(argv=None) -> int:
     sp.add_argument("--dp", action="store_true",
                     help="data-parallel training over the processes torchrun starts, one "
                          "per device (torchrun --nproc_per_node=N -m vaegan_tpu_torch.cli "
-                         "train --dp ...); NCCL on cuda, gloo on cpu")
+                         "train --dp ...); NCCL on cuda (gloo where processes share a "
+                         "card), gloo on cpu; the mesh is parallel.num_data x "
+                         "parallel.num_model of the config (num_model > 1 splits the "
+                         "critic head over the model axis)")
     sp.add_argument("--ema-decay", type=float,
                     help="maintain a generator-param EMA at this decay (e.g. 0.999); "
                          "evaluate it with --ema")

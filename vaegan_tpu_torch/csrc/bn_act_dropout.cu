@@ -13,11 +13,15 @@
 // x (and g, y, dx) is an NHWC activation viewed as a row-major (M = N*H*W, C) matrix,
 // f32 or bf16; mean, var, scale and bias are (C,) f32; the math runs in f32.
 //
-// Dropout bits: the element at flat index e of x takes word (base + e) % 4 of Philox
-// counter ((base + e) / 4, stream 0) (philox.cuh). `base`, a multiple of 4, is the
-// element index of x's first element in a larger tensor: a data-parallel process passes
-// rank * n and draws its slice of the one-process step's stream over the global batch
-// (0 on one process).
+// Dropout bits: the element at flat index e of x takes word i % 4 of Philox counter
+// (i / 4, stream 0) (philox.cuh), i = base + (e / L) G + e % L its index in a larger
+// tensor (philox.cuh's StripeMap): a parallel process passes the place of its rows (and
+// of its H stripe: L = (H/M) W C of G = H W C an image) in the global batch and draws
+// its part of the one-process step's stream (base 0, L = G on one process). base, L and
+// G are multiples of 4 where L < G, so four consecutive elements are one Philox call.
+// The dropout instances come in two kinds, STRIPED or not (philox.cuh): the contiguous
+// one draws counter base / 4 + e / 4 as the data-parallel kernel did, with no division
+// in its loop.
 //
 // What bounds it: memory. The forward reads x and writes y; the backward reads x and g
 // and writes dx, with ~10 flops per element (plus one Philox4x32-10 call per 4 elements
@@ -64,13 +68,16 @@ using namespace vaegan;
 constexpr int kThreads = 256;
 
 // Forward; DROPOUT applies the mask (p > 0), a template argument so that each instance's
-// loop is one path.
-template <typename T, bool DROPOUT>
+// loop is one path; STRIPED (with DROPOUT only) draws through the striped map. base4 is
+// the map's base / 4 and (L, G) its stripe, passed after `vec` so that the contiguous
+// instances keep the data-parallel kernel's parameter layout.
+template <typename T, bool DROPOUT, bool STRIPED>
 __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
     const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ mean,
     const float* __restrict__ var, const float* __restrict__ scale,
     const float* __restrict__ bias, long long n, int C, float slope, float eps,
-    float threshold, float keep_scale, uint32_t k0, uint32_t k1, long long base4, int vec) {
+    float threshold, float keep_scale, uint32_t k0, uint32_t k1, long long base4, int vec,
+    long long L, long long G) {
   extern __shared__ float sh[];
   float* s_mean = sh;
   float* s_mul = sh + C;
@@ -91,7 +98,10 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
     float v[4];
     load_group(x, base, n, vec, v);
     uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if constexpr (DROPOUT) r = philox_words(base4 + g, kStreamDropout, k0, k1);
+    if constexpr (DROPOUT) {
+      r = philox_words(STRIPED ? global_index({base4 << 2, L, G}, base) >> 2 : base4 + g,
+                       kStreamDropout, k0, k1);
+    }
     const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
     int c = (int)(base % C);
 #pragma unroll
@@ -112,8 +122,8 @@ __global__ void __launch_bounds__(kThreads) bn_act_dropout_fwd_kernel(
 // Backward: dx, and the four (C,) gradients, whose two channel sums (sum ga and
 // sum ga * xhat) are reduced over the grid in the same launch (grid_reduce.cuh). VEC
 // elements per thread slot, blockDim.x * VEC a multiple of C; DROPOUT replays the
-// forward's mask.
-template <typename T, int VEC, bool DROPOUT>
+// forward's mask, through the striped map when STRIPED.
+template <typename T, int VEC, bool DROPOUT, bool STRIPED>
 __global__ void __launch_bounds__(VEC == 4 ? kThreads : 1024) bn_act_dropout_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
     float* __restrict__ rows, unsigned int* ticket, const float* __restrict__ mean,
@@ -121,7 +131,7 @@ __global__ void __launch_bounds__(VEC == 4 ? kThreads : 1024) bn_act_dropout_bwd
     const float* __restrict__ bias, float* __restrict__ dscale, float* __restrict__ dbias,
     float* __restrict__ dmean, float* __restrict__ dvar, long long n, int C, float slope,
     float eps, float threshold, float keep_scale, uint32_t k0, uint32_t k1, long long base4,
-    int vec) {
+    int vec, long long L, long long G) {
   extern __shared__ float sh[];
   float* s_mean = sh;
   float* s_mul = sh + C;
@@ -155,7 +165,11 @@ __global__ void __launch_bounds__(VEC == 4 ? kThreads : 1024) bn_act_dropout_bwd
     constexpr bool kFull = decltype(full)::value;
     uint32_t bits[VEC];
     if constexpr (DROPOUT) {
-      const uint4 r = philox_words(base4 + (base >> 2), kStreamDropout, k0, k1);
+      // the element's global index; on the contiguous map its word of the four is
+      // base % 4, since the map's base is a multiple of 4
+      const long long gi = STRIPED ? global_index({base4 << 2, L, G}, base) : base;
+      const uint4 r = philox_words(STRIPED ? gi >> 2 : base4 + (base >> 2), kStreamDropout,
+                                   k0, k1);
       if constexpr (VEC == 4) {
         bits[0] = r.x;
         bits[1] = r.y;
@@ -163,7 +177,7 @@ __global__ void __launch_bounds__(VEC == 4 ? kThreads : 1024) bn_act_dropout_bwd
         bits[3] = r.w;
       } else {
         const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-        bits[0] = w[base & 3];
+        bits[0] = w[gi & 3];
       }
     }
 #pragma unroll
@@ -291,18 +305,20 @@ template <typename T>
 int launch_fwd(const void* x, void* y, const float* mean, const float* var,
                const float* scale, const float* bias, long long n, int C, float slope,
                float eps, int dropout, float threshold, float keep_scale,
-               unsigned long long seed, long long base, int max_blocks, cudaStream_t stream) {
+               unsigned long long seed, StripeMap map, int max_blocks, cudaStream_t stream) {
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > max_blocks) blocks = max_blocks;
   const size_t align = 4 * sizeof(T);
   const int vec = ((uintptr_t)x % align == 0) && ((uintptr_t)y % align == 0);
   const size_t smem = 3 * (size_t)C * sizeof(float);
-  auto kernel = dropout ? bn_act_dropout_fwd_kernel<T, true> : bn_act_dropout_fwd_kernel<T, false>;
+  auto kernel = !dropout                ? bn_act_dropout_fwd_kernel<T, false, false>
+                : map.L == map.G ? bn_act_dropout_fwd_kernel<T, true, false>
+                                 : bn_act_dropout_fwd_kernel<T, true, true>;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), mean, var, scale, bias, n, C, slope,
       eps, threshold, keep_scale, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32),
-      base >> 2, vec);
+      map.base >> 2, vec, map.L, map.G);
   return (int)cudaGetLastError();
 }
 
@@ -310,13 +326,18 @@ template <typename T>
 using BwdKernel = void (*)(const T*, const T*, T*, float*, unsigned int*, const float*,
                            const float*, const float*, const float*, float*, float*, float*,
                            float*, long long, int, float, float, float, float, uint32_t,
-                           uint32_t, long long, int);
+                           uint32_t, long long, int, long long, long long);
 
+// The instance for (vec_elems, dropout, striped); striped counts with dropout only.
 template <typename T>
-BwdKernel<T> bwd_kernel(int vec_elems, int dropout) {
+BwdKernel<T> bwd_kernel(int vec_elems, int dropout, int striped) {
   if (vec_elems == 4)
-    return dropout ? bn_act_dropout_bwd_kernel<T, 4, true> : bn_act_dropout_bwd_kernel<T, 4, false>;
-  return dropout ? bn_act_dropout_bwd_kernel<T, 1, true> : bn_act_dropout_bwd_kernel<T, 1, false>;
+    return !dropout  ? bn_act_dropout_bwd_kernel<T, 4, false, false>
+           : striped ? bn_act_dropout_bwd_kernel<T, 4, true, true>
+                     : bn_act_dropout_bwd_kernel<T, 4, true, false>;
+  return !dropout  ? bn_act_dropout_bwd_kernel<T, 1, false, false>
+         : striped ? bn_act_dropout_bwd_kernel<T, 1, true, true>
+                   : bn_act_dropout_bwd_kernel<T, 1, true, false>;
 }
 
 size_t bwd_smem(int C, int threads, int vec_elems) {
@@ -334,24 +355,31 @@ int launch_bwd(const void* x, const void* g, void* dx, float* rows, unsigned int
                const float* mean, const float* var, const float* scale, const float* bias,
                float* dscale, float* dbias, float* dmean, float* dvar, long long n, int C,
                float slope, float eps, int dropout, float threshold, float keep_scale,
-               unsigned long long seed, long long base, int threads, int vec_elems, int blocks,
+               unsigned long long seed, StripeMap map, int threads, int vec_elems, int blocks,
                int cluster, cudaStream_t stream) {
   const size_t align = 4 * sizeof(T);
   const int vec = ((uintptr_t)x % align == 0) && ((uintptr_t)g % align == 0) &&
                   ((uintptr_t)dx % align == 0);
-  return launch_clustered(bwd_kernel<T>(vec_elems, dropout), blocks, threads,
+  return launch_clustered(bwd_kernel<T>(vec_elems, dropout, map.L != map.G), blocks, threads,
                           bwd_smem(C, threads, vec_elems), cluster, stream,
                           static_cast<const T*>(x), static_cast<const T*>(g),
                           static_cast<T*>(dx), rows, ticket, mean, var, scale, bias, dscale,
                           dbias, dmean, dvar, n, C, slope, eps, threshold, keep_scale,
-                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), base >> 2,
-                          vec);
+                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32),
+                          map.base >> 2, vec, map.L, map.G);
+}
+
+// The index map (base, L, G) of n elements is valid: base a non-negative multiple of 4,
+// and L = G, or L a divisor of n and L, G multiples of 4 with L < G.
+bool map_ok(long long n, long long base, long long L, long long G) {
+  if (base < 0 || base % 4 != 0 || L <= 0 || G < L) return false;
+  return L == G || (n % L == 0 && L % 4 == 0 && G % 4 == 0);
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16. `base`: the
-// element-index base of the dropout bits, a non-negative multiple of 4.
+// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16. (base, L, G):
+// the index map of the dropout bits (header comment; L = G = n for the contiguous map).
 // Launches on `stream`, does not synchronise, allocates nothing; returns the
 // cudaGetLastError() code of the launch (0 = success).
 extern "C" int vaegan_bn_act_dropout_fwd(const void* x, void* y, const float* mean,
@@ -360,16 +388,18 @@ extern "C" int vaegan_bn_act_dropout_fwd(const void* x, void* y, const float* me
                                          float slope, float eps, int dropout,
                                          float threshold, float keep_scale,
                                          unsigned long long seed, long long base,
-                                         int max_blocks, void* stream) {
+                                         long long L, long long G, int max_blocks,
+                                         void* stream) {
   if (n <= 0) return 0;
-  if (C <= 0 || max_blocks <= 0 || base < 0 || base % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || max_blocks <= 0 || !map_ok(n, base, L, G)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const StripeMap map{base, L, G};
   if (dtype == 0)
     return launch_fwd<float>(x, y, mean, var, scale, bias, n, C, slope, eps, dropout,
-                             threshold, keep_scale, seed, base, max_blocks, s);
+                             threshold, keep_scale, seed, map, max_blocks, s);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(x, y, mean, var, scale, bias, n, C, slope, eps,
-                                     dropout, threshold, keep_scale, seed, base, max_blocks, s);
+                                     dropout, threshold, keep_scale, seed, map, max_blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -382,35 +412,38 @@ extern "C" int vaegan_bn_act_dropout_bwd(
     const float* mean, const float* var, const float* scale, const float* bias, float* dscale,
     float* dbias, float* dmean, float* dvar, long long n, int C, int dtype, float slope,
     float eps, int dropout, float threshold, float keep_scale, unsigned long long seed,
-    long long base, int threads, int vec_elems, int blocks, int cluster, void* stream) {
+    long long base, long long L, long long G, int threads, int vec_elems, int blocks,
+    int cluster, void* stream) {
   if (n <= 0 || !bwd_shape_ok(C, threads, vec_elems, cluster) || blocks <= 0 ||
-      blocks % cluster != 0 || base < 0 || base % 4 != 0)
+      blocks % cluster != 0 || !map_ok(n, base, L, G))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const StripeMap map{base, L, G};
   if (dtype == 0)
     return launch_bwd<float>(x, g, dx, rows, ticket, mean, var, scale, bias, dscale, dbias,
                              dmean, dvar, n, C, slope, eps, dropout, threshold, keep_scale,
-                             seed, base, threads, vec_elems, blocks, cluster, s);
+                             seed, map, threads, vec_elems, blocks, cluster, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(x, g, dx, rows, ticket, mean, var, scale, bias, dscale,
                                      dbias, dmean, dvar, n, C, slope, eps, dropout, threshold,
-                                     keep_scale, seed, base, threads, vec_elems, blocks,
+                                     keep_scale, seed, map, threads, vec_elems, blocks,
                                      cluster, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// How many clusters of the backward kernel for (C, dtype, dropout, threads,
+// How many clusters of the backward kernel for (C, dtype, dropout, striped, threads,
 // vec_elems) fit on the current device at once; minus the CUDA error code on failure.
+// striped: the instance of a striped map (L < G), with dropout only.
 extern "C" int vaegan_bn_act_dropout_bwd_max_clusters(int C, int dtype, int dropout,
-                                                      int threads, int vec_elems,
+                                                      int striped, int threads, int vec_elems,
                                                       int cluster) {
   if (!bwd_shape_ok(C, threads, vec_elems, cluster)) return -(int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(C, threads, vec_elems);
   if (dtype == 0)
-    return max_active_clusters(bwd_kernel<float>(vec_elems, dropout), threads, smem, cluster);
-  if (dtype == 1)
-    return max_active_clusters(bwd_kernel<__nv_bfloat16>(vec_elems, dropout), threads, smem,
+    return max_active_clusters(bwd_kernel<float>(vec_elems, dropout, striped), threads, smem,
                                cluster);
+  if (dtype == 1)
+    return max_active_clusters(bwd_kernel<__nv_bfloat16>(vec_elems, dropout, striped), threads,
+                               smem, cluster);
   return -(int)cudaErrorInvalidValue;
 }
-

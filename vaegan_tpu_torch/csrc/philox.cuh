@@ -10,6 +10,15 @@
 //   stream 1, reparam_kl noise:           counter (i lo, i hi, 1, 0), i = flat index / 2,
 //                                          words (2 (index % 2), 2 (index % 2) + 1).
 // The plain PyTorch versions in vaegan_tpu_torch/ops/fused.py compute the same words.
+//
+// Index map. The flat index above is the element's place in the GLOBAL tensor of a
+// parallel step. A kernel sees its process's part of it, whose images are each a run of
+// L consecutive elements of the global tensor's G a image (a stripe of H is L = (H/M)
+// W C of G = H W C; L = G when the process holds whole images), the first at `base`:
+// local element e is global element base + (e / L) G + e % L (StripeMap). L = G is the
+// contiguous map base + e. The kernels that draw take the map's kind as a template
+// argument, STRIPED, and the host picks the instance from L < G: the contiguous instance
+// computes base + e alone, and only the striped one runs global_index's division.
 
 #pragma once
 
@@ -48,6 +57,22 @@ __device__ __forceinline__ uint4 philox_words(long long i, uint32_t stream, uint
                                               uint32_t k1) {
   return philox4x32_10(
       make_uint4((uint32_t)i, (uint32_t)((unsigned long long)i >> 32), stream, 0u), k0, k1);
+}
+
+// The map from a local flat index to the global one (see the header comment).
+struct StripeMap {
+  long long base, L, G;
+};
+
+// The striped map's global index of local element e (L < G).
+__device__ __forceinline__ long long global_index(const StripeMap& s, long long e) {
+  long long img;
+  if (e < 0x100000000LL && s.L < 0x100000000LL) {
+    img = (long long)((unsigned int)e / (unsigned int)s.L);  // 32-bit division when it fits
+  } else {
+    img = e / s.L;
+  }
+  return s.base + img * s.G + (e - img * s.L);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -20,9 +20,13 @@
 // (2 (e % 2), 2 (e % 2) + 1) of counter (e / 2, 1). The noise is a pure function of
 // (seed, element index), so the backward replays it bit for bit and the plain PyTorch
 // version in vaegan_tpu_torch/ops/fused.py computes the same words. The element index is
-// `base` + the flat position: `base`, a multiple of 4, places the tensor in a larger one
-// (a data-parallel process passes rank * n and draws its slice of the one-process step's
-// noise over the global batch; 0 on one process).
+// the flat position's place in a larger tensor, base + (e / L) G + e % L (philox.cuh's
+// StripeMap): a parallel process passes the place of its rows (and of its H stripe) in
+// the global latent and draws its part of the one-process step's noise (base 0, L = G on
+// one process). base is a multiple of 4 and, where L < G, L and G are even, so the two
+// elements of a Box-Muller pair are one image's. Each kernel comes in two instances,
+// STRIPED or not (philox.cuh): the contiguous one draws at base + e as the data-parallel
+// kernel did, with no division in its loop.
 //
 // What bounds it: memory and instruction count, about equally. The forward reads mu and
 // lv and writes z (12 bytes an element in f32); per element it also runs half a
@@ -61,11 +65,20 @@ __device__ __forceinline__ float box_muller(uint32_t b1, uint32_t b2) {
   return __fmul_rn(r, cosf(__fmul_rn(kTwoPi, u2)));
 }
 
-// The noise of elements base .. base + 3 (base a multiple of 4).
-__device__ __forceinline__ void noise4(long long base, uint32_t k0, uint32_t k1,
-                                       float (&e)[4]) {
-  const uint4 a = philox_words(base >> 1, kStreamReparam, k0, k1);
-  const uint4 b = philox_words((base >> 1) + 1, kStreamReparam, k0, k1);
+// The noise of local elements base .. base + 3 (base a multiple of 4): two pairs, each
+// one counter at its first element's global index / 2.
+template <bool STRIPED>
+__device__ __forceinline__ void noise4(const StripeMap& map, long long base, uint32_t k0,
+                                       uint32_t k1, float (&e)[4]) {
+  uint4 a, b;
+  if constexpr (STRIPED) {
+    a = philox_words(global_index(map, base) >> 1, kStreamReparam, k0, k1);
+    b = philox_words(global_index(map, base + 2) >> 1, kStreamReparam, k0, k1);
+  } else {
+    const long long i = (map.base + base) >> 1;
+    a = philox_words(i, kStreamReparam, k0, k1);
+    b = philox_words(i + 1, kStreamReparam, k0, k1);
+  }
   e[0] = box_muller(a.x, a.y);
   e[1] = box_muller(a.z, a.w);
   e[2] = box_muller(b.x, b.y);
@@ -73,11 +86,11 @@ __device__ __forceinline__ void noise4(long long base, uint32_t k0, uint32_t k1,
 }
 
 // Forward: z, and the KL summed over the grid in the same launch (grid_reduce.cuh).
-template <typename T>
+template <typename T, bool STRIPED>
 __global__ void __launch_bounds__(kThreads) reparam_fwd_kernel(
     const T* __restrict__ mu, const T* __restrict__ lv, T* __restrict__ z,
     float* __restrict__ rows, unsigned int* ticket, float* __restrict__ kl, long long n,
-    uint32_t k0, uint32_t k1, long long gbase, int vec) {
+    uint32_t k0, uint32_t k1, long long gbase, int vec, long long L, long long G) {
   __shared__ float sh[kThreads];
   __shared__ float row[1];
   float acc = 0.f;
@@ -93,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) reparam_fwd_kernel(
       load_group(mu, base, n, false, m);
       load_group(lv, base, n, false, l);
     }
-    noise4(gbase + base, k0, k1, e);
+    noise4<STRIPED>({gbase, L, G}, base, k0, k1, e);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float eh = expf(__fmul_rn(0.5f, l[j]));
@@ -119,11 +132,12 @@ __global__ void __launch_bounds__(kThreads) reparam_fwd_kernel(
   grid_reduce(row, 1, rows, ticket, sh, [&](int, float total) { kl[0] = -0.5f * total; });
 }
 
-template <typename T>
+template <typename T, bool STRIPED>
 __global__ void __launch_bounds__(kThreads) reparam_bwd_kernel(
     const T* __restrict__ mu, const T* __restrict__ lv, const T* __restrict__ gz,
     const float* __restrict__ gkl_ptr, T* __restrict__ dmu, T* __restrict__ dlv,
-    long long n, uint32_t k0, uint32_t k1, long long gbase, int vec) {
+    long long n, uint32_t k0, uint32_t k1, long long gbase, int vec, long long L,
+    long long G) {
   const float gkl = gkl_ptr ? gkl_ptr[0] : 0.f;
   const long long groups = (n + 3) >> 2;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -134,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) reparam_bwd_kernel(
     load_group(mu, base, n, vec, m);
     load_group(lv, base, n, vec, l);
     load_group(gz, base, n, vec, gzv);
-    noise4(gbase + base, k0, k1, e);
+    noise4<STRIPED>({gbase, L, G}, base, k0, k1, e);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float eh = expf(__fmul_rn(0.5f, l[j]));
@@ -164,26 +178,36 @@ constexpr size_t kFwdSmem = 0;  // static shared memory only
 
 template <typename T>
 int launch_fwd(const void* mu, const void* lv, void* z, float* rows, unsigned int* ticket,
-               float* kl, long long n, unsigned long long seed, long long base, int blocks,
+               float* kl, long long n, unsigned long long seed, StripeMap map, int blocks,
                int cluster, cudaStream_t stream) {
   const int vec = aligned<T>(mu) && aligned<T>(lv) && aligned<T>(z);
-  return launch_clustered(reparam_fwd_kernel<T>, blocks, kThreads, kFwdSmem, cluster, stream,
+  auto kernel = map.L == map.G ? reparam_fwd_kernel<T, false> : reparam_fwd_kernel<T, true>;
+  return launch_clustered(kernel, blocks, kThreads, kFwdSmem, cluster, stream,
                           static_cast<const T*>(mu), static_cast<const T*>(lv),
                           static_cast<T*>(z), rows, ticket, kl, n,
-                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), base, vec);
+                          (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), map.base,
+                          vec, map.L, map.G);
 }
 
 template <typename T>
 int launch_bwd(const void* mu, const void* lv, const void* gz, const float* gkl, void* dmu,
-               void* dlv, long long n, unsigned long long seed, long long base, int max_blocks,
+               void* dlv, long long n, unsigned long long seed, StripeMap map, int max_blocks,
                cudaStream_t stream) {
   const int vec = aligned<T>(mu) && aligned<T>(lv) && aligned<T>(gz) && aligned<T>(dmu) &&
                   aligned<T>(dlv);
-  reparam_bwd_kernel<T><<<grid_for(n, max_blocks), kThreads, 0, stream>>>(
+  auto kernel = map.L == map.G ? reparam_bwd_kernel<T, false> : reparam_bwd_kernel<T, true>;
+  kernel<<<grid_for(n, max_blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(mu), static_cast<const T*>(lv), static_cast<const T*>(gz), gkl,
       static_cast<T*>(dmu), static_cast<T*>(dlv), n, (uint32_t)(seed & 0xFFFFFFFFull),
-      (uint32_t)(seed >> 32), base, vec);
+      (uint32_t)(seed >> 32), map.base, vec, map.L, map.G);
   return (int)cudaGetLastError();
+}
+
+// The index map (base, L, G) of n elements is valid: base a non-negative multiple of 4,
+// and L = G, or L a divisor of n and L, G even with L < G.
+bool map_ok(long long n, long long base, long long L, long long G) {
+  if (base < 0 || base % 4 != 0 || L <= 0 || G < L) return false;
+  return L == G || (n % L == 0 && L % 2 == 0 && G % 2 == 0);
 }
 
 }  // namespace
@@ -195,44 +219,51 @@ int launch_bwd(const void* mu, const void* lv, const void* gz, const float* gkl,
 // Forward, one launch of `blocks` blocks (a multiple of `cluster`, at most 8) of 256
 // threads: `rows` holds blocks / cluster floats of scratch, `ticket` one counter that
 // is 0 and that no other launch uses meanwhile (grid_reduce.cuh), `kl` one float.
-// `base`: the element-index base of the noise, a non-negative multiple of 4.
+// (base, L, G): the index map of the noise (header comment; L = G = n for the contiguous
+// map).
 extern "C" int vaegan_reparam_kl_fwd(const void* mu, const void* lv, void* z, float* rows,
                                      unsigned int* ticket, float* kl, long long n, int dtype,
-                                     unsigned long long seed, long long base, int blocks,
-                                     int cluster, void* stream) {
+                                     unsigned long long seed, long long base, long long L,
+                                     long long G, int blocks, int cluster, void* stream) {
   if (n <= 0 || cluster < 1 || cluster > (int)kClusterMax || blocks <= 0 ||
-      blocks % cluster != 0 || base < 0 || base % 4 != 0)
+      blocks % cluster != 0 || !map_ok(n, base, L, G))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const StripeMap map{base, L, G};
   if (dtype == 0)
-    return launch_fwd<float>(mu, lv, z, rows, ticket, kl, n, seed, base, blocks, cluster, s);
+    return launch_fwd<float>(mu, lv, z, rows, ticket, kl, n, seed, map, blocks, cluster, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(mu, lv, z, rows, ticket, kl, n, seed, base, blocks,
+    return launch_fwd<__nv_bfloat16>(mu, lv, z, rows, ticket, kl, n, seed, map, blocks,
                                      cluster, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // How many clusters of the forward kernel fit on the current device at once; minus
-// the CUDA error code on failure.
-extern "C" int vaegan_reparam_kl_fwd_max_clusters(int dtype, int cluster) {
+// the CUDA error code on failure. striped: the instance of a striped map (L < G).
+extern "C" int vaegan_reparam_kl_fwd_max_clusters(int dtype, int striped, int cluster) {
   if (cluster < 1 || cluster > (int)kClusterMax) return -(int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return max_active_clusters(reparam_fwd_kernel<float>, kThreads, kFwdSmem, cluster);
+    return max_active_clusters(striped ? reparam_fwd_kernel<float, true>
+                                       : reparam_fwd_kernel<float, false>,
+                               kThreads, kFwdSmem, cluster);
   if (dtype == 1)
-    return max_active_clusters(reparam_fwd_kernel<__nv_bfloat16>, kThreads, kFwdSmem, cluster);
+    return max_active_clusters(striped ? reparam_fwd_kernel<__nv_bfloat16, true>
+                                       : reparam_fwd_kernel<__nv_bfloat16, false>,
+                               kThreads, kFwdSmem, cluster);
   return -(int)cudaErrorInvalidValue;
 }
 
-// gkl: device f32 scalar, or null for a cotangent of 0; `base` as in the forward.
+// gkl: device f32 scalar, or null for a cotangent of 0; (base, L, G) as in the forward.
 extern "C" int vaegan_reparam_kl_bwd(const void* mu, const void* lv, const void* gz,
                                      const float* gkl, void* dmu, void* dlv, long long n,
                                      int dtype, unsigned long long seed, long long base,
-                                     int max_blocks, void* stream) {
-  if (n <= 0 || max_blocks <= 0 || base < 0 || base % 4 != 0) return (int)cudaErrorInvalidValue;
+                                     long long L, long long G, int max_blocks, void* stream) {
+  if (n <= 0 || max_blocks <= 0 || !map_ok(n, base, L, G)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const StripeMap map{base, L, G};
   if (dtype == 0)
-    return launch_bwd<float>(mu, lv, gz, gkl, dmu, dlv, n, seed, base, max_blocks, s);
+    return launch_bwd<float>(mu, lv, gz, gkl, dmu, dlv, n, seed, map, max_blocks, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(mu, lv, gz, gkl, dmu, dlv, n, seed, base, max_blocks, s);
+    return launch_bwd<__nv_bfloat16>(mu, lv, gz, gkl, dmu, dlv, n, seed, map, max_blocks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,13 +9,13 @@ from seed 0) with ``use_pallas="all"``, so that its 12 BN sites run the
 returns the reconstruction; ``example_args`` is ``(generator, zeros (4, 96, 96,
 1))`` on ``device``.
 
-``dryrun_multichip(n)`` (``__graft_entry__.py``'s) runs one data-parallel
-train step of a tiny config over n processes on the CPU (gloo), each started
-as ``python -m vaegan_tpu_torch.entry --dryrun-child RANK N STORE``, and
-prints rank 0's metrics. For n >= 4 the JAX dry run makes a 2-D mesh and adds
-tensor parallelism of the critic head and spatial sharding; the port's mesh
-is data x 1 and the line says that those two are not ported (ROADMAP.md A.9,
-A.10).
+``dryrun_multichip(n)`` (``__graft_entry__.py``'s) runs one parallel train
+step of a tiny config over n processes on the CPU (gloo), each started as
+``python -m vaegan_tpu_torch.entry --dryrun-child RANK N STORE``, and prints
+rank 0's metrics. For even n >= 4 it runs the JAX dry run's mesh: data n/2 x
+model 2, the critic head's kernels split over the model axis (tensor
+parallelism) and the batch's H split over it too (spatial sharding); below
+that, data n x model 1.
 """
 
 from __future__ import annotations
@@ -65,7 +65,14 @@ def _dryrun_cfg(n: int) -> Config:
 
 
 def _dryrun_child(rank: int, n: int, store: str) -> None:
-    from vaegan_tpu_torch.parallel import dist, make_mesh, make_parallel_train_step, shard_batch
+    from vaegan_tpu_torch.parallel import (
+        batch_sharding,
+        dist,
+        make_mesh,
+        make_parallel_train_step,
+        shard_batch,
+        shard_state,
+    )
     from vaegan_tpu_torch.train.state import create_train_state
 
     torch.set_num_threads(1)
@@ -73,22 +80,22 @@ def _dryrun_child(rank: int, n: int, store: str) -> None:
                     device="cpu", timeout_s=300)
     try:
         cfg = _dryrun_cfg(n)
-        mesh = make_mesh()
-        state = create_train_state(cfg, device="cpu", seed=0)
-        step = make_parallel_train_step(cfg, mesh, do_g_update=True)
+        n_model = 2 if n >= 4 and n % 2 == 0 else 1
+        mesh = make_mesh(num_data=n // n_model, num_model=n_model)
+        state = shard_state(create_train_state(cfg, device="cpu", seed=0), mesh)
+        bsh = batch_sharding(mesh, spatial_axis="model" if n_model > 1 else None)
+        step = make_parallel_train_step(cfg, mesh, do_g_update=True, batch_spec=bsh)
         batch = torch.rand((2 * n, 16, 16, 1), generator=torch.Generator().manual_seed(1))
-        state, metrics = step(state, shard_batch(mesh, batch), 2)
+        state, metrics = step(state, shard_batch(mesh, batch, spec=bsh), 2)
         assert state.step == 1
         values = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in values.items() if v != v]
         if bad:
             raise RuntimeError(f"non-finite metrics {bad}")
         if rank == 0:
-            note = "" if n < 4 else (
-                "; critic-head tensor parallelism and spatial sharding, which the JAX dry "
-                "run adds at this size, are not ported (ROADMAP.md A.9, A.10)")
-            print(f"dryrun_multichip({n}) ok (mesh data={mesh.num_data} x model=1, dp over "
-                  f"{n} gloo processes{note}):",
+            what = "dp + critic-head tp + spatial sharding" if n_model > 1 else "dp"
+            print(f"dryrun_multichip({n}) ok (mesh data={mesh.num_data} x "
+                  f"model={mesh.num_model}, {what}; {n} gloo processes):",
                   {k: round(v, 3) for k, v in values.items()}, flush=True)
     finally:
         dist.shutdown()

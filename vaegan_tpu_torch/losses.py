@@ -9,7 +9,11 @@ Reference semantics:
 - BCE adversarial + Dis_l feature-matching reconstruction for the Larsen et al.
   configuration.
 
-Every loss is taken in float32, whatever the compute dtype.
+Every loss is taken in float32, whatever the compute dtype. A loss here is a
+process's local value; the train steps turn it into its share of the global
+loss (``ops.replica``). The gradient penalty alone needs the processes
+together, inside a sample's norm (``replica``: :func:`input_gradient`,
+:func:`penalty_of`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+
+from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -72,7 +78,8 @@ def feature_matching_loss(real_features: torch.Tensor,
 
 
 def gradient_penalty(critic: Callable[[torch.Tensor], torch.Tensor], real: torch.Tensor,
-                     fake: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+                     fake: torch.Tensor, alpha: torch.Tensor,
+                     replica: Replica = LOCAL) -> torch.Tensor:
     """WGAN-GP: E[(||d D(x_hat) / d x_hat||_2 - 1)^2] at x_hat = alpha * real +
     (1 - alpha) * fake, with a per-sample ``alpha`` (B, 1, 1, 1) and the norm over
     each sample's flattened dims, sqrt(sum g^2 + 1e-24).
@@ -80,11 +87,23 @@ def gradient_penalty(critic: Callable[[torch.Tensor], torch.Tensor], real: torch
     ``critic`` maps (B, H, W, C) images to per-sample logits; the gradient is
     taken with ``create_graph=True``, so differentiating the penalty in the
     critic's parameters is a grad-of-grad. A train-mode critic advances its BN
-    statistics and spectral (u, v) in this forward, as the reference's does."""
+    statistics and spectral (u, v) in this forward, as the reference's does.
+    ``replica``: this process's rows and stripe of the global step's."""
     interp = interpolates(real, fake, alpha)
-    logits = critic(interp)
-    (grads,) = torch.autograd.grad(logits.float().sum(), interp, create_graph=True)
-    return penalty_of(grads)
+    return penalty_of(input_gradient(critic(interp), interp, replica), replica)
+
+
+def input_gradient(logits: torch.Tensor, x: torch.Tensor,
+                   replica: Replica = LOCAL) -> torch.Tensor:
+    """d (sum of the global batch's logits) / d ``x``, this process's part of
+    the global input, with ``create_graph=True``. The model axis holds copies
+    of the logits, so each counts 1/M; without a spatial axis the model axis
+    also holds copies of ``x``, and the global gradient is the sum of the
+    copies' (each reaches the logits through its own slice of a split head)."""
+    m = replica.num_model
+    total = logits.float().sum()
+    (g,) = torch.autograd.grad(total / m if m > 1 else total, x, create_graph=True)
+    return replica.all_reduce(g, "model") if m > 1 and not replica.spatial else g
 
 
 def interpolates(real: torch.Tensor, fake: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -96,9 +115,14 @@ def interpolates(real: torch.Tensor, fake: torch.Tensor, alpha: torch.Tensor) ->
     return interp.requires_grad_(True)
 
 
-def penalty_of(grads: torch.Tensor) -> torch.Tensor:
+def penalty_of(grads: torch.Tensor, replica: Replica = LOCAL) -> torch.Tensor:
     """E[(||g||_2 - 1)^2] over the batch of input gradients ``grads``, each
-    sample's norm sqrt(sum g^2 + 1e-24)."""
+    sample's norm sqrt(sum g^2 + 1e-24); under spatial sharding ``grads`` is
+    this process's stripe, and each sample's sum g^2 is summed over the model
+    axis before the root."""
     grads = grads.reshape(grads.shape[0], -1).float()
-    norms = torch.sqrt(torch.sum(torch.square(grads), dim=1) + 1e-24)
+    sq = torch.sum(torch.square(grads), dim=1)
+    if replica.spatial:
+        sq = replica.all_reduce(sq, "model")
+    norms = torch.sqrt(sq + 1e-24)
     return torch.mean(torch.square(norms - 1.0))

@@ -14,9 +14,9 @@ channel count changes. With ``use_pallas`` its BN -> LeakyReLU chains are fused
 at p = 0; the critic is built fused only when no gradient penalty is configured,
 since the kernel's backward is not twice-differentiable (``train.state``).
 
-``replica`` (``ops.replica``) reaches every BatchNorm and Dropout of a block: in
-a data-parallel step their statistics are global and their draws the global
-step's.
+``replica`` (``ops.replica``) reaches every layer of a block: in a parallel
+step the BatchNorm statistics are global, the draws the global step's, and
+under spatial sharding every convolution takes its stripe's halo.
 """
 
 from __future__ import annotations
@@ -67,25 +67,26 @@ class ResBlockVAE(nn.Module):
         drop = lambda t: self.dropout(t, train=train, generator=generator,  # noqa: E731
                                       replica=replica)
         bn = dict(train=train, replica=replica)
-        shortcut = self.shortcut[1](self.shortcut[0](x), **bn)
+        cv = dict(replica=replica)
+        shortcut = self.shortcut[1](self.shortcut[0](x, **cv), **bn)
         if self.res_mode == "standard":
-            out = self.conv1(x)
+            out = self.conv1(x, **cv)
             if self.use_pallas:  # BN -> act -> dropout, one fused pass
                 out = self.bn1(out, fuse=(self.slope, self.p), seeds=seeds, **bn)
             else:
                 out = drop(act(self.bn1(out, **bn)))
-            out = self.conv2(out)
+            out = self.conv2(out, **cv)
             out = self.bn2(out, **bn)
             return act(out + shortcut)
         if self.use_pallas:
             out = self.bn1(x, fuse=(self.slope, self.p), seeds=seeds, **bn)
-            out = self.conv1(out)
+            out = self.conv1(out, **cv)
             out = self.bn2(out, fuse=(self.slope, 0.0), **bn)
         else:
             out = drop(act(self.bn1(x, **bn)))
-            out = self.conv1(out)
+            out = self.conv1(out, **cv)
             out = act(self.bn2(out, **bn))
-        out = self.conv2(out)
+        out = self.conv2(out, **cv)
         return out + shortcut
 
 
@@ -123,20 +124,20 @@ class ResBlockDiscriminator(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 replica: Replica = LOCAL) -> torch.Tensor:
         if self.shortcut is not None:
-            shortcut = self.shortcut[1](self.shortcut[0](x, train=train), train=train,
-                                        replica=replica)
+            shortcut = self.shortcut[1](self.shortcut[0](x, train=train, replica=replica),
+                                        train=train, replica=replica)
         else:
             shortcut = x.to(self.conv1.dtype)
         if self.res_mode == "standard":
-            out = self.conv1(x, train=train)
+            out = self.conv1(x, train=train, replica=replica)
             out = self.dropout(out, train=train, generator=generator, replica=replica)
             out = self._bn_act(self.bn1, out, train, replica)
-            out = self.conv2(out, train=train)
+            out = self.conv2(out, train=train, replica=replica)
             out = self.bn2(out, train=train, replica=replica)
             return leaky_relu(out + shortcut, self.slope)
         out = self._bn_act(self.bn1, x, train, replica)
-        out = self.conv1(out, train=train)
+        out = self.conv1(out, train=train, replica=replica)
         out = self.dropout(out, train=train, generator=generator, replica=replica)
         out = self._bn_act(self.bn2, out, train, replica)
-        out = self.conv2(out, train=train)
+        out = self.conv2(out, train=train, replica=replica)
         return out + shortcut

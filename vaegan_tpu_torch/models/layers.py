@@ -14,8 +14,12 @@ Every ``forward`` takes ``train`` explicitly, as the JAX modules do; the
 Random draws: a fused BatchNorm's dropout seed is a 64-bit int drawn from a CPU
 ``torch.Generator`` (``seeds``), so drawing it never waits on the device; the
 unfused dropout masks are drawn on the activation's device (``generator``).
-In a data-parallel step (``replica``, ``ops.replica``) the batch statistics
-are global and every draw is the global step's, cut to this process's rows.
+In a parallel step (``replica``, ``ops.replica``) the batch statistics are
+global and every draw is the global step's, cut to this process's rows (and
+H stripe). Under spatial sharding a :class:`Conv2D` takes its neighbours'
+boundary rows before it convolves (:meth:`Conv2D.forward`); under tensor
+parallelism a :class:`Linear` holds its rows of the kernel and gathers its
+outputs over the model axis (:meth:`Linear.shard`).
 
 Recomputation (``cfg.train.remat``, :func:`remat`): a block run under
 ``torch.utils.checkpoint`` runs its forward again in the backward. Its layers'
@@ -186,24 +190,69 @@ class Conv2D(nn.Module):
             _once(self, "uv", lambda: (u, v))
         return w
 
-    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                replica: Replica = LOCAL) -> torch.Tensor:
+        """The convolution of ``x`` (N, C, H, W); given a ``replica`` that splits
+        H, of this process's stripe, whose output is its stripe of the output:
+        the stripe is first extended by the rows of the stripes above and below
+        that the kernel reads (``Replica.halo``, zeros beyond the image), and
+        then convolved without padding in H."""
         w = self.effective_weight(train).to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        conv = F.conv_transpose2d if self.transpose else F.conv2d
         stride = self.stride
         if w.shape[-1] == 1 and self.padding == 0 and not self.transpose and stride > 1:
             # a strided 1x1 conv reads every stride-th pixel: subsample, then a
             # stride-1 conv (the same numbers; PyTorch's CPU double backward of a
-            # strided 1x1 channels_last conv corrupts memory)
+            # strided 1x1 channels_last conv corrupts memory); a stripe starts at
+            # a row that is a multiple of the stride
+            _stripe_rows(x, stride, replica)
             x, stride = x[:, :, ::stride, ::stride], 1
         x = as_channels_last(x.to(self.dtype))
         with precision(self.dtype):
-            return conv(x, w, b, stride=stride, padding=self.padding)
+            if replica.split_h == 1:
+                conv = F.conv_transpose2d if self.transpose else F.conv2d
+                return conv(x, w, b, stride=stride, padding=self.padding)
+            k, p, h = w.shape[-2], self.padding, x.shape[2]
+            if self.transpose:
+                # output row o reads input rows i with o = i s - p + j, j < k: the
+                # stripe's outputs [s m h, s (m+1) h) read rows from m h - top to
+                # (m+1) h - 1 + bottom; of the unpadded convolution of those rows
+                # they are the s h rows from top s + p
+                top, bottom = (k - 1 - p) // stride, (p + stride - 1) // stride
+                x = as_channels_last(replica.halo(x, top, bottom))
+                start = top * stride + p
+                if (h + top + bottom - 1) * stride + k - 2 * start == stride * h:
+                    # the padding that drops `start` rows at each end keeps them
+                    return F.conv_transpose2d(x, w, b, stride=stride, padding=(start, p))
+                y = F.conv_transpose2d(x, w, b, stride=stride, padding=(0, p))
+                return as_channels_last(y[:, :, start:start + stride * h])
+            _stripe_rows(x, stride, replica)
+            top, bottom = p, k - stride - p
+            if bottom < 0:
+                raise ValueError(f"a {k}x{k} conv at stride {stride}, padding {p} cannot run "
+                                 "on a stripe")
+            x = as_channels_last(replica.halo(x, top, bottom))
+            return F.conv2d(x, w, b, stride=stride, padding=(0, p))
+
+
+def _stripe_rows(x: torch.Tensor, stride: int, replica: Replica) -> int:
+    """The rows of the stripe ``x``, which a strided layer must divide into."""
+    h = x.shape[2]
+    if replica.split_h > 1 and h % stride:
+        raise ValueError(f"a stripe of {h} rows cannot be convolved at stride {stride}: "
+                         "the stripe count must divide every stage's H")
+    return h
 
 
 class Linear(nn.Module):
     """``nn.Linear`` with the reference's kaiming-normal weight and zero bias;
-    the weight is cast to the compute ``dtype`` at call time."""
+    the weight is cast to the compute ``dtype`` at call time.
+
+    Tensor parallelism (:meth:`shard`): the layer holds rows ``[m out/M,
+    (m+1) out/M)`` of the ``[out, in]`` weight, the outputs this process
+    computes, and the model axis's outputs are gathered before the bias, which
+    stays whole (the JAX package shards the kernel's output features and
+    replicates the bias)."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  init_scheme: str = "reference", dtype: torch.dtype = torch.float32,
@@ -212,14 +261,45 @@ class Linear(nn.Module):
         if init_scheme not in ("clean", "reference"):
             raise ValueError(f"unknown init scheme {init_scheme!r}")
         self.dtype = dtype
+        self.in_features, self.out_features = in_features, out_features
         self.weight = nn.Parameter(kaiming_normal_(torch.empty(out_features, in_features),
                                                    generator))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.tp: Tuple[int, int] = (0, 1)    # (model index, model processes) of the rows held
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def rows(self, m: int, k: int) -> slice:
+        """The weight rows model index ``m`` of ``k`` holds."""
+        if self.out_features % k:
+            raise ValueError(f"{self.out_features} output features cannot be split over {k} "
+                             "processes")
+        per = self.out_features // k
+        return slice(m * per, (m + 1) * per)
+
+    @torch.no_grad()
+    def shard(self, m: int, k: int, opt: Optional[torch.optim.Optimizer] = None) -> None:
+        """Keep rows :meth:`rows` ``(m, k)`` of the whole weight, and of its
+        state in ``opt`` (the tensors of the weight's shape), in place."""
+        if self.tp[1] != 1:
+            raise ValueError(f"this layer already holds a slice {self.tp}")
+        rows = self.rows(m, k)
+        if opt is not None:
+            st = opt.state.get(self.weight, {})
+            for key, v in st.items():
+                if isinstance(v, torch.Tensor) and v.shape == self.weight.shape:
+                    st[key] = v[rows].clone()
+        self.weight.data = self.weight.data[rows].clone()
+        self.tp = (m, k)
+
+    def forward(self, x: torch.Tensor, replica: Replica = LOCAL) -> torch.Tensor:
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
         with precision(self.dtype):
-            return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                            self.bias.to(self.dtype))
+            if self.tp[1] == 1:
+                return F.linear(x.to(self.dtype), w, b)
+            if (replica.model_rank, replica.num_model) != self.tp:
+                raise ValueError(f"this layer holds the rows of model index {self.tp[0]} of "
+                                 f"{self.tp[1]}, the replica is {replica.model_rank} of "
+                                 f"{replica.num_model}")
+            return replica.gather(F.linear(x.to(self.dtype), w), 1) + b
 
 
 class BatchNorm(nn.Module):
@@ -232,9 +312,9 @@ class BatchNorm(nn.Module):
     ``seeds``; eval mode feeds it the running statistics at p = 0. The last
     call's ``(seed, input shape)`` is kept as ``last_draw``, so the mask can be
     replayed (``fused.keep_mask``) to hold the fused path against the unfused one;
-    in a data-parallel step the shape is the global input's, the draw the
-    one-process step makes (this process's slice starts at
-    ``replica.index_base``).
+    in a parallel step the shape is the global input's, the draw the
+    one-process step makes (this process's part of it is
+    ``replica.index_map``'s).
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
@@ -265,14 +345,15 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, use_running_average=not train,
                 momentum=self.momentum, replica=replica)
             p = float(p) if train else 0.0
-            seed, base = 0, 0
+            seed, base, stripe = 0, 0, None
             if p > 0.0:
                 seed = _once(self, "seed", lambda: draw_seed(seeds))
-                base = replica.index_base(x.numel())
+                base, big_l, big_g = replica.index_map(x.shape)
+                stripe = (big_l, big_g)
             if not _replaying(self):
-                self.last_draw = (seed, replica.global_shape(x.shape))
+                self.last_draw = (seed, replica.global_shape(x.shape, 2))
             y = bn_act_dropout(x.to(self.dtype), m, v, self.weight, self.bias, seed,
-                               float(slope), p, float(self.eps), base)
+                               float(slope), p, float(self.eps), base, stripe)
         if train and not _replaying(self):
             # the port updates the running statistics in place
             with torch.no_grad():
@@ -284,7 +365,8 @@ class BatchNorm(nn.Module):
 class Dropout(nn.Module):
     """Inverted dropout; ``channelwise=True`` reproduces ``nn.Dropout2d`` (whole
     feature maps dropped). The mask is drawn from the given ``torch.Generator``
-    (for the global batch, cut to this process's rows, in a data-parallel step),
+    (for the global batch, cut to this process's rows, and, elementwise, its H
+    stripe, in a parallel step),
     unless a keep-mask is injected: ``mask`` (NCHW, broadcastable to the input;
     set by ``inject_masks``) overrides the draw, read-only, as the JAX module's
     ``masks`` collection does for the parity harness."""
@@ -306,7 +388,7 @@ class Dropout(nn.Module):
                 return self.mask.to(x.device)
             shape = (x.shape[0], x.shape[1], 1, 1) if self.channelwise else x.shape
             return replica.draw(shape, lambda s: torch.empty(s, device=x.device).bernoulli_(
-                keep, generator=generator))
+                keep, generator=generator), None if self.channelwise else 2)
 
         # a bool copy of this process's rows: what a recomputed block keeps on
         # its tape for the backward (not the float draw over the global batch)

@@ -17,8 +17,11 @@ package's first linear accordingly).
 ``remat`` (``cfg.train.remat``) runs every residual block of the encoder, the
 decoder and the critic under recomputation in a train forward that records a
 graph (``layers.remat``), as the JAX package's ``_block_runner`` wraps them in
-``nn.remat``. ``replica`` (``ops.replica``) makes a train forward part of a
-data-parallel step: global batch statistics, the global step's draws.
+``nn.remat``. ``replica`` (``ops.replica``) makes a forward part of a
+parallel step: global batch statistics, the global step's draws, conv halos
+under spatial sharding (each process runs every layer on its stripe of H), and
+the critic head's gathers (the pooled stripes before the flatten, the outputs
+of a linear whose kernel is split over the model axis).
 """
 
 from __future__ import annotations
@@ -125,7 +128,8 @@ class SpatialVAECodeProcessor(nn.Module):
     else drawn in the ``reparam_kl`` kernel from a seed drawn from ``seeds``
     (``use_pallas``; ``(seed, mu's global shape)`` is kept as ``last_draw`` for a
     replay with ``fused.reparam_noise``), else drawn on the device from
-    ``generator``; a data-parallel process draws its rows of the global noise."""
+    ``generator``; a parallel process draws its rows (and stripe) of the global
+    noise."""
 
     def __init__(self, feature_depth: int, logvar_bound: float = 50.0,
                  init_scheme: str = "reference", dtype: torch.dtype = torch.float32,
@@ -140,21 +144,24 @@ class SpatialVAECodeProcessor(nn.Module):
     def forward(self, x, *, train: bool, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 seeds: Optional[torch.Generator] = None, replica: Replica = LOCAL):
-        log_var = torch.clamp(self.log_var(x), -self.logvar_bound, self.logvar_bound)
-        mu = self.mu(x)
+        log_var = torch.clamp(self.log_var(x, replica=replica), -self.logvar_bound,
+                              self.logvar_bound)
+        mu = self.mu(x, replica=replica)
         if not train:
             return mu, mu, log_var
         if eps is None and self.use_pallas:
             # the fused KL rides along unused: the loss recomputes the KL from
             # (mu, log_var) with the configured reduction, so its cotangent is 0
             seed = draw_seed(seeds)
-            self.last_draw = (seed, replica.global_shape(mu.shape))
-            z, _ = reparam_kl(mu, log_var, seed, replica.index_base(mu.numel()))
+            self.last_draw = (seed, replica.global_shape(mu.shape, 2))
+            base, big_l, big_g = replica.index_map(mu.shape)
+            z, _ = reparam_kl(mu, log_var, seed, base, (big_l, big_g))
             return z, mu, log_var
         if eps is None:
             n, c, h, w = mu.shape
             eps = replica.draw((n, h, w, c), lambda s: torch.randn(
-                s, generator=generator, device=mu.device, dtype=mu.dtype)).permute(0, 3, 1, 2)
+                s, generator=generator, device=mu.device, dtype=mu.dtype),
+                1).permute(0, 3, 1, 2)
         z = mu + torch.exp(0.5 * log_var) * eps.to(mu.dtype)
         return z, mu, log_var
 
@@ -200,6 +207,7 @@ class UnsupervisedGeneratorNetwork(nn.Module):
         return to_nhwc(recon), to_nhwc(mu), to_nhwc(log_var)
 
     def encode(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """Images -> the code (mu), one process."""
         h = self.encoder(to_nchw(x.contiguous()), train=train)
         return to_nhwc(h if self.code_processor is None else self.code_processor.mu(h))
 
@@ -212,6 +220,31 @@ class UnsupervisedGeneratorNetwork(nn.Module):
         :meth:`forward`."""
         return to_nhwc(self.decoder(to_nchw(z.contiguous()), train=train, generator=generator,
                                     seeds=seeds, replica=replica))
+
+
+def check_stripes(cfg, stripes: int) -> None:
+    """Raise ``ValueError`` naming the first stage of the generator or the
+    critic of ``cfg`` (a ``Config``) whose H the ``stripes`` of spatial
+    sharding do not divide, or whose stride does not divide the stripe."""
+    def need(stage, h, step=1):
+        if h % (stripes * step):
+            raise ValueError(f"spatial sharding over {stripes} stripes: {stage} has H {h}, "
+                             f"which is not a multiple of {stripes} x {step}")
+
+    g, d, size = cfg.generator, cfg.discriminator, cfg.data.image_size
+    h = size
+    need("encoder-depth_0", h)
+    for i in range(1, g.depth + 1):
+        need(f"encoder-depth_{i}-downsample (stride 2)", h, 2)
+        h //= 2
+    need("the latent", h)
+    need("critic conv1" + (f" (stride {d.num_stride_conv1})" if d.num_stride_conv1 > 1 else ""),
+         size, d.num_stride_conv1)
+    h = size // d.num_stride_conv1
+    for i, st in enumerate(d.num_strides_res):
+        need(f"critic res_layers.{i} (stride {st})", h, st)
+        h //= st
+    need(f"critic avg-pool (window {d.pool_size})", h, d.pool_size)
 
 
 def critic_pool_shape(cfg: DiscriminatorConfig, image_size: int) -> Tuple[int, int, int]:
@@ -267,12 +300,14 @@ class Discriminator(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool, return_features: bool = False,
                 generator: Optional[torch.Generator] = None, replica: Replica = LOCAL):
         """``x`` (B, H, W, C) -> logits (B, 1) [, the tapped features in the JAX
-        layout: (B, h, w, C) for ``res_out``/``pool``, (B, F) for ``fc1``]."""
-        if x.shape[1] != self.image_size or x.shape[2] != self.image_size:
+        layout: (B, h, w, C) for ``res_out``/``pool``, (B, F) for ``fc1``].
+        Under spatial sharding ``x`` and the map features are this process's
+        stripes; the logits and ``fc1`` are whole on every process."""
+        if x.shape[1] * replica.split_h != self.image_size or x.shape[2] != self.image_size:
             raise ValueError(f"this critic was built for {self.image_size}x{self.image_size} "
                              f"images, got {tuple(x.shape)}")
         act = lambda t: leaky_relu(t, 0.2)  # noqa: E731
-        out = self.conv1(to_nchw(x.contiguous()))
+        out = self.conv1(to_nchw(x.contiguous()), replica=replica)
         if self.use_pallas:
             out = self.bn1(out, train=train, fuse=(0.2, 0.0), replica=replica)
         else:
@@ -283,12 +318,15 @@ class Discriminator(nn.Module):
         features = {"res_out": to_nhwc(out)}
         out = F.avg_pool2d(out, self.cfg.pool_size)
         features["pool"] = to_nhwc(out)
+        if replica.split_h > 1:
+            # a stripe is not a contiguous run of the (C, H, W) flatten
+            out = replica.gather(out, 2)
         out = out.reshape(out.shape[0], -1)    # (C, H, W) order: torch's flatten
         for j in range(1, self.n_linear):
-            out = act(getattr(self, f"linear_{j}")(out))
+            out = act(getattr(self, f"linear_{j}")(out, replica))
             if j == 1:
                 features["fc1"] = out
-        logit = getattr(self, f"linear_{self.n_linear}")(out)
+        logit = getattr(self, f"linear_{self.n_linear}")(out, replica)
         if return_features:
             return logit, features[self.cfg.feature_tap]
         return logit

@@ -33,11 +33,19 @@ the stream:
   ``u1 = ((b1 >> 8) + 1) / 2**24``, ``u2 = (b2 >> 8) / 2**24``,
   ``eps = sqrt(-2 log u1) cos(2 pi u2)`` (the TPU kernel's rule).
 
-The index is ``base`` plus the element's flat position in the tensor: rows 1-4
-take an element-index ``base`` (a multiple of 4, one Philox call's words), so
-that a data-parallel process draws its slice ``[base, base + n)`` of the
-stream the one-process step draws over the global batch
-(``ops.replica.Replica.index_base``); ``base`` 0 is the one-process draw.
+The index is the element's place in the global tensor of a parallel step:
+rows 1-4 take an index map ``(base, stripe)``, local flat element e being
+global element ``base + (e // L) G + e % L`` for ``stripe = (L, G)``, the
+local and the global elements of an image (a process's H stripe of an image is
+a run of L of its G), and ``base + e`` for ``stripe=None`` (whole images:
+L = G). So a parallel process draws its part of the stream the one-process
+step draws over the global batch (``ops.replica.Replica.index_map``); base 0
+with no stripe is the one-process draw. ``base`` is a multiple of 4 (one
+Philox call's words); a stripe's L and G are multiples of 4 for the dropout
+stream and of 2 for the noise, so that one call's words fall in one image.
+Each of the four kernels is built in two instances: a stripe map (L < G)
+launches the one that divides by L, every other map the contiguous one, whose
+loop computes ``base + e`` alone.
 
 ``LAUNCHES`` counts kernel launches per kernel name: one is added where a
 wrapper launches its kernel, and nowhere else. Channel and block sums are taken
@@ -113,9 +121,8 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def _philox_words(count: int, stream: int, seed: int, device, start: int = 0):
-    """The four words of counters (i, stream) for i in [start, start + count)."""
-    i = torch.arange(start, start + count, dtype=torch.int64, device=device)
+def _philox_words(i: torch.Tensor, stream: int, seed: int):
+    """The four words of counters (i, stream) for the int64 tensor ``i``."""
     zero = torch.zeros_like(i)
     return philox4x32_10(i & _MASK32, i >> 32, zero + stream, zero,
                          seed & _MASK32, (seed >> 32) & _MASK32)
@@ -127,10 +134,38 @@ def _check_base(base: int) -> None:
                          f"got {base}")
 
 
-def dropout_bits(numel: int, seed: int, device, base: int = 0) -> torch.Tensor:
-    """The 32-bit random word of every flat index in [base, base + numel), as int64."""
+def _check_map(numel: int, base: int, stripe, words: int) -> Tuple[int, int]:
+    """``(L, G)`` of a valid index map (module docstring) over ``numel``
+    elements, ``words`` elements a counter; ``stripe=None`` is L = G = numel."""
     _check_base(base)
-    words = _philox_words((numel + 3) // 4, _STREAM_DROPOUT, seed, device, base // 4)
+    if stripe is None:
+        return max(numel, 1), max(numel, 1)
+    big_l, big_g = (int(v) for v in stripe)
+    if big_l == big_g and big_l > 0 and numel % big_l == 0:
+        return max(numel, 1), max(numel, 1)
+    if big_l <= 0 or big_g < big_l or numel % big_l or big_l % words or big_g % words:
+        raise ValueError(f"the index map's stripe (L={big_l}, G={big_g}) must have L dividing "
+                         f"the {numel} elements and L <= G, both multiples of {words}")
+    return big_l, big_g
+
+
+def _counters(numel: int, words: int, base: int, stripe, device) -> torch.Tensor:
+    """The Philox counter of each run of ``words`` local elements, in order,
+    under the index map ``(base, stripe)``."""
+    big_l, big_g = _check_map(numel, base, stripe, words)
+    if big_l == big_g:
+        start = base // words
+        return torch.arange(start, start + (numel + words - 1) // words, dtype=torch.int64,
+                            device=device)
+    first = (base + torch.arange(numel // big_l, dtype=torch.int64, device=device) * big_g)
+    run = torch.arange(big_l // words, dtype=torch.int64, device=device)
+    return (first[:, None] // words + run[None, :]).reshape(-1)
+
+
+def dropout_bits(numel: int, seed: int, device, base: int = 0, stripe=None) -> torch.Tensor:
+    """The 32-bit random word of each of ``numel`` local elements under the
+    index map ``(base, stripe)`` (module docstring), as int64."""
+    words = _philox_words(_counters(numel, 4, base, stripe, device), _STREAM_DROPOUT, seed)
     return torch.stack(words, dim=1).reshape(-1)[:numel]
 
 
@@ -144,23 +179,24 @@ def keep_scale(p: float) -> float:
     return float(np.float32(1.0 / (1.0 - p)))
 
 
-def keep_mask(x: torch.Tensor, seed: int, p: float, base: int = 0) -> torch.Tensor:
-    """Bool keep-mask of the channels_last (N, C, H, W) ``x``, indexed by
-    ``base`` plus each element's flat NHWC position."""
+def keep_mask(x: torch.Tensor, seed: int, p: float, base: int = 0,
+              stripe=None) -> torch.Tensor:
+    """Bool keep-mask of the channels_last (N, C, H, W) ``x``, each element
+    indexed by its flat NHWC position's place under ``(base, stripe)``."""
     n, c, h, w = x.shape
-    u24 = (dropout_bits(x.numel(), seed, x.device, base) >> 8).to(torch.float32)
+    u24 = (dropout_bits(x.numel(), seed, x.device, base, stripe) >> 8).to(torch.float32)
     keep = u24 >= keep_threshold(p)
     return keep.view(n, h, w, c).permute(0, 3, 1, 2)
 
 
-def reparam_noise(shape, seed: int, device, base: int = 0) -> torch.Tensor:
+def reparam_noise(shape, seed: int, device, base: int = 0, stripe=None) -> torch.Tensor:
     """The reparameterization noise of an (N, C, H, W) channels_last tensor of
-    ``shape``: float32 N(0, 1), a pure function of (seed, base + flat NHWC
-    index)."""
-    _check_base(base)
+    ``shape``: float32 N(0, 1), a pure function of seed and each element's
+    global flat NHWC index under ``(base, stripe)``."""
     n, c, h, w = shape
     numel = n * c * h * w
-    w0, w1, w2, w3 = _philox_words((numel + 1) // 2, _STREAM_REPARAM, seed, device, base // 2)
+    w0, w1, w2, w3 = _philox_words(_counters(numel, 2, base, stripe, device), _STREAM_REPARAM,
+                                   seed)
     b1 = torch.stack((w0, w2), dim=1).reshape(-1)[:numel]
     b2 = torch.stack((w1, w3), dim=1).reshape(-1)[:numel]
     u1 = ((b1 >> 8).to(torch.float32) + 1.0) * _TWO_POW_M24
@@ -281,7 +317,7 @@ def _ticket(device, stream: int) -> torch.Tensor:
 # bn_act_dropout
 # ---------------------------------------------------------------------------
 
-def _check(x, mean, var, scale, bias, seed, p, base) -> None:
+def _check(x, mean, var, scale, bias, seed, p, base, stripe=None) -> Tuple[int, int]:
     if x.dim() != 4:
         raise ValueError(f"bn_act_dropout takes an (N, C, H, W) tensor, got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
@@ -301,7 +337,7 @@ def _check(x, mean, var, scale, bias, seed, p, base) -> None:
         raise ValueError(f"dropout p must be in [0, 1), got {p}")
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
-    _check_base(base)
+    return _check_map(x.numel(), base, stripe, 4)
 
 
 def _ch(v: torch.Tensor) -> torch.Tensor:
@@ -309,60 +345,63 @@ def _ch(v: torch.Tensor) -> torch.Tensor:
 
 
 def bn_act_dropout_reference(x, mean, var, scale, bias, seed: int, slope: float,
-                             p: float, eps: float = 1e-5, base: int = 0) -> torch.Tensor:
+                             p: float, eps: float = 1e-5, base: int = 0,
+                             stripe=None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: the same steps in the same
     order, each rounded to f32, and the same Philox mask."""
-    _check(x, mean, var, scale, bias, seed, p, base)
+    _check(x, mean, var, scale, bias, seed, p, base, stripe)
     inv = torch.rsqrt(var + eps)
     mul = _ch(inv * scale)
     a = (x.float() - _ch(mean)) * mul + _ch(bias)
     y = torch.where(a > 0, a, a * slope)
     if p > 0.0:
-        y = torch.where(keep_mask(x, seed, p, base), y * keep_scale(p),
+        y = torch.where(keep_mask(x, seed, p, base, stripe), y * keep_scale(p),
                         torch.zeros((), device=x.device))
     return _channels_last(y.to(x.dtype))
 
 
 def bn_act_dropout_forward(x, mean, var, scale, bias, seed: int, slope: float, p: float,
-                           eps: float = 1e-5, base: int = 0) -> torch.Tensor:
+                           eps: float = 1e-5, base: int = 0, stripe=None) -> torch.Tensor:
     """y = dropout_p(leaky_relu(scale * (x - mean) * rsqrt(var + eps) + bias, slope)).
 
     ``x``: (N, C, H, W) float32/bfloat16 in channels_last memory format;
     ``mean``/``var``/``scale``/``bias``: contiguous float32 (C,); ``seed``: int in
-    [0, 2**64), the dropout stream is a pure function of (seed, base + flat NHWC
-    index).
+    [0, 2**64), the dropout stream is a pure function of seed and each element's
+    global flat NHWC index under the index map ``(base, stripe)``.
     """
     if _device_kind(x, "bn_act_dropout") == "cpu":
-        return bn_act_dropout_reference(x, mean, var, scale, bias, seed, slope, p, eps, base)
-    _check(x, mean, var, scale, bias, seed, p, base)
+        return bn_act_dropout_reference(x, mean, var, scale, bias, seed, slope, p, eps, base,
+                                        stripe)
+    big_l, big_g = _check(x, mean, var, scale, bias, seed, p, base, stripe)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_fwd", (_P,) * 6 + (
         _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, _LC, ctypes.c_int, _P))
+        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, _LC, _LC, _LC, ctypes.c_int, _P))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
                 bias.data_ptr(), x.numel(), x.shape[1], _DTYPE_CODE[x.dtype], slope, eps,
                 int(p > 0.0), keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed,
-                base, _sms(x.device) * 8, _stream(x.device))
+                base, big_l, big_g, _sms(x.device) * 8, _stream(x.device))
     _raise_on(rc, "bn_act_dropout")
     LAUNCHES["bn_act_dropout"] += 1
     return y
 
 
 def bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed: int, slope: float,
-                                      p: float, eps: float = 1e-5, base: int = 0):
+                                      p: float, eps: float = 1e-5, base: int = 0,
+                                      stripe=None):
     """Plain PyTorch version of the backward kernel: the forward's mask replayed,
     ga = leaky'(a) * mask * g / (1 - p), then ``(dx, dscale, dbias, dmean, dvar)``
     with dx = ga * scale * inv, dscale = sum ga * xhat, dbias = sum ga,
     dmean = -inv * scale * sum ga, dvar = -0.5 * scale * sum(ga * xhat) / (var + eps)."""
-    _check(x, mean, var, scale, bias, seed, p, base)
+    _check(x, mean, var, scale, bias, seed, p, base, stripe)
     inv = torch.rsqrt(var + eps)
     d = x.float() - _ch(mean)
     a = d * _ch(inv * scale) + _ch(bias)
     xhat = d * _ch(inv)
     gl = g.to(x.dtype).float()
     if p > 0.0:
-        gl = torch.where(keep_mask(x, seed, p, base), gl * keep_scale(p),
+        gl = torch.where(keep_mask(x, seed, p, base, stripe), gl * keep_scale(p),
                          torch.zeros((), device=x.device))
     ga = torch.where(a > 0, gl, gl * slope)
     dx = _channels_last(((ga * _ch(scale)) * _ch(inv)).to(x.dtype))
@@ -389,19 +428,21 @@ def _bwd_launch_shape(c: int, n: int, max_clusters: int) -> LaunchShape:
     return LaunchShape(threads, vec, _cluster_grid(n, threads * vec, max_clusters))
 
 
-def bwd_launch_for(x: torch.Tensor, p: float) -> LaunchShape:
-    """The backward kernel's launch for the CUDA tensor ``x`` at dropout ``p``."""
+def bwd_launch_for(x: torch.Tensor, p: float, striped: bool = False) -> LaunchShape:
+    """The backward kernel's launch for the CUDA tensor ``x`` at dropout ``p``;
+    ``striped``: the kernel's instance for a stripe map (L < G)."""
     c = x.shape[1]
     threads, vec = _bwd_block(c)
+    dropout = p > 0.0
     with torch.cuda.device(x.device):
         fits = _max_clusters("bn_act_dropout", "vaegan_bn_act_dropout_bwd_max_clusters",
-                             x.device.index, c, _DTYPE_CODE[x.dtype], int(p > 0.0), threads,
-                             vec, CLUSTER)
+                             x.device.index, c, _DTYPE_CODE[x.dtype], int(dropout),
+                             int(dropout and striped), threads, vec, CLUSTER)
     return _bwd_launch_shape(c, x.numel(), fits)
 
 
 def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: float,
-                            p: float, eps: float = 1e-5, base: int = 0):
+                            p: float, eps: float = 1e-5, base: int = 0, stripe=None):
     """The forward's gradient: ``(dx, dscale, dbias, dmean, dvar)`` for the
     upstream gradient ``g`` of y (any memory format; made channels_last), with the
     forward's dropout mask replayed from ``seed``. One kernel launch; channel sums
@@ -410,10 +451,10 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
     g = _channels_last(g.to(x.dtype))
     if _device_kind(x, "bn_act_dropout backward") == "cpu":
         return bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed, slope,
-                                                 p, eps, base)
-    _check(x, mean, var, scale, bias, seed, p, base)
+                                                 p, eps, base, stripe)
+    big_l, big_g = _check(x, mean, var, scale, bias, seed, p, base, stripe)
     c = x.shape[1]
-    shape = bwd_launch_for(x, p)
+    shape = bwd_launch_for(x, p, big_l != big_g)
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x, memory_format=torch.channels_last)
         rows = _reduction_scratch(shape, 2 * c, x.device)
@@ -422,14 +463,14 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
         stream = _stream(x.device)
         fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_bwd", (_P,) * 13 + (
             _LC, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, _LC, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, _LC, _LC, _LC, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P))
         rc = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows.data_ptr(),
                 _ticket(x.device, stream).data_ptr(), mean.data_ptr(), var.data_ptr(),
                 scale.data_ptr(), bias.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
                 dmean.data_ptr(), dvar.data_ptr(), x.numel(), c, _DTYPE_CODE[x.dtype], slope,
                 eps, int(p > 0.0), keep_threshold(p), keep_scale(p) if p > 0.0 else 1.0, seed,
-                base, shape.threads, shape.vec, shape.blocks, CLUSTER, stream)
+                base, big_l, big_g, shape.threads, shape.vec, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "bn_act_dropout backward")
     LAUNCHES["bn_act_dropout_bwd"] += 1
     return dx, dscale, dbias, dmean, dvar
@@ -437,10 +478,11 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
 
 class _BnActDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mean, var, scale, bias, seed, slope, p, eps, base):
+    def forward(ctx, x, mean, var, scale, bias, seed, slope, p, eps, base, stripe):
         ctx.save_for_backward(x, mean, var, scale, bias)
-        ctx.args = (seed, slope, p, eps, base)
-        return bn_act_dropout_forward(x, mean, var, scale, bias, seed, slope, p, eps, base)
+        ctx.args = (seed, slope, p, eps, base, stripe)
+        return bn_act_dropout_forward(x, mean, var, scale, bias, seed, slope, p, eps, base,
+                                      stripe)
 
     @staticmethod
     @once_differentiable
@@ -448,22 +490,22 @@ class _BnActDropout(torch.autograd.Function):
         x, mean, var, scale, bias = ctx.saved_tensors
         dx, dscale, dbias, dmean, dvar = bn_act_dropout_backward(
             x, gy, mean, var, scale, bias, *ctx.args)
-        return dx, dmean, dvar, dscale, dbias, None, None, None, None, None
+        return dx, dmean, dvar, dscale, dbias, None, None, None, None, None, None
 
 
 def bn_act_dropout(x, mean, var, scale, bias, seed: int, slope: float, p: float,
-                   eps: float = 1e-5, base: int = 0) -> torch.Tensor:
+                   eps: float = 1e-5, base: int = 0, stripe=None) -> torch.Tensor:
     """Differentiable :func:`bn_act_dropout_forward`: the backward kernel gives
     the gradients of x, mean, var, scale and bias (autograd carries dmean and dvar
     into the batch statistics when they were computed from x)."""
-    return _BnActDropout.apply(x, mean, var, scale, bias, seed, slope, p, eps, base)
+    return _BnActDropout.apply(x, mean, var, scale, bias, seed, slope, p, eps, base, stripe)
 
 
 # ---------------------------------------------------------------------------
 # reparam_kl
 # ---------------------------------------------------------------------------
 
-def _check_reparam(mu, lv, seed, base) -> None:
+def _check_reparam(mu, lv, seed, base, stripe=None) -> Tuple[int, int]:
     if mu.dim() != 4 or mu.shape != lv.shape:
         raise ValueError(f"reparam_kl takes two (N, C, H, W) tensors of one shape, got "
                          f"{tuple(mu.shape)} and {tuple(lv.shape)}")
@@ -472,14 +514,14 @@ def _check_reparam(mu, lv, seed, base) -> None:
                         f"and device, got {mu.dtype}/{lv.dtype} on {mu.device}/{lv.device}")
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
-    _check_base(base)
+    return _check_map(mu.numel(), base, stripe, 2)
 
 
-def reparam_kl_reference(mu, lv, seed: int, base: int = 0):
+def reparam_kl_reference(mu, lv, seed: int, base: int = 0, stripe=None):
     """Plain PyTorch version of the forward kernel: ``(z, kl)`` with the same
     Philox noise and the same per-element arithmetic."""
-    _check_reparam(mu, lv, seed, base)
-    eps = reparam_noise(mu.shape, seed, mu.device, base)
+    _check_reparam(mu, lv, seed, base, stripe)
+    eps = reparam_noise(mu.shape, seed, mu.device, base, stripe)
     m, l = mu.float(), lv.float()
     z = _channels_last((m + torch.exp(0.5 * l) * eps).to(mu.dtype))
     kl = -0.5 * torch.sum(((1.0 + l) - m * m) - torch.exp(l))
@@ -492,44 +534,47 @@ def _reparam_launch_shape(n: int, max_clusters: int) -> LaunchShape:
     return LaunchShape(256, 4, _cluster_grid(n, 1024, max_clusters))
 
 
-def reparam_launch_for(mu: torch.Tensor) -> LaunchShape:
-    """The forward kernel's launch for the CUDA tensor ``mu``."""
+def reparam_launch_for(mu: torch.Tensor, striped: bool = False) -> LaunchShape:
+    """The forward kernel's launch for the CUDA tensor ``mu``; ``striped``: the
+    kernel's instance for a stripe map (L < G)."""
     with torch.cuda.device(mu.device):
         fits = _max_clusters("reparam_kl", "vaegan_reparam_kl_fwd_max_clusters",
-                             mu.device.index, _DTYPE_CODE[mu.dtype], CLUSTER)
+                             mu.device.index, _DTYPE_CODE[mu.dtype], int(striped), CLUSTER)
     return _reparam_launch_shape(mu.numel(), fits)
 
 
-def reparam_kl_forward(mu, lv, seed: int, base: int = 0):
+def reparam_kl_forward(mu, lv, seed: int, base: int = 0, stripe=None):
     """``(z, kl)``: z = mu + exp(lv / 2) * eps with eps ~ N(0, 1) drawn in the
-    kernel from (seed, base + flat NHWC index), and the KL summed over batch and
-    dims (an f32 scalar) in the same launch. ``mu``/``lv``: (N, C, H, W)
-    float32/bfloat16, made channels_last."""
+    kernel from seed and each element's global flat NHWC index under the index
+    map ``(base, stripe)``, and the KL summed over batch and dims (an f32
+    scalar) in the same launch. ``mu``/``lv``: (N, C, H, W) float32/bfloat16,
+    made channels_last."""
     mu, lv = _channels_last(mu), _channels_last(lv)
     if _device_kind(mu, "reparam_kl") == "cpu":
-        return reparam_kl_reference(mu, lv, seed, base)
-    _check_reparam(mu, lv, seed, base)
-    shape = reparam_launch_for(mu)
+        return reparam_kl_reference(mu, lv, seed, base, stripe)
+    big_l, big_g = _check_reparam(mu, lv, seed, base, stripe)
+    shape = reparam_launch_for(mu, big_l != big_g)
     with torch.cuda.device(mu.device):
         z = torch.empty_like(mu, memory_format=torch.channels_last)
         rows = _reduction_scratch(shape, 1, mu.device)
         kl = torch.empty((), dtype=torch.float32, device=mu.device)
         stream = _stream(mu.device)
         fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_fwd", (_P,) * 6 + (
-            _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, ctypes.c_int, ctypes.c_int, _P))
+            _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, _LC, _LC, ctypes.c_int, ctypes.c_int,
+            _P))
         rc = fn(mu.data_ptr(), lv.data_ptr(), z.data_ptr(), rows.data_ptr(),
                 _ticket(mu.device, stream).data_ptr(), kl.data_ptr(), mu.numel(),
-                _DTYPE_CODE[mu.dtype], seed, base, shape.blocks, CLUSTER, stream)
+                _DTYPE_CODE[mu.dtype], seed, base, big_l, big_g, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "reparam_kl")
     LAUNCHES["reparam_kl"] += 1
     return z, kl
 
 
-def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int, base: int = 0):
+def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int, base: int = 0, stripe=None):
     """Plain PyTorch version of the backward kernel: ``(dmu, dlv)`` with the
     forward's noise replayed; ``gkl`` None counts as 0."""
-    _check_reparam(mu, lv, seed, base)
-    eps = reparam_noise(mu.shape, seed, mu.device, base)
+    _check_reparam(mu, lv, seed, base, stripe)
+    eps = reparam_noise(mu.shape, seed, mu.device, base, stripe)
     m, l, g = mu.float(), lv.float(), gz.float()
     k = torch.zeros((), device=mu.device) if gkl is None else gkl.float()
     dmu = g + k * m
@@ -537,7 +582,8 @@ def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int, base: int = 0):
     return _channels_last(dmu.to(mu.dtype)), _channels_last(dlv.to(lv.dtype))
 
 
-def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base: int = 0):
+def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base: int = 0,
+                        stripe=None):
     """The forward's gradient ``(dmu, dlv)`` for the cotangents ``gz`` of z and
     ``gkl`` of the KL (a scalar tensor, or None for 0: the training step's loss
     recomputes the KL, so this output is unused there)."""
@@ -550,17 +596,18 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base
                              f"shape {tuple(gkl.shape)} on {gkl.device}")
         gkl = gkl.detach().to(torch.float32).reshape(())
     if _device_kind(mu, "reparam_kl backward") == "cpu":
-        return reparam_kl_backward_reference(mu, lv, gz, gkl, seed, base)
-    _check_reparam(mu, lv, seed, base)
+        return reparam_kl_backward_reference(mu, lv, gz, gkl, seed, base, stripe)
+    big_l, big_g = _check_reparam(mu, lv, seed, base, stripe)
     n = mu.numel()
     dmu = torch.empty_like(mu, memory_format=torch.channels_last)
     dlv = torch.empty_like(lv, memory_format=torch.channels_last)
     fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_bwd", (_P,) * 6 + (
-        _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, ctypes.c_int, _P))
+        _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, _LC, _LC, ctypes.c_int, _P))
     with torch.cuda.device(mu.device):
         rc = fn(mu.data_ptr(), lv.data_ptr(), gz.data_ptr(),
                 None if gkl is None else gkl.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n,
-                _DTYPE_CODE[mu.dtype], seed, base, _sms(mu.device) * 8, _stream(mu.device))
+                _DTYPE_CODE[mu.dtype], seed, base, big_l, big_g, _sms(mu.device) * 8,
+                _stream(mu.device))
     _raise_on(rc, "reparam_kl backward")
     LAUNCHES["reparam_kl_bwd"] += 1
     return dmu, dlv
@@ -568,11 +615,11 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base
 
 class _ReparamKL(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mu, lv, seed, base):
+    def forward(ctx, mu, lv, seed, base, stripe):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(mu, lv)
-        ctx.args = (seed, base)
-        return reparam_kl_forward(mu, lv, seed, base)
+        ctx.args = (seed, base, stripe)
+        return reparam_kl_forward(mu, lv, seed, base, stripe)
 
     @staticmethod
     @once_differentiable
@@ -581,12 +628,12 @@ class _ReparamKL(torch.autograd.Function):
         if gz is None:
             gz = torch.zeros_like(mu)
         dmu, dlv = reparam_kl_backward(mu, lv, gz, gkl, *ctx.args)
-        return dmu, dlv, None, None
+        return dmu, dlv, None, None, None
 
 
-def reparam_kl(mu, log_var, seed: int, base: int = 0):
+def reparam_kl(mu, log_var, seed: int, base: int = 0, stripe=None):
     """Differentiable :func:`reparam_kl_forward`: ``(z, kl)``."""
-    return _ReparamKL.apply(mu, log_var, seed, base)
+    return _ReparamKL.apply(mu, log_var, seed, base, stripe)
 
 
 # ---------------------------------------------------------------------------

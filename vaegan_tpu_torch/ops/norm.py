@@ -9,11 +9,14 @@ per-channel statistics reduce over dims (0, 2, 3). Two semantics matter:
    ``running = (1 - momentum) * running + momentum * batch``, momentum 0.1;
 2. eval mode normalizes with the running statistics.
 
-In a data-parallel step the statistics are global (the JAX package's
+In a parallel step the statistics are global (the JAX package's
 ``axis_name``, or GSPMD's reduction over a batch-sharded array): given a
-:class:`~vaegan_tpu_torch.ops.replica.Replica` of world > 1, the per-channel
-sum and sum of squares are all-reduced, differentiably, and divided by the
-global count, which is also the Bessel ``n``.
+:class:`~vaegan_tpu_torch.ops.replica.Replica` of more than one process, the
+per-channel sum and sum of squares are all-reduced, differentiably, over the
+replica's ``stats_axis`` (every process under spatial sharding, whose stripes
+are distinct elements; the data axis otherwise, since the model axis holds
+copies of its rows), and divided by the global count, which is also the
+Bessel ``n``.
 """
 
 from __future__ import annotations
@@ -42,15 +45,18 @@ def batch_stats(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean, var) used for normalization plus the updated running stats — the
     stats half of :func:`batch_norm`, exposed for the fused-kernel callers.
-    Over all the processes' rows when ``replica`` has world > 1."""
+    Over all the processes' elements when ``replica`` spans several."""
     if use_running_average:
         return running_mean, running_var, running_mean, running_var
     xf = x.float()
     c = x.shape[1]
     n = float(x.numel() // c)
-    if replica.parallel:
-        n *= replica.world
-        sums = replica.all_reduce(torch.cat((xf.sum(dim=_RED), xf.square().sum(dim=_RED))))
+    over = replica.stats_axis
+    processes = replica.axis(over)[1]
+    if processes > 1:
+        n *= processes
+        sums = replica.all_reduce(torch.cat((xf.sum(dim=_RED), xf.square().sum(dim=_RED))),
+                                  over)
         mean, mean_sq = sums[:c] / n, sums[c:] / n
     else:
         mean = xf.mean(dim=_RED)

@@ -1,11 +1,13 @@
-"""Data-parallel training (counterpart of ``vaegan_tpu.parallel``): the JAX
-names over ``torch.distributed`` processes, one per device (``parallel.mesh``
-says where the torch idiom differs), the process-group bootstrap
-(``parallel.dist``) and ``train_data_parallel`` (``parallel.train``). Every
-process holds the whole state: everything is replicated, and only the batch
-is split; a model axis or a spatial ``batch_spec`` raises."""
+"""Data x model parallel training (counterpart of ``vaegan_tpu.parallel``): the
+JAX names over ``torch.distributed`` processes, one per device
+(``parallel.mesh`` says where the torch idiom differs), the process-group
+bootstrap (``parallel.dist``) and ``train_data_parallel`` (``parallel.train``).
+The batch is split by rows over the data axis and, with a spatial
+``batch_spec``, by H over the model axis; the state is replicated except the
+critic head's kernels, which tensor parallelism splits over the model axis."""
 
 from vaegan_tpu_torch.parallel.mesh import (
+    BatchSpec,
     Mesh,
     batch_sharding,
     make_mesh,
@@ -18,6 +20,6 @@ from vaegan_tpu_torch.parallel.mesh import (
 )
 
 __all__ = [
-    "Mesh", "make_mesh", "batch_sharding", "replicated", "replicate_state",
+    "BatchSpec", "Mesh", "make_mesh", "batch_sharding", "replicated", "replicate_state",
     "shard_batch", "shard_state", "state_shardings", "make_parallel_train_step",
 ]

@@ -44,9 +44,10 @@ def initialize(backend: Optional[str] = None, init_method: Optional[str] = None,
                device="cuda", timeout_s: float = 600.0) -> torch.device:
     """Start the default process group and return this process's device.
 
-    ``backend``: ``"nccl"`` on a CUDA device, ``"gloo"`` on the CPU unless
-    given (gloo also takes CUDA tensors, through the host: two processes on one
-    card, which NCCL refuses). ``init_method``/``world_size``/``rank``: as
+    ``backend``: unless given, ``"nccl"`` on a CUDA device and ``"gloo"`` on
+    the CPU, or where more processes of this host (``LOCAL_WORLD_SIZE``) share
+    its cards than it has: NCCL refuses two processes on one card, gloo takes
+    CUDA tensors through the host. ``init_method``/``world_size``/``rank``: as
     ``torch.distributed.init_process_group`` takes them; with none given, the
     ``torchrun`` environment, or a world of one. ``timeout_s`` bounds every
     collective, so a process that waits for a missing peer fails instead of
@@ -55,7 +56,8 @@ def initialize(backend: Optional[str] = None, init_method: Optional[str] = None,
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > torch.cuda.device_count()
+        backend = "nccl" if dev.type == "cuda" and not shared else "gloo"
     if init_method is None and world_size is None and "WORLD_SIZE" not in os.environ:
         init_method, world_size, rank = f"tcp://127.0.0.1:{_free_port()}", 1, 0
     kw = dict(backend=backend, init_method=init_method, world_size=world_size, rank=rank,
@@ -82,6 +84,20 @@ def is_multihost() -> bool:
     """Whether more than one process takes part (the JAX package's
     ``process_count() > 1``)."""
     return world_size() > 1
+
+
+def mesh_groups(num_data: int, num_model: int):
+    """The process groups of a ``num_data x num_model`` mesh over the default
+    group, process ``(d, m)`` being global rank ``d * num_model + m``:
+    ``(data groups, model groups)``, the data axis through each model index
+    and the model axis through each data index. ``torch.distributed.new_group``
+    needs every process of the default group to make every group, in the same
+    order, so each process makes all of them."""
+    data = [td.new_group([d * num_model + m for d in range(num_data)])
+            for m in range(num_model)]
+    model = [td.new_group([d * num_model + m for m in range(num_model)])
+             for d in range(num_data)]
+    return data, model
 
 
 def barrier(group=None) -> None:

@@ -1,6 +1,9 @@
 """Data-parallel training entry (counterpart of ``vaegan_tpu/parallel/train.py``):
-the mesh, the replicated state, the data-parallel step variants and the
-standard loop, wired.
+the mesh, the placed state, the parallel step variants and the standard loop,
+wired. With ``cfg.parallel.num_model`` M > 1 the mesh is ``num_data x M`` and
+the critic head's kernels are split over the model axis (tensor parallelism,
+``parallel.shard_state``), as the JAX package does through the config; the
+batch is split by rows only.
 
     from vaegan_tpu_torch.parallel.train import train_data_parallel
     state, logger = train_data_parallel(preset("vaegan_256_dp"))
@@ -26,7 +29,7 @@ from vaegan_tpu_torch.parallel.mesh import (
     Mesh,
     make_mesh,
     make_parallel_train_step,
-    replicate_state,
+    shard_state,
 )
 from vaegan_tpu_torch.train.loop import train
 from vaegan_tpu_torch.train.state import TrainState, create_train_state
@@ -45,11 +48,14 @@ def train_data_parallel(
     """Train ``cfg`` data-parallel over the processes of the default group
     (``mesh`` overrides it) on this process's device (``"cuda"``: the device
     ``cuda:LOCAL_RANK``; ``"cpu"`` with gloo). Returns this process's
-    ``(state, logger)``; the states of all processes are equal."""
+    ``(state, logger)``; the states of all processes are equal (each model
+    index holding its own rows of the critic head's kernels)."""
     if mesh is None:
         dev = (dist.local_device(device) if dist.is_initialized()
                else dist.initialize(device=device))
-        mesh = make_mesh(num_data=cfg.parallel.num_data, num_model=cfg.parallel.num_model)
+        p = cfg.parallel
+        mesh = make_mesh(num_data=p.num_data, num_model=p.num_model, data_axis=p.data_axis,
+                         model_axis=p.model_axis)
     else:
         dev = dist.local_device(device)
     n_data, k = mesh.num_data, cfg.train.grad_accum
@@ -60,14 +66,15 @@ def train_data_parallel(
     if dev.type == "cuda":
         # one process compiles the kernels; the others load what it built
         from vaegan_tpu_torch.ops import _build
-        if mesh.rank == 0:
+        if mesh.global_rank == 0:
             _build.build_all()
-        dist.barrier(mesh.group)
+        dist.barrier(mesh.mesh_group if mesh.num_model > 1 else mesh.group)
     if loader is None:
         loader = make_loader(cfg.data, seed=cfg.train.seed, drop_last=True, device=dev,
                              process_index=mesh.rank, process_count=n_data, microbatches=k)
 
-    state = replicate_state(create_train_state(cfg, device=dev), mesh)
+    state = shard_state(create_train_state(cfg, device=dev), mesh,
+                        model_axis=cfg.parallel.model_axis)
     if cfg.optim.scheme == "three":
         # the paper step has no critic-only variant; build it once
         step_g = make_parallel_train_step(cfg, mesh, do_g_update=True)

@@ -26,8 +26,10 @@ Data parallelism (``mesh``, ``parallel.train_data_parallel``): every process
 runs this loop over its rows of each global batch with the same step seeds,
 and its steps report the global metrics, so every process takes the same NaN
 guard decision and issues the same collectives in the same order. The sinks,
-the grids (gathered from every process's rows) and the checkpoint writes are
-rank 0's, with a barrier after each save; every process restores.
+the grids (gathered from every data row's rows) and the checkpoint writes are
+process 0's, with a barrier after each save; every process restores. Under
+tensor parallelism the processes of data row 0 gather the critic head's
+slices for each save (``checkpoint``).
 
 Per-step seeds. The JAX loop draws a step's randomness from
 ``fold_in(key(seed), global_step)``. The port's step takes an int (it seeds a
@@ -109,8 +111,8 @@ def _device(state: TrainState) -> torch.device:
 
 
 def _gather_rows(replica: Replica, t: torch.Tensor) -> torch.Tensor:
-    """The processes' rows of a tensor, concatenated in rank order."""
-    if not replica.parallel:
+    """The data axis's rows of a tensor, concatenated in rank order."""
+    if replica.world == 1:
         return t
     parts = [torch.empty_like(t) for _ in range(replica.world)]
     torch.distributed.all_gather(parts, t.contiguous(), group=replica.group)
@@ -145,7 +147,7 @@ def train(
     """
     tcfg = cfg.train
     replica = LOCAL if mesh is None else mesh.replica
-    lead = replica.rank == 0
+    lead = replica.lead
     paper = cfg.optim.scheme == "three"
     dev = resolve_device(device) if state is None else _device(state)
     if loader is None:
@@ -277,9 +279,8 @@ def train(
                                     nrow=5)
             if (ckpt is not None and tcfg.checkpoint_every > 0
                     and (global_step + 1) % tcfg.checkpoint_every == 0):
-                if lead:
-                    ckpt.save(state)
-                dist.barrier(replica.group)
+                ckpt.save(state, replica=replica)
+                dist.barrier(replica.mesh_group)
             global_step += 1
             if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
                 budget_hit = True
@@ -288,10 +289,9 @@ def train(
     logger.flush()
     if ckpt is not None:
         # no force: a step the periodic save already wrote is kept
-        if lead:
-            ckpt.save(state)
-            ckpt.wait()
-        dist.barrier(replica.group)
+        ckpt.save(state, replica=replica)
+        ckpt.wait()
+        dist.barrier(replica.mesh_group)
     elapsed = time.time() - t0
     executed = global_step - start_step
     logger.history.append({

@@ -84,6 +84,17 @@ def build_models(cfg: Config, device="cuda", seed: Optional[int] = None
     return gen.to(dev), critic.to(dev)
 
 
+def tp_linears(critic: Discriminator, num_model: int):
+    """``(name, layer)`` of each critic ``linear_*`` whose kernel tensor
+    parallelism over ``num_model`` processes splits: the JAX rule
+    (``vaegan_tpu/parallel/mesh.py:86-91``), every 2-D ``linear_*`` kernel whose
+    output width divides by the process count (at the notebook's widths
+    ``linear_1``-``linear_3``; ``linear_4``, one output, stays whole)."""
+    return [(f"linear_{j}", getattr(critic, f"linear_{j}"))
+            for j in range(1, critic.n_linear + 1)
+            if getattr(critic, f"linear_{j}").out_features % num_model == 0]
+
+
 @dataclass
 class GeneratorState:
     """Generator-only state: the module (params + BN running stats), the optional

@@ -83,18 +83,22 @@ critic's three). :func:`fused_draws` and :func:`paper_draws` give a fused
 step's own draws in that form. An accumulating step takes ``eps``, ``alpha``
 and ``z_p`` only, cut along the batch like the images.
 
-Data parallelism (``replica``, ``ops.replica``; ``parallel.make_parallel_train_step``
-builds these steps with the process's replica). Each process runs the step on
-its rows of the global batch and computes what the one-process step computes on
-the whole of it: the models' batch statistics are all-reduced, every draw is
-the global step's (module ``ops.replica``), and each loss is written as this
-process's share of the global loss, a local mean over the world size for a
-mean and a local sum for a sum (the notebook's batch-summed KL), so the sum of
-the shares' gradients is the global loss's gradient. The gradients of each
-optimizer group are summed over the processes in one all-reduce of one flat
-buffer between ``torch.autograd.grad`` and the optimizer (DDP reduces only
-inside ``.backward()``, which these steps do not call), and the metrics in one
-more, so every process reports the global metrics and applies the same update.
+Data x model parallelism (``replica``, ``ops.replica``;
+``parallel.make_parallel_train_step`` builds these steps with the process's
+replica). Each process runs the step on its rows of the global batch (and, under
+spatial sharding, its stripe of H) and computes what the one-process step
+computes on the whole of it: the models' batch statistics are all-reduced,
+every draw is the global step's (module ``ops.replica``), and each loss is
+written as this process's share of the global loss (``Replica.share`` for a
+mean, ``Replica.share_sum`` for a sum such as the notebook's batch-summed KL),
+so the sum of all the processes' shares' gradients is the global loss's
+gradient. The gradients of each optimizer group are summed between
+``torch.autograd.grad`` and the optimizer (DDP reduces only inside
+``.backward()``, which these steps do not call): a replicated tensor's over
+every process, a critic head kernel split over the model axis (tensor
+parallelism, ``layers.Linear.shard``) over the data axis, one all-reduce of one
+flat buffer for each; the metrics in one more, so every process reports the
+global metrics and applies the same update.
 """
 
 from __future__ import annotations
@@ -107,7 +111,7 @@ import torch
 from vaegan_tpu_torch import losses
 from vaegan_tpu_torch.config import Config, pallas_mode
 from vaegan_tpu_torch.models import ResBlockVAE, UnsupervisedGeneratorNetwork, inject_masks
-from vaegan_tpu_torch.models.layers import precision
+from vaegan_tpu_torch.models.layers import Linear, precision
 from vaegan_tpu_torch.ops import fused
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.train.state import DTYPES, G_METRICS, TrainState
@@ -256,13 +260,29 @@ def _grads(loss: torch.Tensor, params, retain_graph: bool = False) -> Tuple[torc
     return tuple(torch.zeros_like(p) if g is None else g for p, g in zip(params, grads))
 
 
-def _reduce_grads(replica: Replica, grads):
-    """The gradients summed over the processes: one all-reduce of one flat
-    buffer (no-op on one process)."""
+def _split(module: torch.nn.Module) -> set:
+    """The ids of ``module``'s parameters that hold a slice over the model axis
+    (the critic head's kernels under tensor parallelism)."""
+    return {id(m.weight) for m in module.modules() if isinstance(m, Linear) and m.tp[1] > 1}
+
+
+def _reduce_grads(replica: Replica, params, grads, split=frozenset()):
+    """The gradients summed over the processes that hold a copy of their
+    parameter: every process for a replicated one, the data axis for one in
+    ``split`` (ids of parameters split over the model axis); one all-reduce of
+    one flat buffer each (no-op on one process)."""
     if not replica.parallel:
         return grads
-    flat = replica.all_reduce_(torch._utils._flatten_dense_tensors(list(grads)))
-    return torch._utils._unflatten_dense_tensors(flat, list(grads))
+    out = list(grads)
+    for over, in_split in (("mesh", False), ("data", True)):
+        idx = [i for i, p in enumerate(params) if (id(p) in split) == in_split]
+        if not idx or replica.axis(over)[1] == 1:
+            continue
+        part = [out[i] for i in idx]
+        flat = replica.all_reduce_(torch._utils._flatten_dense_tensors(part), over)
+        for i, v in zip(idx, torch._utils._unflatten_dense_tensors(flat, part)):
+            out[i] = v
+    return out
 
 
 def _reduce_metrics(replica: Replica, *groups: Dict[str, torch.Tensor]):
@@ -272,7 +292,7 @@ def _reduce_metrics(replica: Replica, *groups: Dict[str, torch.Tensor]):
         return groups
     keys = [(i, k) for i, g in enumerate(groups) for k in g]
     flat = replica.all_reduce_(torch.stack([groups[i][k].detach().float().reshape(())
-                                            for i, k in keys]))
+                                            for i, k in keys]), "mesh")
     out = [{} for _ in groups]
     for (i, k), v in zip(keys, flat.unbind(0)):
         out[i][k] = v
@@ -280,8 +300,11 @@ def _reduce_metrics(replica: Replica, *groups: Dict[str, torch.Tensor]):
 
 
 def _kl_share(cfg: Config, replica: Replica, kl: torch.Tensor) -> torch.Tensor:
-    """This process's share of the global KL: its sum, or its mean's share."""
-    return kl if cfg.loss.kl_reduction == "sum" else replica.share(kl)
+    """This process's share of the global KL, given its local KL: a sum's
+    share, or for a mean over the rows (its local sum over its rows), that
+    sum's share over the data axis's rows."""
+    kl = replica.share_sum(kl)
+    return kl if cfg.loss.kl_reduction == "sum" else kl / replica.world
 
 
 def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
@@ -387,8 +410,8 @@ def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
     if batching == "concat3" and use_gp:
         interp = losses.interpolates(batch, gen_sg, alpha())
         all3 = d(torch.cat([batch, gen_sg.to(batch.dtype), interp]), parts=3)
-        (gi,) = torch.autograd.grad(all3[2 * b:].float().sum(), interp, create_graph=True)
-        gp = share(losses.penalty_of(gi))
+        gi = losses.input_gradient(all3[2 * b:], interp, replica)
+        gp = share(losses.penalty_of(gi, replica))
         # use_gp implies wgan; a bce critic takes the concat branch below
         real_loss, fake_loss = map(share, losses.wgan_critic_loss(all3[:b], all3[b:2 * b]))
         return real_loss + fake_loss + lam_gp * gp, real_loss, fake_loss, gp
@@ -405,10 +428,11 @@ def _critic_loss(cfg: Config, critic, batch, gen_sg, draws, inject, do_gp: bool,
     else:  # wgan (also "none": the critic still trains, unused by G)
         real_loss, fake_loss = map(share, losses.wgan_critic_loss(real_logits, fake_logits))
     if use_gp:
-        # the inner gradient of the local logits' sum is the global one's: the
-        # backward of the all-reduced BN statistics sums every process's share
+        # the inner gradient is the global logits' sum's: the backward of every
+        # collective (BN statistics, halos, the head's gathers) sums every
+        # process's part (losses.input_gradient)
         gp = share(losses.gradient_penalty(lambda x: d(x, inject.get("d_masks_interp")),
-                                           batch, gen_sg, alpha()))
+                                           batch, gen_sg, alpha(), replica))
     else:
         gp = torch.zeros((), device=batch.device)
     d_loss = real_loss + fake_loss + lam_gp * gp
@@ -490,7 +514,9 @@ def make_train_step(cfg: Config, do_g_update: bool,
             d_params = list(critic.parameters())
             d_loss, real_loss, fake_loss, gp = _critic_loss(
                 cfg, critic, batch, gen_sg, draws, inject, do_gp, gp_lambda_scale, replica)
-            _apply(state.opt_d, d_params, _reduce_grads(replica, _grads(d_loss, d_params)))
+            _apply(state.opt_d, d_params, _reduce_grads(replica, d_params,
+                                                        _grads(d_loss, d_params),
+                                                        _split(critic)))
             if clip is not None:
                 _clamp(d_params, clip)
 
@@ -500,7 +526,8 @@ def make_train_step(cfg: Config, do_g_update: bool,
                 g_loss, adv, recon, kl = _gen_losses(cfg, critic, batch, gen_imgs, mu, lv,
                                                      draws, inject, replica=replica)
                 g_params = list(gen.parameters())
-                _apply(state.opt_g, g_params, _reduce_grads(replica, _grads(g_loss, g_params)))
+                _apply(state.opt_g, g_params,
+                       _reduce_grads(replica, g_params, _grads(g_loss, g_params)))
                 _ema_update(cfg, state.g_ema, gen)
                 g_metrics = dict(zip(G_METRICS, (t.detach() for t in
                                                  (g_loss, adv, recon, kl))))
@@ -545,7 +572,8 @@ def _make_accum_train_step(cfg: Config, do_g_update: bool, inject: dict, do_gp: 
                 # pass 2's critic forwards continue this microbatch's stream here,
                 # as the full step's G half continues its D half's
                 resume_at.append(draws.get_state())
-            _apply(state.opt_d, d_params, _reduce_grads(replica, [g / k for g in d_sum]))
+            _apply(state.opt_d, d_params, _reduce_grads(replica, d_params, [g / k for g in d_sum],
+                                                        _split(critic)))
             if clip is not None:
                 _clamp(d_params, clip)
             d_loss, real_loss, fake_loss, gp = (t / k for t in d_msum)
@@ -563,7 +591,8 @@ def _make_accum_train_step(cfg: Config, do_g_update: bool, inject: dict, do_gp: 
                                           replica)
                         g_sum = _add(g_sum, _grads(out[0], g_params))
                         g_msum = _add(g_msum, [t.detach() for t in out[1:]])
-                _apply(state.opt_g, g_params, _reduce_grads(replica, [g / k for g in g_sum]))
+                _apply(state.opt_g, g_params,
+                       _reduce_grads(replica, g_params, [g / k for g in g_sum]))
                 _ema_update(cfg, state.g_ema, gen)
                 adv, recon, kl_sum = g_msum
                 adv, recon = adv / k, recon / k
@@ -603,7 +632,7 @@ def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
     rec_x = draw_record(gen)
     z_p = inject.get("z_p")
     z_p = (replica.draw(mu.shape, lambda s: torch.randn(s, generator=draws, device=dev,
-                                                        dtype=mu.dtype))
+                                                        dtype=mu.dtype), 1)
            if z_p is None else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
     with inject_masks(gen, inject.get("g_masks_p")):
         x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds, replica=replica)
@@ -661,8 +690,8 @@ def _paper_update(cfg: Config, state: TrainState, groups, grads,
     ``clip_value`` would cripple a BCE critic), then the EMA. Each optimizer's
     gradients are summed over the processes first."""
     (enc, dec, dis), (g_enc, g_dec, g_dis) = groups, grads
-    _apply(state.opt_g, enc + dec, _reduce_grads(replica, list(g_enc) + list(g_dec)))
-    _apply(state.opt_d, dis, _reduce_grads(replica, g_dis))
+    _apply(state.opt_g, enc + dec, _reduce_grads(replica, enc + dec, list(g_enc) + list(g_dec)))
+    _apply(state.opt_d, dis, _reduce_grads(replica, dis, g_dis, _split(state.critic)))
     if cfg.loss.clip_value is not None and cfg.loss.adversarial == "wgan":
         _clamp(dis, cfg.loss.clip_value)
     _ema_update(cfg, state.g_ema, state.generator)
