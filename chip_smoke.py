@@ -9,9 +9,10 @@ Phases, each of which exits non-zero on failure:
    kernel from ``vaegan_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together) and prints registers and spills per kernel; counts each kernel's
    hot-loop instructions per element in its SASS (``cuobjdump -sass``; the
-   fewest that a vector pass can run), the instruction side of every bound (over
-   SMs x 128 lanes x the maximum SM clock; the byte side is the data-sheet memory
-   rate), and fails if any kernel
+   fewest that a vector pass can run), whose SASS issue time (over SMs x 128
+   lanes x the maximum SM clock) is printed beside every bound (the larger of
+   the bytes over the data-sheet memory rate and the algorithm's operations
+   over the data sheet's float32 rate), and fails if any kernel
    holds a float atomic. TF32 is switched off for
    convolutions and matmuls for the parity phases; the port's float32 layers and
    train step pin IEEE float32 themselves, so phases 3 and 6 repeat their
@@ -37,7 +38,7 @@ Phases, each of which exits non-zero on failure:
    inside) run twenty times bitwise equal, one run beside a matrix product on a
    side stream and one on a second stream at once, and show one kernel and no
    other under torch.profiler (its device time printed beside the call's);
-   kernel / plain / yardstick times beside each bound (bytes and instructions),
+   kernel / plain / yardstick times beside each bound and SASS issue time,
    and for row 5 the launch floor (an empty kernel on the same grid);
 6. the training step: ``preset("notebook")`` (256², float32, full-width
    generator and 139.7 M-parameter critic, WGAN-GP, RMSprop, clamp) with
@@ -118,7 +119,22 @@ Phases, each of which exits non-zero on failure:
    processes): 11.1's runs with each step's launches exact, and the saved
    checkpoint restored into one process; 12.4 ``cli train --dp`` with
    ``num_model`` 2 under ``torchrun --nproc_per_node=2`` (gloo), launches
-   counted, and ``entry.dryrun_multichip(4)`` on the CPU.
+   counted, and ``entry.dryrun_multichip(4)`` on the CPU;
+13. the last of the JAX surface: 13.1 ``python -m vaegan_tpu_torch.bench
+   --roofline`` with ``BENCH_PALLAS=all`` on the notebook G+D step, ``--paper``
+   and ``BENCH_CRITIC_ONLY=1`` (96², batch 128, bfloat16): each JSON line, the
+   triad one kernel a repetition under torch.profiler, no triad above the data
+   sheet's rate x 1.05, no step above the achieved rate x 1.05, the counted
+   bytes at least the parameters', gradients' and optimizer state's, the
+   counted step's kernel calls exactly the step's launches; the counted flops
+   beside an analytic count of the forwards' convolutions and linears; 13.2
+   ``vaegan_infer`` bundles exported with ``torch.export`` on the card (a
+   symbolic batch, and one pinned at 64) and on the CPU for ("cpu", "cuda"),
+   each loaded on the card: reconstruct at batch 64 and 1, encode and decode
+   held against the in-process entry points within 1e-6 of the output's
+   scale, 12 row-1 launches a reconstruct from the loaded program, the pinned
+   bundle refusing batch 1; the bundle's images/s at batch 64 and batch-1
+   latency beside phase 4's.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -146,9 +162,18 @@ CARD_BANDWIDTH = {
     "H100 PCIe": 2.0e12,
     "H100": 3.35e12,      # SXM5 80 GB
 }
-# thread-instructions an SM starts per clock (4 schedulers x 32 lanes): the
-# instruction side of every bound is the hot loop's SASS count over SMs x this x clock
+# thread-instructions an SM starts per clock (4 schedulers x 32 lanes): a kernel's
+# SASS issue time is its hot loop's instruction count over SMs x this x clock
 LANES_PER_SM = 128
+# the data sheet's float32 rate outside the tensor cores (H100 SXM, 700 W): the
+# operations side of every bound, over each kernel's algorithm's operations
+# (``fused.kernel_cost``; the kernels compute in float32 for either input type)
+OPS_RATE = 67e12
+# ``fused.LAUNCHES`` name of each kernel function
+KERNEL_NAMES = {"bn_act_dropout_fwd_kernel": "bn_act_dropout",
+                "bn_act_dropout_bwd_kernel": "bn_act_dropout_bwd",
+                "reparam_fwd_kernel": "reparam_kl", "reparam_bwd_kernel": "reparam_kl_bwd",
+                "recon_sums_kernel": "recon_loss_sums"}
 
 SEED = 0
 BATCH = 64
@@ -278,19 +303,28 @@ def kernel_counts(libs, cuobjdump):
 class Bounds:
     """The least time of a kernel's work on this card, the larger of two: the bytes
     it must move (each input read once, each output written once) over the
-    data-sheet memory rate, and the instructions its hot loop runs per element
-    (:func:`kernel_counts`) times the elements over the instruction rate, SMs x 128
-    lanes x the SM's maximum clock."""
+    data-sheet memory rate, and its algorithm's operations
+    (``fused.ops_per_element`` times the elements) over the data sheet's float32
+    rate, :data:`OPS_RATE`. Beside it, not part of it, the kernel's SASS issue
+    time: the instructions its hot loop runs per element (:func:`kernel_counts`)
+    times the elements over the instruction rate, SMs x 128 lanes x the SM's
+    maximum clock."""
 
     def __init__(self, bw, instr_rate, counts):
         self.bw, self.instr_rate, self.counts = bw, instr_rate, counts
 
     def __call__(self, nbytes, n, kernel, dtype, vec=None, dropout=None, striped=False):
-        """(least ms, "bytes" or "operations", byte ms, instruction ms) of the
-        kernel's instance for a contiguous or a ``striped`` index map."""
+        """(least ms, "bytes" or "operations", byte ms, SASS issue ms, operations
+        ms) of the kernel's instance for a contiguous or a ``striped`` index
+        map."""
+        from vaegan_tpu_torch.ops import fused
+
         tb = nbytes / self.bw
+        to = fused.ops_per_element(KERNEL_NAMES[kernel], 2 if "bfloat16" in str(dtype) else 4,
+                                   bool(dropout)) * n / OPS_RATE
         ti = self.counts[(kernel, str(dtype)[6:], vec, dropout, striped)] * n / self.instr_rate
-        return max(tb, ti) * 1e3, "bytes" if tb >= ti else "operations", tb * 1e3, ti * 1e3
+        return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations", tb * 1e3, ti * 1e3,
+                to * 1e3)
 
 
 def time_cuda(torch, fn, reps=20, windows=5, warmup=3):
@@ -313,28 +347,39 @@ def time_cuda(torch, fn, reps=20, windows=5, warmup=3):
     return statistics.median(times)
 
 
+# profiles of one function tried before profile_split gives up on an empty one
+PROFILE_ATTEMPTS = 4
+
+
 def profile_split(torch, fn, calls=20):
     """{kernel name: (device ms per launch, launches recorded)} of every kernel that
     ``fn(i)`` launches, under torch.profiler over ``calls`` calls after one warm-up
     (the profiler may drop some of a run's device events, so a kernel's launches
-    recorded can fall short of its launches)."""
+    recorded can fall short of its launches). A profile with no device event at
+    all is taken again, up to ``PROFILE_ATTEMPTS`` in all, and then fails, so
+    that no check passes on an empty profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(i)
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            m = re.search(r"(\w+_kernel(<[^>]*>)?)", e.key)
-            name = m.group(1) if m else e.key[:80]
-            ms, count = out.get(name, (0.0, 0))
-            out[name] = (ms + e.self_device_time_total / 1e3, count + e.count)
-    return {name: (ms / count, count) for name, (ms, count) in out.items()}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                m = re.search(r"(\w+_kernel(<[^>]*>)?)", e.key)
+                name = m.group(1) if m else e.key[:80]
+                ms, count = out.get(name, (0.0, 0))
+                out[name] = (ms + e.self_device_time_total / 1e3, count + e.count)
+        if out:
+            return {name: (ms / count, count) for name, (ms, count) in out.items()}
+        log(f"torch.profiler recorded no device event in {calls} calls (profile {attempt} "
+            f"of {PROFILE_ATTEMPTS})")
+    raise SystemExit(f"torch.profiler recorded no device event in {PROFILE_ATTEMPTS} profiles")
 
 
 def split_text(split, calls=20):
@@ -343,8 +388,7 @@ def split_text(split, calls=20):
 
 
 def one_kernel(what, split):
-    """Fail if the profile of a kernel's calls shows a second kernel (no check where
-    the profiler recorded no device time)."""
+    """Fail if the profile of a kernel's calls shows a second kernel."""
     if len(split) > 1:
         raise SystemExit(f"{what}: a call launches more than one kernel: {split_text(split)}")
 
@@ -431,12 +475,12 @@ def phase_kernel(torch, sites, bounds):
                     xs[i % len(xs)], *rest), windows=1, warmup=1)
                 numel = x.numel()
                 nbytes = 2 * numel * x.element_size() + 4 * c * 4
-                b_ms, bound_by, tb, ti = bounds(nbytes, numel, "bn_act_dropout_fwd_kernel", dtype,
-                                                None, p > 0)
+                b_ms, bound_by, tb, ti, _ = bounds(nbytes, numel, "bn_act_dropout_fwd_kernel",
+                                                   dtype, None, p > 0)
                 log(f"site {i:2d} C={c:3d} HxW={h}x{w} {str(dtype)[6:]:8s} p={p}: "
                     f"max_abs_err={float(err.max()):.3e} bitwise={bitwise} "
                     f"masks_equal={masks_equal} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({bound_by}; bytes {tb:.4f}, instructions {ti:.4f}) "
+                    f"bound_ms={b_ms:.4f} ({bound_by}; bytes {tb:.4f}, SASS issue {ti:.4f}) "
                     f"GB/s={nbytes / k_ms / 1e6:.0f}")
                 if not (bitwise and masks_equal):
                     raise SystemExit(f"site {i}: kernel disagrees with its plain version")
@@ -613,7 +657,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
                        None, p > 0)
             log(f"row 1 site {i:2d} C={c:3d} HxW={h}x{w} {str(dtype)[6:]:8s} p={p}: y bitwise "
                 f"equal, kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; "
-                f"bytes {b[2]:.4f}, instructions {b[3]:.4f})")
+                f"bytes {b[2]:.4f}, SASS issue {b[3]:.4f})")
             if dtype == torch.float32:
                 note("bn_act_dropout", k_ms, p_ms, b, 0.0)
             else:
@@ -681,7 +725,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
                 f"max_abs_err={err:.3e} dx_bitwise=True deterministic_x{RUNS}={det} "
                 f"mask_replayed={replay} "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes "
-                f"{b[2]:.4f}, instructions {b[3]:.4f}) yardstick_ms={y_ms:.4f} "
+                f"{b[2]:.4f}, SASS issue {b[3]:.4f}) yardstick_ms={y_ms:.4f} "
                 f"GB/s={3 * n * x.element_size() / k_ms / 1e6:.0f} "
                 f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
             if dtype == torch.float32:
@@ -744,7 +788,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             note("reparam_kl", k_ms, p_ms, b, err3)
             launch = fused.reparam_launch_for(mu)
             log(f"row 3 f32 {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, instructions {b[3]:.4f}) "
+                f"bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, SASS issue {b[3]:.4f}) "
                 f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
             rot = rotation(mu, lv, gz)
             k_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward(*rot[i % len(rot)], None, 77))
@@ -753,7 +797,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             b = bounds(5 * n * 4, n, "reparam_bwd_kernel", dtype)
             note("reparam_kl_bwd", k_ms, p_ms, b, max(errs4))
             log(f"row 4 f32 {shape} (gkl None, as on the step): kernel_ms={k_ms:.4f} "
-                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, instructions "
+                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, SASS issue "
                 f"{b[3]:.4f})")
             del rot
         del mu, lv, gz, z, zr, zero, e_fwd, e_bwd, e_plain, e64
@@ -792,7 +836,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             b = bounds(2 * n * r_.element_size() + 8, n, "recon_sums_kernel", dtype)
             log(f"row 5 b{batch} {str(dtype)[6:]} n={n}: sums {s.tolist()} vs plain {sr.tolist()}, "
                 f"max_abs_err={err:.3e}, deterministic_x{RUNS}={det}, kernel_ms={k_ms:.4f} "
-                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, instructions "
+                f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, SASS issue "
                 f"{b[3]:.4f}) launch floor (an empty kernel, the same grid) {floor_ms:.4f} ms; "
                 f"yardstick F.l1_loss + F.mse_loss (two calls) {y_ms:.4f} ms; "
                 f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
@@ -804,7 +848,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
         s = out[row]
         log(f"row {name} over the 12 sites of one batch-{TRAIN_BATCH} G step (f32): kernel "
             f"{s['ms']:.4f} ms, bound {s['bound_ms']:.4f} ms ({s['bound_by']}; bytes "
-            f"{s['bytes_ms']:.4f}, instructions {s['instr_ms']:.4f}), plain {s['plain_ms']:.4f} ms; "
+            f"{s['bytes_ms']:.4f}, SASS issue {s['instr_ms']:.4f}), plain {s['plain_ms']:.4f} ms; "
             f"bf16: kernel {bf16[row][0]:.4f} ms, bound {bf16[row][1]:.4f} ms")
     log(f"row 2 yardstick (masks + native_batch_norm_backward, not one call): "
         f"{out['bn_act_dropout_bwd']['yardstick_ms']:.4f} ms")
@@ -1538,10 +1582,10 @@ def phase_critic_kernels(torch, sites, bounds, batch=TRAIN_BATCH, phase="9.1"):
                     launch.vec, False)
         note("bn_act_dropout_bwd", k2, p2, b2, err)
         log(f"critic site {i} C={c:3d} HxW={h}x{w}: row 1 y bitwise equal, kernel_ms={k1:.4f} "
-            f"plain_ms={p1:.4f} bound_ms={b1[0]:.4f} ({b1[1]}; bytes {b1[2]:.4f}, instructions "
+            f"plain_ms={p1:.4f} bound_ms={b1[0]:.4f} ({b1[1]}; bytes {b1[2]:.4f}, SASS issue "
             f"{b1[3]:.4f}); row 2 dx bitwise equal, sums max_abs_err={err:.3e}, "
             f"deterministic_x{RUNS}=True, kernel_ms={k2:.4f} plain_ms={p2:.4f} "
-            f"bound_ms={b2[0]:.4f} ({b2[1]}; bytes {b2[2]:.4f}, instructions {b2[3]:.4f}) "
+            f"bound_ms={b2[0]:.4f} ({b2[1]}; bytes {b2[2]:.4f}, SASS issue {b2[3]:.4f}) "
             f"grid={launch.blocks}x{launch.threads} split: {split_text(split)}")
         del x, gy, y, r, k, rot
     torch.cuda.empty_cache()
@@ -1549,7 +1593,7 @@ def phase_critic_kernels(torch, sites, bounds, batch=TRAIN_BATCH, phase="9.1"):
         o = out[row]
         log(f"row {name} over the critic's {len(sites)} sites (one forward; f32, p = 0): kernel "
             f"{o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}; bytes "
-            f"{o['bytes_ms']:.4f}, instructions {o['instr_ms']:.4f}; "
+            f"{o['bytes_ms']:.4f}, SASS issue {o['instr_ms']:.4f}; "
             f"{100 * o['bound_ms'] / o['ms']:.1f}% of the bound reached), plain "
             f"{o['plain_ms']:.4f} ms")
     return out
@@ -1826,14 +1870,18 @@ CLI_TRAIN_LAUNCHES = {k: CLI_STEPS * v + SAMPLER_LAUNCHES[k]
 BENCH_STEPS = {"": "40", "--paper": "5", "--vae": "5", "--loop": "40", "--infer": "10",
                "--loader": "20"}
 # runs the CLI in a fresh process and prints the kernel launches it made
-CLI_COUNTING = ("import json, sys\n"
+# the launches line is one write on a line of its own, after the rest of the
+# output: torchrun's processes share one pipe, and two buffered prints once
+# ran together on one line
+CLI_COUNTING = ("import json, os, sys\n"
                 "import torch\n"
                 "from vaegan_tpu_torch import cli\n"
                 "from vaegan_tpu_torch.ops import fused\n"
                 "fused.reset_launches()\n"
                 "rc = cli.main(sys.argv[1:])\n"
                 "torch.cuda.synchronize()\n"
-                "print('launches ' + json.dumps(dict(fused.LAUNCHES)))\n"
+                "sys.stdout.flush()\n"
+                "os.write(1, ('\\nlaunches ' + json.dumps(dict(fused.LAUNCHES)) + '\\n').encode())\n"
                 "sys.exit(rc)\n")
 
 
@@ -3083,6 +3131,239 @@ def phase_mesh(torch, vt, bounds, card_line, sites, latent):
 
 # One tree's kernel phases (5, 11.3 and, where the tree has it, 12.2), run from the
 # root of that tree with its own chip_smoke.py and package: :func:`paired_kernels`.
+# ---------------------------------------------------------------------------
+# phase 13: bench --roofline and the exported serving bundle
+# ---------------------------------------------------------------------------
+
+# (label, bench arguments, environment) of each roofline run, and its step's launches
+ROOFLINE_RUNS = (("notebook G+D step", (), {}),
+                 ("vaegan_paper step", ("--paper",), {}),
+                 ("notebook critic-only step", (), {"BENCH_CRITIC_ONLY": "1"}))
+ROOFLINE_LAUNCHES = (STEP_LAUNCHES[True], PAPER_LAUNCHES, STEP_LAUNCHES[False])
+# timed steps of each roofline run (the bench's default is 20; a G+D step with
+# the penalty takes about 1.25 s there)
+ROOFLINE_STEPS = "5"
+# the data sheet's memory rate with a 5% margin: no triad reads above it
+TRIAD_CEILING_GBS = 3.35e3 * 1.05
+
+
+def forward_flops(torch, vt, cfg, batch):
+    """Analytic flops (2 a multiply-add) of one generator forward and one critic
+    forward at ``batch``, from each convolution's and linear's shapes."""
+    from vaegan_tpu_torch.models.layers import Conv2D, Linear
+
+    gen, critic = vt.build_models(cfg, device="cuda")
+    total = {}
+
+    def hook(name):
+        def count(mod, inp, out):
+            if isinstance(mod, Linear):
+                n = 2 * out.numel() * inp[0].shape[-1]
+            else:
+                w = mod.weight_orig if mod.spectral else mod.weight
+                k = w.shape[-1] * w.shape[-2]
+                n = 2 * (inp[0].numel() * w.shape[1] if mod.transpose
+                         else out.numel() * w.shape[1]) * k
+            total[name] = total.get(name, 0) + n * batch
+        return count
+
+    size = cfg.data.image_size
+    with torch.no_grad():
+        for name, net in (("generator", gen), ("critic", critic)):
+            hooks = [m.register_forward_hook(hook(name)) for m in net.modules()
+                     if isinstance(m, (Conv2D, Linear))]
+            x = torch.rand(1, size, size, 1, device="cuda")
+            net(x, train=False)
+            for h in hooks:
+                h.remove()
+    del gen, critic
+    return total
+
+
+TRIAD_PROFILE = """
+import json, torch
+import chip_smoke as cs
+from vaegan_tpu_torch import bench
+y = torch.ones(bench.TRIAD_ELEMENTS, device="cuda")
+b = torch.full((bench.TRIAD_ELEMENTS,), 2.0, device="cuda")
+print("TRIAD " + json.dumps(cs.profile_split(torch, lambda i: bench.triad_rep(y, b), calls=5)))
+"""
+
+
+def phase_roofline(torch, vt, card_line):
+    """13.1: ``python -m vaegan_tpu_torch.bench --roofline`` with the kernels on,
+    on the notebook G+D step, ``--paper`` and the critic-only step; the triad
+    is one kernel a repetition. Returns each run's JSON line."""
+    from vaegan_tpu_torch import bench
+
+    log(f"== phase 13.1: bench --roofline, BENCH_PALLAS=all, BENCH_STEPS={ROOFLINE_STEPS}, the "
+        f"JAX bench's defaults (96x96, batch 128, bfloat16, {bench.TRIAD_REPS} triad repetitions over "
+        f"{bench.TRIAD_ELEMENTS} float32 elements an array) [{card_line}] ==")
+    # in a process of its own: in this long run torch.profiler records fewer of
+    # the device events the later it profiles (19, 11, then 7 of 20 launches),
+    # and it once recorded none here
+    proc = subprocess.run([sys.executable, "-c", TRIAD_PROFILE], cwd=HERE, capture_output=True,
+                          text=True, timeout=300)
+    out = [x for x in proc.stdout.splitlines() if x.startswith("TRIAD ")]
+    if proc.returncode or not out:
+        raise SystemExit(f"the triad's profile: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    split = {k: tuple(v) for k, v in json.loads(out[0][6:]).items()}
+    log(f"triad repetition under torch.profiler: {split_text(split, 5)}")
+    if len(split) != 1:
+        raise SystemExit(f"the triad is not one kernel a repetition: {split}")
+    lines = []
+    for (label, args, env), want in zip(ROOFLINE_RUNS, ROOFLINE_LAUNCHES):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "vaegan_tpu_torch.bench", "--roofline",
+                               *args], cwd=HERE, env=dict(os.environ, BENCH_PALLAS="all",
+                                                          BENCH_STEPS=ROOFLINE_STEPS, **env),
+                              capture_output=True, text=True, timeout=600)
+        out = [x for x in proc.stdout.splitlines() if x.startswith("{")]
+        if proc.returncode or not out:
+            raise SystemExit(f"bench --roofline ({label}): rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        rec = json.loads(out[-1])
+        log(json.dumps(rec))
+        # launches: fused.LAUNCHES over the timed steps and over the counted
+        # one; calls: what the cost count was told at those launches
+        calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+        kernel_bytes = sum(v["bytes"] for v in rec["kernels"].values())
+        kernel_flops = sum(v["flops"] for v in rec["kernels"].values())
+        steps = rec["timed_steps"]
+        log(f"{label}: {time.perf_counter() - t0:.1f} s of wall; counted bytes "
+            f"{rec['step_cost_bytes'] / 1e9:.3f} GB (the kernels' "
+            f"{kernel_bytes / 1e9:.4f} GB, {100 * kernel_bytes / rec['step_cost_bytes']:.3f}%), "
+            f"parameters + gradients + optimizer state {rec['state_bytes'] / 1e9:.3f} GB; "
+            f"launches over the {steps} timed steps {rec['launches']}, in the counted step "
+            f"{rec['counted_step_launches']} (want {want} a step), the cost count's kernel "
+            f"calls {calls} [{card_line}]")
+        if rec["achieved_hbm_gbs_triad"] > TRIAD_CEILING_GBS:
+            raise SystemExit(f"{label}: the triad reads above the data sheet's memory rate")
+        if rec["fraction_of_achieved_bw"] > 1.05:
+            raise SystemExit(f"{label}: the step's implied rate is above the achieved one")
+        if rec["step_cost_bytes"] < rec["state_bytes"]:
+            raise SystemExit(f"{label}: fewer bytes counted than the state a step updates")
+        if (rec["launches"] != {k: v * steps for k, v in want.items()}
+                or rec["counted_step_launches"] != want):
+            raise SystemExit(f"{label}: the step's kernel launches are not the path's")
+        if calls != {k: v for k, v in want.items() if v} or kernel_bytes <= 0:
+            raise SystemExit(f"{label}: the kernels' share of the counted step is missing or "
+                             "disagrees with its launches")
+        rec["label"], rec["kernel_flops"], rec["wall_s"] = (label, kernel_flops,
+                                                            time.perf_counter() - t0)
+        lines.append(rec)
+    cfg = vt.preset("notebook")
+    cfg = cfg.replace(data=cfg.data.replace(image_size=96),
+                      train=cfg.train.replace(dtype="bfloat16"))
+    fwd = forward_flops(torch, vt, cfg, 128)
+    g_d = lines[0]["step_cost_flops"] - lines[0]["kernel_flops"]
+    log(f"notebook G+D step at 96x96, batch 128: counted convolution and matmul flops "
+        f"{g_d / 1e12:.4f} T; analytic forward flops from the shapes: generator "
+        f"{fwd['generator'] / 1e12:.4f} T, critic {fwd['critic'] / 1e12:.4f} T a forward "
+        f"(the step runs the generator forward once and the critic forward on real, fake, "
+        f"interpolates and the G half's fakes, then their backwards and the penalty's "
+        f"double backward): counted / (generator + 4 critic forwards) "
+        f"{g_d / (fwd['generator'] + 4 * fwd['critic']):.3f}")
+    return lines
+
+
+def bundle_weights_equal(torch, gen, bundle):
+    """Whether every program of ``bundle`` holds ``gen``'s parameters and
+    buffers bit for bit (at least every parameter)."""
+    sd = gen.state_dict()
+    params = {k for k, _ in gen.named_parameters()}
+    for ep in bundle.programs.values():
+        held = {k.removeprefix("generator."): v for k, v in ep.state_dict.items()}
+        if not params <= set(held) or not all(torch.equal(sd[k], v) for k, v in held.items()):
+            return False
+    return True
+
+
+def phase_bundle(torch, vt, cfg, state, images, z8, t64, t1, card_line):
+    """13.2: bundles of the served model exported on the card (a symbolic batch
+    and one pinned at 64) and on the CPU for ("cpu", "cuda"), loaded on the
+    card and held against the in-process entry points; 12 row-1 launches a
+    reconstruct; the bundle's serving numbers beside phase 4's. Returns row 1's
+    launches over the phase."""
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.serving import load_bundle, save_bundle
+
+    log(f"== phase 13.2: serving bundles as exported programs (vaegan_infer, "
+        f"{cfg.data.image_size}x{cfg.data.image_size}, float32, use_pallas='all'; against the "
+        "in-process call under cudnn.deterministic, since cuDNN's default transposed "
+        "convolutions differ run to run by ~1e-6 of the scale: tolerance 1e-6 of max|ref|, "
+        "bitwise equality printed) ==")
+    gen = state.generator
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with torch.inference_mode():
+        ref = {"reconstruct b64": vt.reconstruct(cfg, state, images),
+               "reconstruct b1": vt.reconstruct(cfg, state, images[:1]),
+               "encode b8": gen.encode(images[:8]), "decode b8": gen.decode(z8)}
+    gen_cpu = vt.build_generator(cfg, device="cpu")
+    gen_cpu.load_state_dict({k: v.cpu() for k, v in gen.state_dict().items()}, strict=True)
+    bundles, wall = {}, {}
+    with tempfile.TemporaryDirectory(prefix="vaegan_bundle_") as tmp:
+        for name, st, kw in (("card, symbolic batch", state, {}),
+                             (f"card, batch {BATCH}", state, {"batch_size": BATCH}),
+                             ("CPU host for cpu+cuda", state.replace(generator=gen_cpu),
+                              {"platforms": ("cpu", "cuda")})):
+            d = os.path.join(tmp, str(len(bundles)))
+            t0 = time.perf_counter()
+            save_bundle(d, cfg, st, **kw)
+            wall[name] = time.perf_counter() - t0
+            bundles[name] = load_bundle(d, device="cuda")
+            with open(os.path.join(d, "manifest.json")) as f:
+                m = json.load(f)
+            log(f"{name}: exported in {wall[name]:.1f} s, manifest batch {m['batch']!r}, "
+                f"platforms {m['platforms']}, weights bitwise in every program="
+                f"{bundle_weights_equal(torch, gen, bundles[name])}")
+            if not bundle_weights_equal(torch, gen, bundles[name]):
+                raise SystemExit(f"{name}: the bundle does not hold the generator's weights")
+    del gen_cpu
+    total = 0
+    for name, bundle in bundles.items():
+        pinned = bundle.manifest["batch"] != "symbolic"
+        calls = [("reconstruct b64", 12, lambda: bundle.reconstruct(images))]
+        if not pinned:
+            calls += [("reconstruct b1", 12, lambda: bundle.reconstruct(images[:1])),
+                      ("encode b8", 6, lambda: bundle.encode(images[:8])),
+                      ("decode b8", 6, lambda: bundle.decode(z8))]
+        for req, want, call in calls:
+            fused.reset_launches()
+            out = call()
+            torch.cuda.synchronize()
+            got = fused.LAUNCHES["bn_act_dropout"]
+            total += got
+            outs, refs = (out, ref[req]) if isinstance(out, tuple) else ((out,), (ref[req],))
+            errs = [float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                    for a, r in zip(outs, refs)]
+            bitwise = all(torch.equal(a, r) for a, r in zip(outs, refs))
+            log(f"{name}: {req} {[tuple(a.shape) for a in outs]}: bitwise={bitwise}, "
+                f"max_abs_err / max|ref| {max(errs):.3e}, bn_act_dropout launches {got} "
+                f"(want {want})")
+            if got != want or max(errs) > 1e-6:
+                raise SystemExit(f"{name}: {req} disagrees with the in-process call or missed "
+                                 "the kernel")
+        if pinned:
+            try:
+                bundle.reconstruct(images[:1])
+            except Exception as e:      # the program's input guard; any type will do
+                log(f"{name}: batch 1 refused ({type(e).__name__})")
+            else:
+                raise SystemExit(f"{name}: a pinned bundle served another batch size")
+    torch.backends.cudnn.deterministic = deterministic
+    sym = bundles["card, symbolic batch"]
+    b64 = time_host(torch, lambda: sym.reconstruct(images), reps=10)
+    b1 = time_host(torch, lambda: sym.reconstruct(images[:1]), reps=50, warmup=5)
+    log(f"bundle reconstruct batch {BATCH}: {b64 * 1e3:.3f} ms median, {BATCH / b64:.1f} "
+        f"images/s (in-process, phase 4: {t64 * 1e3:.3f} ms, {BATCH / t64:.1f} images/s) "
+        f"[{card_line}]")
+    log(f"bundle reconstruct batch 1 latency: {b1 * 1e3:.3f} ms median of 50 (in-process, "
+        f"phase 4: {t1 * 1e3:.3f} ms) [{card_line}]")
+    return total
+
+
 KERNEL_TIMES = """
 import json, os, subprocess, sys
 import torch
@@ -3194,9 +3475,11 @@ def main() -> int:
                             "--format=csv,noheader,nounits"],
                            capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
     instr_rate = sms * LANES_PER_SM * float(clock) * 1e6
-    log(f"bounds: data-sheet memory rate {bw / 1e12:.2f} TB/s; instruction rate {sms} SMs x "
-        f"{LANES_PER_SM} lanes x {clock} MHz (max SM clock) = {instr_rate / 1e12:.2f} T "
-        "instructions/s, over each kernel's hot-loop instructions per element (SASS)")
+    log(f"bounds: data-sheet memory rate {bw / 1e12:.2f} TB/s and float32 rate "
+        f"{OPS_RATE / 1e12:.0f} TFLOP/s over each kernel's bytes and algorithm's operations; "
+        f"beside them the SASS issue time at {sms} SMs x {LANES_PER_SM} lanes x {clock} MHz "
+        f"(max SM clock) = {instr_rate / 1e12:.2f} T instructions/s, over each kernel's "
+        "hot-loop instructions per element")
     tf32_defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3295,8 +3578,7 @@ def main() -> int:
     # the direct call to within 1e-5 of the output's scale, not bit for bit:
     # cuDNN's transposed-conv (backward-data) algorithms may sum with atomics,
     # so two runs of one model need not be bitwise equal (printed beside it)
-    sd, sd_b = gen.state_dict(), bundle.generator.state_dict()
-    weights_equal = sd.keys() == sd_b.keys() and all(torch.equal(sd[k], sd_b[k]) for k in sd)
+    weights_equal = bundle_weights_equal(torch, gen, bundle)
     r8, mse8 = outputs["reconstruct b8"]
     rb8, mseb8 = outputs["bundle.reconstruct b8"]
     r8_again, _ = vt.reconstruct(cfg_all, state, images[:8])
@@ -3413,6 +3695,12 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 12
     mesh = phase_mesh(torch, vt, bounds, card_line, sites, vt.latent_shape(cfg))
+
+    # ---------------------------------------------------------------- phase 13
+    t13 = time.perf_counter()
+    roofline = phase_roofline(torch, vt, card_line)
+    bundle_launches = phase_bundle(torch, vt, cfg_all, state, images, z8, t64, t1, card_line)
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
@@ -3425,7 +3713,10 @@ def main() -> int:
         f"batch {DP_RANK_BATCH}) step wall by process "
         f"{[[round(t * 1e3, 1) for t in r] for r in mesh['mesh']['step_s']]} ms; TP-only loop "
         f"step ({MESH_MODEL} gloo processes, bfloat16, batch {TP_BATCH}) "
-        f"{[round(t * 1e3, 1) for t in mesh['tp_step_s']]} ms")
+        f"{[round(t * 1e3, 1) for t in mesh['tp_step_s']]} ms; roofline (bench --roofline, "
+        "96x96, batch 128, bfloat16, kernels on): " + "; ".join(
+            f"{r['label']} {r['step_ms']} ms, {r['fraction_of_achieved_bw']} of the triad's "
+            f"{r['achieved_hbm_gbs_triad']} GB/s" for r in roofline))
 
     # launches: the data-parallel path's (phase 11: train_data_parallel of
     # vaegan_256_dp, all five kernels); each other path's launches (the notebook
@@ -3451,7 +3742,7 @@ def main() -> int:
         "name": "bn_act_dropout", "route": "cuda", "source": src + "bn_act_dropout.cu",
         "replaces": "vaegan_tpu/ops/pallas_fused.py:80",
         "launches": dp["launches"]["bn_act_dropout"],
-        "launches_by_path": {"serving": main_path_launches,
+        "launches_by_path": {"serving": main_path_launches, "bundle": bundle_launches,
                              "training": train_launches["bn_act_dropout"],
                              **{k: v["bn_act_dropout"] for k, v in paths.items()}},
         "dp": dp["kernels"]["bn_act_dropout"],
@@ -3462,7 +3753,7 @@ def main() -> int:
         "max_abs_err": summary["max_abs_err"], "ms": train_row1["ms"],
         "plain_ms": train_row1["plain_ms"], "bound_ms": train_row1["bound_ms"],
         "bound_by": train_row1["bound_by"], "library_ms": None,
-        "bound_bytes_ms": train_row1["bytes_ms"], "bound_instr_ms": train_row1["instr_ms"],
+        "bound_bytes_ms": train_row1["bytes_ms"], "sass_issue_ms": train_row1["instr_ms"],
     }]
     for name, source, line in (("bn_act_dropout_bwd", "bn_act_dropout.cu", 95),
                                ("reparam_kl", "reparam_kl.cu", 244),
@@ -3477,7 +3768,10 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-                     "bound_bytes_ms": k["bytes_ms"], "bound_instr_ms": k["instr_ms"]})
+                     "bound_bytes_ms": k["bytes_ms"], "sass_issue_ms": k["instr_ms"]})
+    for row in rows:
+        row["launches_by_path"].update({f"roofline {r['label']}": r["launches"][row["name"]]
+                                        for r in roofline})
     for row in rows[1:4]:
         row["dp"] = dp["kernels"][row["name"]]
     for row in rows[:4]:

@@ -2,13 +2,15 @@
 ``tests/test_torch_parallel.py`` and ``tests/test_torch_parallel_2d.py`` (not
 a test module).
 
-    python tests/_torch_dp_worker.py RANK WORLD STORE_DIR PLAN OUT [NUM_MODEL]
+    python tests/_torch_dp_worker.py RANK WORLD STORE_DIR PLAN OUT [NUM_MODEL [MEMBERS]]
 
 joins a gloo process group of WORLD processes through a file store in
 STORE_DIR, makes the mesh WORLD / NUM_MODEL x NUM_MODEL (default 1), runs
 every case of the ``torch.save``d PLAN on its part of each global batch
 (``parallel.make_parallel_train_step``) and saves what :func:`run` returns per
-case to OUT. The tests run the same :func:`run` with no mesh for the
+case to OUT. With MEMBERS (global ranks, comma-separated) the mesh spans the
+group of those processes (``make_mesh(group=...)``); a process outside it
+saves no results. The tests run the same :func:`run` with no mesh for the
 one-process step on the global batch.
 
 A case is a dict: ``cfg`` (``Config.to_dict()``), ``init`` (None, or state
@@ -132,14 +134,17 @@ def run(case: dict, mesh=None) -> dict:
 
 
 def main(rank: int, world: int, store_dir: str, plan: str, out: str,
-         num_model: int = 1) -> None:
+         num_model: int = 1, members: str = "") -> None:
     from vaegan_tpu_torch.parallel import dist, make_mesh
 
     dist.initialize(backend="gloo", init_method=f"file://{store_dir}/store",
                     world_size=world, rank=rank, device="cpu", timeout_s=120)
     try:
-        mesh = make_mesh(num_model=num_model)
-        results = {name: run(case, mesh) for name, case in torch.load(plan).items()}
+        group = (torch.distributed.new_group([int(r) for r in members.split(",")])
+                 if members else None)
+        mesh = make_mesh(num_model=num_model, group=group)
+        results = ({} if mesh is None else
+                   {name: run(case, mesh) for name, case in torch.load(plan).items()})
         torch.save(results, f"{out}.tmp")
         os.replace(f"{out}.tmp", out)
     finally:
@@ -148,4 +153,4 @@ def main(rank: int, world: int, store_dir: str, plan: str, out: str,
 
 if __name__ == "__main__":
     main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6],
-         *(int(a) for a in sys.argv[6:7]))
+         *(int(a) for a in sys.argv[6:7]), *sys.argv[7:8])

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from vaegan_tpu_torch import bench
+from vaegan_tpu_torch.ops import fused
 
 torch.set_num_threads(1)
 
@@ -72,9 +73,47 @@ def test_loader_mode(monkeypatch, capsys):
     assert rec["unit"] == "images/sec" and rec["h2d_images_per_sec"] > 0
 
 
-def test_roofline_is_refused(capsys):
-    assert bench.main(["--roofline", "--device", "cpu"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+ROOFLINE_KEYS = {"metric", "achieved_hbm_gbs_triad", "step_cost_flops_T", "step_cost_bytes_GB",
+                 "step_ms", "images_per_sec", "step_implied_gbs", "fraction_of_achieved_bw",
+                 "memory_floor_ms_at_achieved_bw", "device"}
+
+
+@pytest.mark.parametrize("args,env,label", [
+    ((), {}, "VAE-GAN"),
+    (("--paper",), {}, "Larsen-paper"),
+    # JAX's wording, "step" twice included
+    ((), {"BENCH_CRITIC_ONLY": "1", "BENCH_GP_EVERY": "4", "BENCH_PALLAS": "all"},
+     "VAE-GAN critic-only no-GP off-step"),
+])
+def test_roofline_prints_the_jax_keys(monkeypatch, capsys, args, env, label):
+    """``--roofline`` (alone, with ``--paper``, on the critic-only off-step)
+    prints one JSON line with every key of the JAX bench's roofline line and
+    its label, from a triad shrunk through the module constant; the counted
+    bytes cover the parameters, gradients and optimizer state, and with the
+    kernels on their calls are counted."""
+    monkeypatch.setattr(bench, "TRIAD_ELEMENTS", 1 << 16)
+    for k, v in {**KNOBS, "BENCH_STEPS": "1", **env}.items():
+        monkeypatch.setenv(k, v)
+    assert bench.main([*args, "--roofline", "--device", "cpu"]) == 0
+    (rec,) = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert set(rec) >= ROOFLINE_KEYS
+    assert rec["metric"] == f"roofline attribution, {label} step (achieved-BW-normalized)"
+    assert rec["device"] == "cpu" and rec["achieved_hbm_gbs_triad"] > 0
+    assert rec["step_cost_flops"] > 0 and rec["step_cost_bytes"] >= rec["state_bytes"] > 0
+    assert abs(rec["step_implied_gbs"] / rec["achieved_hbm_gbs_triad"]
+               - rec["fraction_of_achieved_bw"]) < 2e-3 + 0.01 * rec["fraction_of_achieved_bw"]
+    if env.get("BENCH_PALLAS") == "all":
+        assert {k: v["calls"] for k, v in rec["kernels"].items()} == {
+            "bn_act_dropout": 12, "reparam_kl": 1}
+    # the plain versions run on the CPU: the count sees the calls, no kernel launches
+    assert rec["timed_steps"] == 1
+    assert rec["launches"] == rec["counted_step_launches"] == dict.fromkeys(fused.LAUNCHES, 0)
+
+
+def test_roofline_takes_no_other_mode():
+    with pytest.raises(SystemExit) as e:
+        bench.main(["--roofline", "--loop", "--device", "cpu"])
+    assert e.value.code == 2
 
 
 @pytest.mark.parametrize("n_critics,gp_every,per_epoch", [(5, 8, 10), (1, 1, 10), (3, 2, 4)])

@@ -133,9 +133,13 @@ FWD_INSTANCES = """
 
 def test_each_dropout_instance_has_its_own_count(monkeypatch):
     """``kernel_counts`` keys each instance of row 1's forward on its dropout and
-    index-map arguments, so a p = 0.5 site's bound reads the p = 0.5 loop (6
-    instructions a pass of 4 elements), a p = 0 site's the p = 0 loop (4), and a
-    p = 0.5 site on a stripe the striped loop (8)."""
+    index-map arguments, so a p = 0.5 site's SASS issue time reads the p = 0.5
+    loop (6 instructions a pass of 4 elements), a p = 0 site's the p = 0 loop
+    (4), and a p = 0.5 site on a stripe the striped loop (8). The bound itself
+    is the larger of the bytes over the memory rate and the algorithm's
+    operations (``fused.ops_per_element``) over the float32 rate."""
+    from vaegan_tpu_torch.ops import fused
+
     import subprocess
     import torch
 
@@ -151,9 +155,13 @@ def test_each_dropout_instance_has_its_own_count(monkeypatch):
     n = 1000
     for dropout, striped, per_element in ((False, False, 1.0), (True, False, 1.5),
                                           (True, True, 2.0)):
-        ms, by, _, instr_ms = bounds(8, n, "bn_act_dropout_fwd_kernel", torch.float32, None,
-                                     dropout, striped)
-        assert by == "operations" and instr_ms == ms == pytest.approx(per_element * n / 1e9 * 1e3)
+        ms, by, byte_ms, issue_ms, ops_ms = bounds(8, n, "bn_act_dropout_fwd_kernel",
+                                                   torch.float32, None, dropout, striped)
+        assert issue_ms == pytest.approx(per_element * n / 1e9 * 1e3)
+        assert byte_ms == pytest.approx(8 / 1e12 * 1e3)
+        assert ops_ms == pytest.approx(
+            fused.ops_per_element("bn_act_dropout", 4, dropout) * n / chip_smoke.OPS_RATE * 1e3)
+        assert by == "operations" and ms == max(byte_ms, ops_ms) == ops_ms
 
 
 PTXAS_REPORT = """\

@@ -191,9 +191,22 @@ def test_bench_knows_every_mode(capsys):
     assert "unknown bench mode" in capsys.readouterr().err
 
 
-def test_bench_roofline_refuses_naming_the_roadmap(capsys):
-    assert main(["bench", "roofline"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+def test_bench_roofline_vae_runs(capsys, monkeypatch):
+    """``bench roofline vae`` (the JAX CLI's pair) runs the roofline of the
+    plain-VAE step; ``roofline`` with any mode other than paper or vae is
+    refused."""
+    from vaegan_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "TRIAD_ELEMENTS", 1 << 16)
+    for k, v in {"BENCH_BATCH": "2", "BENCH_IMAGE": "16", "BENCH_STEPS": "1",
+                 "BENCH_DTYPE": "float32"}.items():
+        monkeypatch.setenv(k, v)
+    assert main(["bench", "roofline", "vae", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "roofline attribution, plain-VAE step (achieved-BW-normalized)"
+    assert rec["step_cost_bytes_GB"] >= 0 and rec["device"] == "cpu"
+    assert main(["bench", "roofline", "loop"]) == 2
+    assert "'roofline' plus 'paper'|'vae'" in capsys.readouterr().err
 
 
 def test_print_config(capsys):

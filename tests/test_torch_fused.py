@@ -393,6 +393,35 @@ def test_cpu_tensors_launch_no_kernel():
     assert fused.LAUNCHES == before
 
 
+@pytest.mark.parametrize("p", [0.0, 0.5])
+def test_registered_operator_is_the_forward(p):
+    """``torch.ops.vaegan.bn_act_dropout`` is the forward wrapper (the plain
+    version on the CPU), its fake a channels_last tensor like x; under
+    ``torch.export`` the differentiable entry records the operator, outside
+    it the autograd function."""
+    x, mean, var, scale, bias = inputs(8)
+    xt = nchw(x)
+    vecs = [t(v) for v in (mean, var, scale, bias)]
+    y = torch.ops.vaegan.bn_act_dropout(xt, *vecs, 5, SLOPE, p, 1e-5, 0, None)
+    assert torch.equal(y, fused.bn_act_dropout_forward(xt, *vecs, 5, SLOPE, p))
+    assert torch.equal(fused.bn_act_dropout(xt, *vecs, 5, SLOPE, p), y)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fake = torch.ops.vaegan.bn_act_dropout(mode.from_tensor(xt),
+                                               *(mode.from_tensor(v) for v in vecs),
+                                               5, SLOPE, p, 1e-5, 0, None)
+    assert fake.shape == xt.shape and fake.is_contiguous(memory_format=torch.channels_last)
+
+    class Site(torch.nn.Module):
+        def forward(self, x):
+            return fused.bn_act_dropout(x, *vecs, 5, SLOPE, p)
+
+    graph = torch.export.export(Site(), (xt,)).graph
+    assert [n.target for n in graph.nodes if n.op == "call_function"] == [
+        torch.ops.vaegan.bn_act_dropout.default]
+
+
 # ---------------------------------------------------------------------------
 # launch shapes of the one-launch grid reductions (csrc/grid_reduce.cuh)
 # ---------------------------------------------------------------------------

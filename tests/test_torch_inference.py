@@ -101,12 +101,20 @@ def test_with_ema(pair):
 
 
 def test_bundle_round_trip(pair, tmp_path):
+    """The version-2 bundle: manifest fields, one ``.pt2`` program an entry,
+    and outputs bitwise the in-process entry points' on the CPU."""
     _, _, cfg, state = pair
     mpath = vt.save_bundle(str(tmp_path), cfg, state)
     bundle = vt.load_bundle(str(tmp_path), device="cpu")
-    for key in ("bundle_version", "image_size", "channels", "latent_shape", "entries", "config"):
+    for key in ("bundle_version", "platforms", "batch", "image_size", "channels",
+                "latent_shape", "step", "entries", "config"):
         assert key in bundle.manifest, key
-    assert bundle.cfg == cfg and bundle.latent_shape == (4, 4, 16)
+    assert bundle.manifest["bundle_version"] == serving.BUNDLE_VERSION == 2
+    assert vt.Config.from_dict(bundle.manifest["config"]) == cfg
+    assert bundle.latent_shape == (4, 4, 16) and set(bundle.programs) == {
+        "reconstruct", "encode", "decode"}
+    assert all((tmp_path / e["file"]).is_file() and e["file"].endswith(".pt2")
+               for e in bundle.manifest["entries"].values())
     assert mpath.endswith(serving.MANIFEST_NAME)
     x = batch()
     rec, mse = bundle.reconstruct(x)

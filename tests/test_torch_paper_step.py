@@ -53,6 +53,7 @@ import vaegan_tpu.train.state as jstate_mod
 import vaegan_tpu.train.step as jstep_mod
 from vaegan_tpu.config import preset as jpreset
 import vaegan_tpu_torch as vt
+from vaegan_tpu_torch import interop
 from vaegan_tpu_torch.interop import from_jax_variables
 from vaegan_tpu_torch.models.layers import Conv2D
 from vaegan_tpu_torch.ops.spectral_norm import spectral_normalize
@@ -142,10 +143,16 @@ def _inner(jstate):
     return jstate.replace(opt_g=opt_g, opt_d=jstate.opt_d.inner)
 
 
+def _jnu(s):
+    """The ``nu`` tree (RMSprop's, or Adam's in its chain) of a recorded JAX
+    optimizer state."""
+    return interop._find_state(s.inner, ("nu",)).nu
+
+
 def _g_tree(opt_g, field: str):
     """A generator-params-shaped JAX tree of ``field`` (``grads`` or ``nu``) from
     either scheme's ``opt_g``, under the port's parameter names."""
-    get = (lambda s: s.grads) if field == "grads" else (lambda s: s.inner.nu)
+    get = (lambda s: s.grads) if field == "grads" else _jnu
     tree = ({**get(opt_g["enc"]), **get(opt_g["dec"])} if isinstance(opt_g, dict)
             else get(opt_g))
     return from_jax_variables({"params": tree})
@@ -162,7 +169,9 @@ def _sd(module):
 
 
 def _nu(opt, module):
-    return {n: opt.state[p]["square_avg"].clone() for n, p in module.named_parameters()}
+    """RMSprop's ``square_avg`` (Adam's ``exp_avg_sq``) by parameter name."""
+    key = "exp_avg_sq" if isinstance(opt, torch.optim.Adam) else "square_avg"
+    return {n: opt.state[p][key].clone() for n, p in module.named_parameters()}
 
 
 def _close(got, want, what, rtol, atol):
@@ -197,7 +206,7 @@ def _record(state, jstate, pool, g_rec, d_rec, metrics, jmetrics):
                                     "spectral": jstate.d_spectral}, pool),
         nu_g=_nu(state.opt_g, state.generator), nu_d=_nu(state.opt_d, state.critic),
         jnu_g=_g_tree(jstate.opt_g, "nu"),
-        jnu_d=_params_tree(jstate.opt_d.inner.nu, jstate.d_spectral, pool),
+        jnu_d=_params_tree(_jnu(jstate.opt_d), jstate.d_spectral, pool),
         ema=None if state.g_ema is None else {k: v.clone() for k, v in state.g_ema.items()},
         jema=None if jstate.g_ema is None else from_jax_variables({"params": jstate.g_ema}))
 
@@ -602,6 +611,55 @@ def test_a_three_optimizer_jax_state_loads_and_steps_like_jax(recording):
     for k, w in rec["jnu_g"].items():
         _close(rec["nu_g"][k].sqrt().numpy(), w.sqrt().numpy(), f"sqrt(square_avg) {k}",
                1e-3, 1e-6)
+
+
+@pytest.mark.parametrize("scheme", ["notebook", "paper"])
+def test_a_jax_adam_state_loads_and_steps_like_jax(recording, scheme):
+    """``optim.optimizer="adam"``: two JAX steps, then the state into the port
+    (optax's ``(count, mu, nu)`` as torch Adam's ``step``, ``exp_avg``,
+    ``exp_avg_sq``; the paper scheme's ``opt_g`` "enc" and "dec" into the one
+    ``opt_g``), then one step in each, held as the four-step comparison holds
+    a step (``exp_avg_sq`` as ``square_avg``)."""
+    name = "vaegan_paper" if scheme == "paper" else "notebook"
+    jcfg, cfg = configs("off", "off", name)
+    jcfg = jcfg.replace(optim=jcfg.optim.replace(optimizer="adam"))
+    cfg = cfg.replace(optim=cfg.optim.replace(optimizer="adam"))
+    jstate = jstate_mod.create_train_state(jcfg, jax.random.key(0))
+    notebook = scheme == "notebook"
+    make = ((lambda inj: jstep_mod.make_train_step(jcfg, True, inject=inj)) if notebook
+            else (lambda inj: jstep_mod.make_paper_train_step(jcfg, inject=inj)))
+    jrun = jax.jit(lambda s, b, inj: make(inj)(s, b, jax.random.key(1)))
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        inj = _draws(rng, "off", notebook=notebook)
+        jstate, _ = jrun(jstate, jnp.asarray(rng.random((BATCH, SIZE, SIZE, 1), np.float32)),
+                         {k: jnp.asarray(v) for k, v in inj.items()})
+    state = vt.create_train_state(cfg, device="cpu", seed=9)
+    pool = state.critic.pool_shape
+    vt.load_jax_train_state(state, _inner(jstate), pool)
+    assert state.step == 2 and isinstance(state.opt_g, torch.optim.Adam)
+    count, trees = interop._opt_trees(_inner(jstate).opt_g, ("count", "mu", "nu"))
+    want = {k: from_jax_variables({"params": t}) for k, t in trees.items()}
+    assert count == 2
+    for n, p in state.generator.named_parameters():
+        st = state.opt_g.state[p]
+        assert float(st["step"]) == 2.0, n
+        assert torch.equal(st["exp_avg"], want["mu"][n]), n
+        assert torch.equal(st["exp_avg_sq"], want["nu"][n]), n
+    g_rec, d_rec = {}, {}
+    _record_port(state.opt_g, state.generator, g_rec)
+    _record_port(state.opt_d, state.critic, d_rec)
+    batch = rng.random((BATCH, SIZE, SIZE, 1), np.float32)
+    inj = _draws(rng, "off", notebook=notebook)
+    tinj = {k: torch.from_numpy(v) for k, v in inj.items()}
+    step = (make_train_step(cfg, True, inject=tinj) if notebook
+            else make_paper_train_step(cfg, inject=tinj))
+    state, metrics = step(state, torch.from_numpy(batch), 0)
+    jstate, jmetrics = jrun(jstate, jnp.asarray(batch), {k: jnp.asarray(v) for k, v in inj.items()})
+    assert state.step == int(jstate.step) == 3
+    rec = _record(state, jstate, pool, g_rec, d_rec, metrics, jmetrics)
+    # the notebook's clamped WGAN critic: test_torch_train_step.py's critic share
+    _assert_state_matches([rec], 0, 1e-2 if notebook else D_SHARE)
 
 
 # ---------------------------------------------------------------- the loop

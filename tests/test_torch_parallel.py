@@ -134,14 +134,17 @@ PLAN = {
 }
 
 
-def run_world(tmp: Path, plan: dict, world: int = WORLD, num_model: int = 1) -> list:
+def run_world(tmp: Path, plan: dict, world: int = WORLD, num_model: int = 1,
+              members=()) -> list:
     """Each case of ``plan`` over ``world`` gloo processes (a mesh of
-    ``world / num_model`` x ``num_model``); their results in rank order."""
+    ``world / num_model`` x ``num_model``; over the group of the global ranks
+    ``members`` when given); their results in rank order."""
     torch.save(plan, tmp / "plan.pt")
     env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
+    sub = [",".join(str(r) for r in members)] if members else []
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(world), str(tmp),
                                str(tmp / "plan.pt"), str(tmp / f"rank{r}.pt"),
-                               str(num_model)],
+                               str(num_model), *sub],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]

@@ -429,6 +429,30 @@ def test_tp_save_follows_process_0_when_one_process_sees_the_file(world2d, seen)
         assert torch.equal(v, torch.cat([a[k], b[k]]) if k in SPLIT else a[k]), k
 
 
+def test_a_model_axis_over_a_sub_group(tmp_path):
+    """``make_mesh(num_model=2, group=g)`` with g the processes {1, 2} of a
+    world of three: every process makes the mesh's groups, process 0 gets no
+    mesh, and the 1 x 2 mesh's G+D step (tensor parallelism and H split over
+    the model axis) is bitwise the same mesh's over a default group of two."""
+    cfg = cfg2d()
+    one = vt.create_train_state(cfg, device="cpu")
+    free = cfg.replace(loss=cfg.loss.replace(clip_value=None)).to_dict()
+    plan = {"tp": {"cfg": free, "init": None, "steps": _injected_steps(one.critic, 27)[:1],
+                   "tp": True, "spatial": True}}
+    for d in ("sub", "two"):
+        (tmp_path / d).mkdir()
+    sub = run_world(tmp_path / "sub", plan, world=3, num_model=MODEL, members=(1, 2))
+    two = run_world(tmp_path / "two", plan, world=2, num_model=MODEL)
+    assert sub[0] == {}
+    for got, want in zip(sub[1:], two):
+        got, want = got["tp"], want["tp"]
+        assert got["steps"][0]["metrics"] == want["steps"][0]["metrics"]
+        for net in ("generator", "critic", "nu_d", "ema"):
+            assert got[net].keys() == want[net].keys()
+            for k, v in want[net].items():
+                assert torch.equal(got[net][k], v), (net, k)
+
+
 def test_cli_train_dp_with_a_model_axis_under_torchrun(tmp_path):
     """``cli train --dp`` of a config with ``parallel.num_model`` 2 over two
     gloo processes started by torchrun: a 1 x 2 mesh, the critic head split

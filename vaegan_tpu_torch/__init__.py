@@ -20,48 +20,45 @@ blocks in the backward (``cfg.train.remat``). Every TPU kernel of the
 JAX package is a hand-written CUDA kernel here (``ops.fused``: ``bn_act_dropout``
 forward and backward, ``reparam_kl`` forward and backward, ``recon_loss_sums``).
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``. The
-package imports torch, never jax.
+package imports torch, never jax. Its names are imported when first used, so
+a module that needs little (``serving.load_bundle``: torch and ``ops.fused``)
+loads no more than that.
 """
 
-from vaegan_tpu_torch import data, utils
-from vaegan_tpu_torch.config import Config, preset
-from vaegan_tpu_torch.inference import (
-    evaluate_mse,
-    interpolate,
-    latent_shape,
-    mean_predictor_floor,
-    recalibrate_bn_stats,
-    reconstruct,
-    sample,
-    save_visual_evidence,
-    with_ema,
-)
-from vaegan_tpu_torch.interop import from_jax_variables, load_jax_train_state
-from vaegan_tpu_torch.models import Discriminator, UnsupervisedGeneratorNetwork
-from vaegan_tpu_torch.serving import ServingBundle, load_bundle, save_bundle
-from vaegan_tpu_torch import train
-from vaegan_tpu_torch import parallel
-from vaegan_tpu_torch.train import (
-    GeneratorState,
-    TrainState,
-    TrainingDiverged,
-    build_generator,
-    build_models,
-    create_generator_state,
-    create_train_state,
-    make_paper_train_step,
-    make_train_step,
-)
-from vaegan_tpu_torch.checkpoint import CheckpointManager
-from vaegan_tpu_torch.api import experiment, visualize_reconstructions
+import importlib
 
-__all__ = [
-    "CheckpointManager", "Config", "Discriminator", "GeneratorState", "ServingBundle",
-    "TrainState", "TrainingDiverged", "UnsupervisedGeneratorNetwork", "build_generator",
-    "build_models", "create_generator_state", "create_train_state", "data", "evaluate_mse",
-    "experiment", "from_jax_variables", "interpolate", "latent_shape", "load_bundle",
-    "load_jax_train_state", "make_paper_train_step", "make_train_step", "mean_predictor_floor",
-    "parallel", "preset",
-    "recalibrate_bn_stats", "reconstruct", "sample", "save_bundle", "save_visual_evidence",
-    "train", "utils", "visualize_reconstructions", "with_ema",
-]
+# public name -> the module that defines it
+_NAMES = {
+    "Config": "config", "preset": "config",
+    "evaluate_mse": "inference", "interpolate": "inference", "latent_shape": "inference",
+    "mean_predictor_floor": "inference", "recalibrate_bn_stats": "inference",
+    "reconstruct": "inference", "sample": "inference", "save_visual_evidence": "inference",
+    "with_ema": "inference",
+    "from_jax_variables": "interop", "load_jax_train_state": "interop",
+    "Discriminator": "models", "UnsupervisedGeneratorNetwork": "models",
+    "ServingBundle": "serving", "load_bundle": "serving", "save_bundle": "serving",
+    "GeneratorState": "train", "TrainState": "train", "TrainingDiverged": "train",
+    "build_generator": "train", "build_models": "train", "create_generator_state": "train",
+    "create_train_state": "train", "make_paper_train_step": "train", "make_train_step": "train",
+    "CheckpointManager": "checkpoint",
+    "experiment": "api", "visualize_reconstructions": "api",
+}
+_MODULES = ("api", "bench", "checkpoint", "cli", "config", "data", "entry", "inference",
+            "interop", "losses", "models", "ops", "parallel", "search", "serving", "train",
+            "utils")
+
+__all__ = sorted(set(_NAMES) | {"data", "parallel", "train", "utils"})
+
+
+def __getattr__(name: str):
+    if name in _MODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name not in _NAMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_NAMES[name]}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_NAMES) | set(_MODULES))

@@ -2,7 +2,7 @@
 contract on a PyTorch device:
 
     python -m vaegan_tpu_torch.bench [--paper | --vae | --loop | --infer | --loader]
-                                     [--device cuda|cpu]
+                                     [--roofline] [--device cuda|cpu]
 
 Each mode prints one JSON line ``{"metric", "value", "unit", "vs_baseline"}``
 (``--infer`` prints three, the batch-1 latency last), ``vs_baseline`` = value /
@@ -23,12 +23,23 @@ Modes:
 - ``--infer``: eval-mode reconstruct images/s, prior-sample images/s, batch-1
   reconstruct latency;
 - ``--loader``: the host pipeline's rate (cached synthetic dataset ->
-  ``DataLoader``) and with the copy to the device (``device_prefetch``).
+  ``DataLoader``) and with the copy to the device (``device_prefetch``);
+- ``--roofline`` (alone, or with ``--paper`` / ``--vae`` for those steps):
+  the device's achieved memory rate, measured with a triad (y <- 1.0001 y + b
+  over two 1 GiB float32 arrays, one kernel a repetition), the step's time,
+  and its flops and bytes from one more step counted after the timed ones
+  (``utils.cost_analysis.step_cost``, the counterpart of the XLA cost
+  analysis the JAX bench reads), printed as the bytes' implied rate and its
+  share of the achieved one, in the JAX bench's keys. ``BENCH_GP_EVERY`` > 1
+  attributes the off-step without the penalty, ``BENCH_CRITIC_ONLY=1`` the
+  critic-only step. Beside them: the kernels' share of the count
+  (``kernels``), and ``fused.LAUNCHES`` over the timed steps (``launches``,
+  ``timed_steps``) and over the counted one (``counted_step_launches``; on
+  a CPU tensor no kernel launches).
 
 Times on a CUDA device come from CUDA events recorded in stream order around
 the timed steps (the span includes any gap where the device waits for the
-host); on the CPU from the host clock. ``--roofline`` (XLA's cost analysis in
-the JAX bench) is not ported: it exits 2 (ROADMAP.md).
+host); on the CPU from the host clock.
 
 Env knobs, as ``bench.py``'s: BENCH_BATCH (default 128), BENCH_DTYPE
 (bfloat16 | float32, default bfloat16), BENCH_STEPS (default 20; 80 for
@@ -36,7 +47,8 @@ Env knobs, as ``bench.py``'s: BENCH_BATCH (default 128), BENCH_DTYPE
 otherwise 1), BENCH_N_CRITICS (notebook default 5, otherwise 1),
 BENCH_DATASET (``--loader``, default 1200), BENCH_CRITIC_BATCHING (default
 separate), BENCH_PALLAS (default: the preset's ``use_pallas``),
-BENCH_LOG_EVERY (``--loop``, default 1).
+BENCH_LOG_EVERY (``--loop``, default 1); BENCH_CRITIC_ONLY (``--roofline``,
+default 0). ``--roofline`` reads BENCH_GP_EVERY with a default of 1.
 """
 
 from __future__ import annotations
@@ -45,13 +57,15 @@ import argparse
 import json
 import math
 import os
-import sys
 import tempfile
 import time
 
 import torch
 
 LABELS = {"notebook": "VAE-GAN", "vaegan_paper": "Larsen-paper", "notebook_vae": "plain-VAE"}
+# the roofline's triad: float32 elements per array (1 GiB) and repetitions
+TRIAD_ELEMENTS = 256 * 2 ** 20
+TRIAD_REPS = 50
 
 
 def _env(name: str, default):
@@ -283,29 +297,119 @@ def bench_loader(dev: torch.device) -> None:
           h2d_images_per_sec=round(h2d, 1), device=device_name(dev))
 
 
+def triad_rep(y: torch.Tensor, b: torch.Tensor) -> None:
+    """One repetition of the triad, y <- 1.0001 y + b in place: one kernel that
+    reads two arrays and writes one."""
+    torch.add(b, y, alpha=1.0001, out=y)
+
+
+def triad_gbs(dev: torch.device) -> float:
+    """The device's achieved memory rate in GB/s: :func:`triad_rep` over
+    :data:`TRIAD_ELEMENTS` float32 elements, :data:`TRIAD_REPS` times."""
+    n = TRIAD_ELEMENTS
+    y = torch.ones(n, device=dev)
+    b = torch.full((n,), 2.0, device=dev)
+    triad_rep(y, b)                                 # warm
+    clock = Clock(dev)
+    start = clock.mark()
+    for _ in range(TRIAD_REPS):
+        triad_rep(y, b)
+    seconds = clock.seconds(start, clock.mark())
+    return 3 * 4 * n * TRIAD_REPS / seconds / 1e9
+
+
+def state_bytes(state) -> int:
+    """Bytes of the parameters, their gradients and the optimizer state: what any
+    step that updates every parameter reads and writes at least once."""
+    total = 0
+    for module, opt in ((state.generator, state.opt_g), (state.critic, state.opt_d)):
+        for p in module.parameters():
+            total += 2 * p.numel() * p.element_size()
+            total += sum(v.numel() * v.element_size() for v in opt.state.get(p, {}).values()
+                         if isinstance(v, torch.Tensor))
+    return total
+
+
+def bench_roofline(preset_name: str, dev: torch.device) -> None:
+    """The JAX bench's roofline attribution of one step variant (module
+    docstring), timed on ``dev`` and counted by ``utils.cost_analysis``."""
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.train import create_train_state, make_paper_train_step, make_train_step
+    from vaegan_tpu_torch.utils.cost_analysis import step_cost
+
+    achieved_gbs = triad_gbs(dev)
+    cfg = _train_cfg(preset_name)
+    b, image = cfg.data.batch_size, cfg.data.image_size
+    no_gp = _env("BENCH_GP_EVERY", 1) > 1
+    do_g = os.environ.get("BENCH_CRITIC_ONLY", "0") != "1"
+    step = (make_paper_train_step(cfg) if cfg.optim.scheme == "three"
+            else make_train_step(cfg, do_g, do_gp=not no_gp))
+    state = create_train_state(cfg, device=dev, seed=0)
+    batch = torch.rand((b, image, image, 1), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    for i in range(3):
+        state, _ = step(state, batch, i)
+    n_steps = _env("BENCH_STEPS", 20)
+    clock = Clock(dev)
+    fused.reset_launches()
+    start = clock.mark()
+    for i in range(n_steps):
+        state, _ = step(state, batch, 100 + i)
+    step_s = clock.seconds(start, clock.mark()) / n_steps
+    launches = dict(fused.LAUNCHES)
+    # the cost of one more step, after the timed window, as the JAX bench does
+    fused.reset_launches()
+    cost = step_cost(step, state, batch, 1000)
+    counted_launches = dict(fused.LAUNCHES)
+    flops, bytes_ = cost["flops"], cost["bytes accessed"]
+    implied_gbs = bytes_ / step_s / 1e9
+    label = LABELS.get(preset_name, preset_name)
+    if not do_g:
+        label += " critic-only"
+    if no_gp:
+        label += " no-GP off-step"
+    print(json.dumps({
+        "metric": f"roofline attribution, {label} step (achieved-BW-normalized)",
+        "achieved_hbm_gbs_triad": round(achieved_gbs, 1),
+        "step_cost_flops_T": round(flops / 1e12, 2),
+        "step_cost_bytes_GB": round(bytes_ / 1e9, 2),
+        "step_ms": round(step_s * 1e3, 1),
+        "images_per_sec": round(b / step_s, 1),
+        "step_implied_gbs": round(implied_gbs, 1),
+        "fraction_of_achieved_bw": round(implied_gbs / achieved_gbs, 3),
+        "memory_floor_ms_at_achieved_bw": round(bytes_ / achieved_gbs / 1e6, 1),
+        "device": device_name(dev),
+        "step_cost_flops": flops, "step_cost_bytes": bytes_,
+        "state_bytes": state_bytes(state), "kernels": cost["kernels"],
+        "timed_steps": n_steps, "launches": launches, "counted_step_launches": counted_launches,
+    }), flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m vaegan_tpu_torch.bench")
     mode = p.add_mutually_exclusive_group()
-    for m in ("paper", "vae", "loop", "infer", "loader", "roofline"):
+    for m in ("paper", "vae", "loop", "infer", "loader"):
         mode.add_argument(f"--{m}", action="store_true")
+    p.add_argument("--roofline", action="store_true",
+                   help="roofline attribution of the step (with --paper / --vae: of that step)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
-    if args.roofline:
-        print("bench --roofline (the JAX bench's XLA cost analysis) is not ported yet: "
-              "ROADMAP.md queues it", file=sys.stderr)
-        return 2
+    if args.roofline and (args.loop or args.infer or args.loader):
+        p.error("--roofline combines with --paper or --vae only")
     from vaegan_tpu_torch.train.state import resolve_device
 
     dev = resolve_device(args.device)
-    if args.loader:
+    preset_name = "vaegan_paper" if args.paper else "notebook_vae" if args.vae else "notebook"
+    if args.roofline:
+        bench_roofline(preset_name, dev)
+    elif args.loader:
         bench_loader(dev)
     elif args.loop:
         bench_loop(dev)
     elif args.infer:
         bench_infer(dev)
     else:
-        bench_step("vaegan_paper" if args.paper else "notebook_vae" if args.vae else "notebook",
-                   dev)
+        bench_step(preset_name, dev)
     return 0
 
 

@@ -134,13 +134,16 @@ def cmd_train(args):
 
 
 def cmd_export_serving(args):
-    """Checkpoint -> serving bundle (manifest + the generator's state_dict)."""
+    """Checkpoint -> self-contained serving bundle (``torch.export`` programs)."""
     from vaegan_tpu_torch import serving
 
     cfg = _load_cfg(args)
     gen = _generator_state(args, cfg)
-    mpath = serving.save_bundle(args.out, cfg, gen, image_size=getattr(args, "image_size", None))
-    print(f"serving bundle (torch state_dict; batch symbolic) -> {mpath}")
+    platforms = tuple(p.strip() for p in args.platforms.split(",") if p.strip())
+    mpath = serving.save_bundle(args.out, cfg, gen, image_size=getattr(args, "image_size", None),
+                                platforms=platforms, batch_size=args.batch or None)
+    print(f"serving bundle ({', '.join(platforms)}; batch "
+          f"{'symbolic' if not args.batch else args.batch}) -> {mpath}")
     return 0
 
 
@@ -281,8 +284,13 @@ def cmd_bench(args):
     if bad:
         print(f"unknown bench mode(s) {bad}; valid: {sorted(BENCH_MODES)}", file=sys.stderr)
         return 2
-    if len(modes) > 1:
-        print(f"pass at most one bench mode, got {modes}", file=sys.stderr)
+    # one mode, or roofline with a step selector (`bench roofline paper`
+    # attributes the Larsen step), as the JAX CLI takes them
+    combo = "roofline" in modes and len(modes) == 2 and set(modes) - {"roofline"} <= {
+        "paper", "vae"}
+    if len(modes) > 1 and not combo:
+        print(f"pass at most one bench mode (or 'roofline' plus 'paper'|'vae'), got {modes}",
+              file=sys.stderr)
         return 2
     from vaegan_tpu_torch import bench
 
@@ -358,13 +366,15 @@ def main(argv=None) -> int:
 
     sp = sub.add_parser(
         "export-serving",
-        help="export a checkpoint as a serving bundle (reconstruct/encode/decode)",
-        description="A bundle is a manifest and the generator's state_dict; "
-                    "serving.load_bundle rebuilds the generator on any device and serves "
-                    "any batch size, so the JAX CLI's --platforms and --batch (which pick "
-                    "StableHLO lowerings and pin a batch) have no counterpart here.")
+        help="export a checkpoint as a self-contained serving bundle (reconstruct/encode/"
+             "decode as torch.export programs; loads with torch alone, no model code)")
     common(sp, ckpt_required=True)
     sp.add_argument("--out", default="serving_bundle", help="output bundle directory")
+    sp.add_argument("--platforms", default="cpu,cuda",
+                    help="comma-separated devices the bundle may be loaded on (default cpu,cuda)")
+    sp.add_argument("--batch", type=int, default=0,
+                    help="pin the batch dimension (default 0 = symbolic: one program serves "
+                         "any batch size)")
     sp.add_argument("--ema", action="store_true", help="export the generator-EMA iterate")
     sp.set_defaults(fn=cmd_export_serving)
 
@@ -416,8 +426,9 @@ def main(argv=None) -> int:
     sp = sub.add_parser("bench", help="run the port's throughput benchmark "
                                       "(python -m vaegan_tpu_torch.bench)")
     sp.add_argument("mode", nargs="*",
-                    help="bench mode: paper | vae | loop | infer | loader (default: the "
-                         "notebook WGAN-GP step); roofline is not ported (ROADMAP.md)")
+                    help="bench mode: paper | vae | loop | infer | loader | roofline "
+                         "(default: the notebook WGAN-GP step); 'roofline paper' / "
+                         "'roofline vae' attribute those steps instead")
     device(sp)
     sp.set_defaults(fn=cmd_bench)
 

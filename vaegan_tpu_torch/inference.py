@@ -40,16 +40,22 @@ def _as_input(a, device: torch.device) -> torch.Tensor:
                            dtype=torch.float32, device=device)
 
 
-@torch.inference_mode()
-def eval_reconstruct(cfg: Config, gen: UnsupervisedGeneratorNetwork,
-                     batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def reconstruction(cfg: Config, gen: UnsupervisedGeneratorNetwork,
+                   batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode reconstruction + the reference's one-batch MSE, taken in float32.
-    Shared by :func:`reconstruct` and the serving bundle, so the served metric's
-    definition lives in one place."""
+    Shared by :func:`reconstruct` and the serving bundle's exported entry, so
+    the served metric's definition lives in one place."""
     out = gen(batch, train=False)
     recon = out[0] if cfg.generator.is_vae else out
     mse = torch.mean(torch.square(recon.float() - batch.float()))
     return recon, mse
+
+
+@torch.inference_mode()
+def eval_reconstruct(cfg: Config, gen: UnsupervisedGeneratorNetwork,
+                     batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`reconstruction` under ``torch.inference_mode``."""
+    return reconstruction(cfg, gen, batch)
 
 
 def reconstruct(cfg: Config, state: GeneratorState, batch) -> Tuple[torch.Tensor, torch.Tensor]:

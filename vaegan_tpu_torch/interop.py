@@ -24,8 +24,8 @@ The rules are this package's own copy of those in ``vaegan_tpu/interop.py``
 
 So ``load_state_dict(..., strict=True)`` takes both this function's output and the
 ``.pt`` that ``vaegan-tpu export`` writes. The same rules map any params-shaped
-tree (gradients, RMSprop's ``nu``) onto the port's parameter names, given the
-critic's ``spectral`` tree beside it.
+tree (gradients, RMSprop's ``nu``, Adam's ``mu`` and ``nu``) onto the port's
+parameter names, given the critic's ``spectral`` tree beside it.
 """
 
 from __future__ import annotations
@@ -122,24 +122,50 @@ def from_jax_variables(variables: Mapping[str, Any],
     return out
 
 
-def _rms_nu(jopt) -> Mapping[str, Any]:
-    """The RMSprop ``nu`` tree of a JAX optimizer state; a three-optimizer
-    ``opt_g = {"enc", "dec"}`` gives its two trees merged."""
+def _find_state(jopt, fields: Tuple[str, ...]):
+    """The part of an optax state (a transformation's state, or a chain's tuple
+    of them) that has every one of ``fields``; None if none has."""
+    if all(hasattr(jopt, f) for f in fields):
+        return jopt
+    if isinstance(jopt, (tuple, list)):
+        for part in jopt:
+            found = _find_state(part, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def _opt_trees(jopt, fields: Tuple[str, ...]):
+    """``(count, {field: tree})`` of a JAX optimizer state: RMSprop's ``nu``, or
+    Adam's ``mu`` and ``nu`` with its step ``count`` (``add_decayed_weights``
+    before ``adam`` is a chain; the count is None for RMSprop). A
+    three-optimizer ``opt_g = {"enc", "dec"}`` gives its two trees merged."""
     if isinstance(jopt, Mapping) and set(jopt) == {"enc", "dec"}:
-        return {**_rms_nu(jopt["enc"]), **_rms_nu(jopt["dec"])}
-    if not hasattr(jopt, "nu"):
-        raise ValueError("load_jax_train_state carries RMSprop state only")
-    return jopt.nu
+        (count, enc), (_, dec) = _opt_trees(jopt["enc"], fields), _opt_trees(jopt["dec"], fields)
+        return count, {f: {**enc[f], **dec[f]} for f in enc}
+    found = _find_state(jopt, fields)
+    if found is None:
+        raise ValueError(f"load_jax_train_state: the JAX optimizer state has no {fields}")
+    count = int(np.asarray(found.count)) if "count" in fields else None
+    return count, {f: getattr(found, f) for f in fields if f != "count"}
+
+
+# torch optimizer -> (fields of the JAX state, {torch state key: JAX field})
+_OPT_STATE = {torch.optim.RMSprop: (("nu",), {"square_avg": "nu"}),
+              torch.optim.Adam: (("count", "mu", "nu"), {"exp_avg": "mu", "exp_avg_sq": "nu"})}
 
 
 def load_jax_train_state(state, jstate, pool_shape: Tuple[int, int, int]):
     """Load a JAX ``TrainState`` (any object with its fields: ``step``,
     ``g_params``, ``d_params``, ``g_stats``, ``d_stats``, ``d_spectral``,
     ``opt_g``, ``opt_d``, ``g_metrics``, ``g_ema``) into the port's
-    ``train.TrainState``, in place; returns it. The optimizers must be RMSprop:
-    the JAX ``RmsState.nu`` becomes each parameter's ``square_avg``. A
-    three-optimizer state's ``opt_g = {"enc", "dec"}`` goes into the port's one
-    ``opt_g``: the encoder's and the decoder's ``nu`` trees are merged."""
+    ``train.TrainState``, in place; returns it. The optimizers must be RMSprop
+    or Adam, as ``cfg.optim.optimizer`` builds them on both sides: RMSprop's
+    ``nu`` becomes each parameter's ``square_avg`` (step: the state's step);
+    optax Adam's ``(count, mu, nu)`` become torch Adam's ``step``, ``exp_avg``
+    and ``exp_avg_sq``. A three-optimizer state's ``opt_g = {"enc", "dec"}``
+    goes into the port's one ``opt_g``: the encoder's and the decoder's trees
+    are merged."""
     gen, critic = state.generator, state.critic
     gen.load_state_dict(from_jax_variables(
         {"params": jstate.g_params, "batch_stats": jstate.g_stats}), strict=True)
@@ -150,13 +176,19 @@ def load_jax_train_state(state, jstate, pool_shape: Tuple[int, int, int]):
     for opt, module, jopt, spectral, pool in (
             (state.opt_g, gen, jstate.opt_g, {}, None),
             (state.opt_d, critic, jstate.opt_d, jstate.d_spectral, pool_shape)):
-        if not isinstance(opt, torch.optim.RMSprop):
-            raise ValueError("load_jax_train_state carries RMSprop state only")
+        kind = _OPT_STATE.get(type(opt))
+        if kind is None:
+            raise ValueError(f"load_jax_train_state carries RMSprop and Adam state, not "
+                             f"{type(opt).__name__}")
+        fields, keys = kind
+        count, trees = _opt_trees(jopt, fields)
         # the spectral tree names the kernels that are ``weight_orig``
-        nu = from_jax_variables({"params": _rms_nu(jopt), "spectral": spectral}, pool)
+        torch_trees = {k: from_jax_variables({"params": trees[f], "spectral": spectral}, pool)
+                       for k, f in keys.items()}
+        n = step if count is None else count
         for name, p in module.named_parameters():
-            opt.state[p] = {"step": torch.tensor(float(step)),
-                            "square_avg": nu[name].to(p.device)}
+            opt.state[p] = {"step": torch.tensor(float(n)),
+                            **{k: t[name].to(p.device) for k, t in torch_trees.items()}}
     dev = next(gen.parameters()).device
     state.step = step
     state.g_metrics = {k: torch.tensor(np.asarray(v), device=dev)

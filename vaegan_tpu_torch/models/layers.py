@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vaegan_tpu_torch.ops import ieee_float32
 from vaegan_tpu_torch.ops.fused import bn_act_dropout
 from vaegan_tpu_torch.ops.initializers import conv_init, kaiming_normal_
 from vaegan_tpu_torch.ops.norm import batch_norm, batch_stats
@@ -58,21 +59,6 @@ def as_channels_last(x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         return x.as_strided(x.shape, (h * w * c, 1, w * c, c))
     return x.contiguous(memory_format=torch.channels_last)
-
-
-@contextlib.contextmanager
-def ieee_float32():
-    """cuDNN convolutions and cuBLAS matmuls in IEEE float32 for the duration,
-    whatever the process-wide defaults (PyTorch's convolutions default to TF32,
-    10 mantissa bits); restored after. Autograd runs a backward later, outside a
-    forward's context, so a float32 train step holds this around its backward
-    and double-backward calls too (``train.step``)."""
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def precision(dtype: torch.dtype):

@@ -48,7 +48,14 @@ launches the one that divides by L, every other map the contiguous one, whose
 loop computes ``base + e`` alone.
 
 ``LAUNCHES`` counts kernel launches per kernel name: one is added where a
-wrapper launches its kernel, and nowhere else. Channel and block sums are taken
+wrapper launches its kernel, and nowhere else. While :func:`counting` runs,
+a cost count (``utils.cost_analysis``) is told of every kernel call, with the
+bytes and operations :func:`kernel_cost` gives it: beside ``LAUNCHES`` where a
+wrapper launches, and in place of the plain version's own ops on a CPU tensor.
+Outside a count a launch does one test more. The forward of ``bn_act_dropout`` is also the registered operator
+``torch.ops.vaegan.bn_act_dropout`` (:func:`bn_act_dropout_op`), which is
+what ``torch.export`` records: an exported program launches the same kernel
+when it runs on the card. Channel and block sums are taken
 in a fixed order on the card (no float atomics), so a kernel gives the same bits
 run to run. The ``bn_act_dropout`` backward, the ``reparam_kl`` forward and
 ``recon_loss_sums`` reduce over their grid in the same launch
@@ -61,9 +68,10 @@ device memory adds the rows. The counter is kept per CUDA stream
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +101,29 @@ _P = ctypes.c_void_p
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# the running cost count (:func:`counting`), or None
+_COST = None
+
+
+def _launched_cost(name: str, x: torch.Tensor, p: float = 0.0) -> None:
+    """At a launch of kernel ``name`` on ``x``: tell the running cost count."""
+    if _COST is not None:
+        _COST.add(name, *_call_cost(name, x, p))
+
+
+@contextlib.contextmanager
+def _plain_cost(name: str, x: torch.Tensor, p: float = 0.0):
+    """Around the plain version of kernel ``name`` on the CPU tensor ``x``: the
+    running cost count leaves out its ops and counts the kernel's cost instead,
+    so both devices count a kernel by the same formula."""
+    if _COST is None:
+        yield
+        return
+    with _COST.paused():
+        yield
+    _COST.add(name, *_call_cost(name, x, p))
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +401,9 @@ def bn_act_dropout_forward(x, mean, var, scale, bias, seed: int, slope: float, p
     global flat NHWC index under the index map ``(base, stripe)``.
     """
     if _device_kind(x, "bn_act_dropout") == "cpu":
-        return bn_act_dropout_reference(x, mean, var, scale, bias, seed, slope, p, eps, base,
-                                        stripe)
+        with _plain_cost("bn_act_dropout", x, p):
+            return bn_act_dropout_reference(x, mean, var, scale, bias, seed, slope, p, eps, base,
+                                            stripe)
     big_l, big_g = _check(x, mean, var, scale, bias, seed, p, base, stripe)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     fn = _kernel_fn("bn_act_dropout", "vaegan_bn_act_dropout_fwd", (_P,) * 6 + (
@@ -384,6 +416,7 @@ def bn_act_dropout_forward(x, mean, var, scale, bias, seed: int, slope: float, p
                 base, big_l, big_g, _sms(x.device) * 8, _stream(x.device))
     _raise_on(rc, "bn_act_dropout")
     LAUNCHES["bn_act_dropout"] += 1
+    _launched_cost("bn_act_dropout", x, p)
     return y
 
 
@@ -450,8 +483,9 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
     _check_cotangent("bn_act_dropout backward", "g", g, x)
     g = _channels_last(g.to(x.dtype))
     if _device_kind(x, "bn_act_dropout backward") == "cpu":
-        return bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed, slope,
-                                                 p, eps, base, stripe)
+        with _plain_cost("bn_act_dropout_bwd", x, p):
+            return bn_act_dropout_backward_reference(x, g, mean, var, scale, bias, seed, slope,
+                                                     p, eps, base, stripe)
     big_l, big_g = _check(x, mean, var, scale, bias, seed, p, base, stripe)
     c = x.shape[1]
     shape = bwd_launch_for(x, p, big_l != big_g)
@@ -473,6 +507,7 @@ def bn_act_dropout_backward(x, g, mean, var, scale, bias, seed: int, slope: floa
                 base, big_l, big_g, shape.threads, shape.vec, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "bn_act_dropout backward")
     LAUNCHES["bn_act_dropout_bwd"] += 1
+    _launched_cost("bn_act_dropout_bwd", x, p)
     return dx, dscale, dbias, dmean, dvar
 
 
@@ -493,11 +528,32 @@ class _BnActDropout(torch.autograd.Function):
         return dx, dmean, dvar, dscale, dbias, None, None, None, None, None, None
 
 
+@torch.library.custom_op("vaegan::bn_act_dropout", mutates_args=())
+def bn_act_dropout_op(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                      scale: torch.Tensor, bias: torch.Tensor, seed: int, slope: float,
+                      p: float, eps: float, base: int,
+                      stripe: Optional[List[int]]) -> torch.Tensor:
+    """:func:`bn_act_dropout_forward` as a registered operator (no autograd): the
+    kernel on a CUDA tensor, the plain version on a CPU one. ``seed`` is an
+    int64 here, so below 2**63."""
+    return bn_act_dropout_forward(x, mean, var, scale, bias, seed, slope, p, eps, base, stripe)
+
+
+@bn_act_dropout_op.register_fake
+def _(x, mean, var, scale, bias, seed, slope, p, eps, base, stripe):
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
 def bn_act_dropout(x, mean, var, scale, bias, seed: int, slope: float, p: float,
                    eps: float = 1e-5, base: int = 0, stripe=None) -> torch.Tensor:
     """Differentiable :func:`bn_act_dropout_forward`: the backward kernel gives
     the gradients of x, mean, var, scale and bias (autograd carries dmean and dvar
-    into the batch statistics when they were computed from x)."""
+    into the batch statistics when they were computed from x). Under
+    ``torch.export``, which cannot trace the ctypes launch, the forward is the
+    registered operator."""
+    if torch.compiler.is_exporting():
+        return bn_act_dropout_op(x, mean, var, scale, bias, seed, slope, p, eps, base,
+                                 None if stripe is None else [int(v) for v in stripe])
     return _BnActDropout.apply(x, mean, var, scale, bias, seed, slope, p, eps, base, stripe)
 
 
@@ -551,7 +607,8 @@ def reparam_kl_forward(mu, lv, seed: int, base: int = 0, stripe=None):
     made channels_last."""
     mu, lv = _channels_last(mu), _channels_last(lv)
     if _device_kind(mu, "reparam_kl") == "cpu":
-        return reparam_kl_reference(mu, lv, seed, base, stripe)
+        with _plain_cost("reparam_kl", mu):
+            return reparam_kl_reference(mu, lv, seed, base, stripe)
     big_l, big_g = _check_reparam(mu, lv, seed, base, stripe)
     shape = reparam_launch_for(mu, big_l != big_g)
     with torch.cuda.device(mu.device):
@@ -567,6 +624,7 @@ def reparam_kl_forward(mu, lv, seed: int, base: int = 0, stripe=None):
                 _DTYPE_CODE[mu.dtype], seed, base, big_l, big_g, shape.blocks, CLUSTER, stream)
     _raise_on(rc, "reparam_kl")
     LAUNCHES["reparam_kl"] += 1
+    _launched_cost("reparam_kl", mu)
     return z, kl
 
 
@@ -596,7 +654,8 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base
                              f"shape {tuple(gkl.shape)} on {gkl.device}")
         gkl = gkl.detach().to(torch.float32).reshape(())
     if _device_kind(mu, "reparam_kl backward") == "cpu":
-        return reparam_kl_backward_reference(mu, lv, gz, gkl, seed, base, stripe)
+        with _plain_cost("reparam_kl_bwd", mu):
+            return reparam_kl_backward_reference(mu, lv, gz, gkl, seed, base, stripe)
     big_l, big_g = _check_reparam(mu, lv, seed, base, stripe)
     n = mu.numel()
     dmu = torch.empty_like(mu, memory_format=torch.channels_last)
@@ -610,6 +669,7 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base
                 _stream(mu.device))
     _raise_on(rc, "reparam_kl backward")
     LAUNCHES["reparam_kl_bwd"] += 1
+    _launched_cost("reparam_kl_bwd", mu)
     return dmu, dlv
 
 
@@ -677,7 +737,8 @@ def recon_loss_sums_forward(r, t) -> torch.Tensor:
     both (made contiguous in their given layout) and one launch."""
     r, t = r.contiguous(), t.contiguous()
     if _device_kind(r, "recon_loss_sums") == "cpu":
-        return recon_loss_sums_reference(r, t)
+        with _plain_cost("recon_loss_sums", r):
+            return recon_loss_sums_reference(r, t)
     _check_recon(r, t)
     shape = recon_launch_for(r)
     with torch.cuda.device(r.device):
@@ -690,6 +751,7 @@ def recon_loss_sums_forward(r, t) -> torch.Tensor:
                 out.data_ptr(), r.numel(), _DTYPE_CODE[r.dtype], shape.blocks, CLUSTER, stream)
     _raise_on(rc, "recon_loss_sums")
     LAUNCHES["recon_loss_sums"] += 1
+    _launched_cost("recon_loss_sums", r)
     return out
 
 
@@ -719,3 +781,76 @@ def recon_loss_sums(recon, target) -> torch.Tensor:
     if recon.dtype != target.dtype:
         recon, target = recon.float(), target.float()
     return _ReconLossSums.apply(recon, target)
+
+
+# ---------------------------------------------------------------------------
+# cost of a kernel call
+# ---------------------------------------------------------------------------
+
+# One Philox4x32-10 call (four 32-bit words): 10 rounds of two 32x32 -> 64-bit
+# products (hi and lo: 4), four xors and the two key additions.
+_PHILOX_OPS = 100
+
+# Operations per element of each kernel's algorithm, float and integer alike, a
+# transcendental (rsqrt, exp, log, sqrt, cos) counted as one: (float32 inputs,
+# added for dropout, added for bfloat16 inputs' conversions).
+# - bn_act_dropout: x - mean, * (inv scale), + bias; leaky ReLU (compare, *,
+#   select); dropout: a quarter Philox call, the keep rule (shift, convert,
+#   compare), * 1/(1-p) and select;
+# - bn_act_dropout_bwd: the forward's a (3) and xhat (1) again, the mask's
+#   replay (as above), leaky' (3), dx (1), the two channel sums (3);
+# - reparam_kl: half a Philox call, Box-Muller (two shifts, two converts,
+#   + 1, two scalings, log, * -2, sqrt, * 2 pi, cos, *: 13),
+#   z = mu + exp(lv/2) eps (4), the KL term and its sum (6);
+# - reparam_kl_bwd: the noise again (63), dmu (2), dlv (9);
+# - recon_loss_sums: r - t, |d|, +, d^2, +.
+_OPS_PER_ELEMENT = {
+    "bn_act_dropout": (6, _PHILOX_OPS // 4 + 5, 2),
+    "bn_act_dropout_bwd": (11, _PHILOX_OPS // 4 + 5, 3),
+    "reparam_kl": (_PHILOX_OPS // 2 + 23, 0, 3),
+    "reparam_kl_bwd": (_PHILOX_OPS // 2 + 24, 0, 5),
+    "recon_loss_sums": (5, 0, 2),
+}
+
+
+def ops_per_element(name: str, elem_bytes: int = 4, dropout: bool = False) -> int:
+    """Operations per element of kernel ``name`` (a key of ``LAUNCHES``)."""
+    base, drop, convert = _OPS_PER_ELEMENT[name]
+    return base + (drop if dropout else 0) + (convert if elem_bytes == 2 else 0)
+
+
+def kernel_cost(name: str, numel: int, channels: int = 0, elem_bytes: int = 4,
+                dropout: bool = False) -> Tuple[int, int]:
+    """``(bytes, operations)`` of one call of kernel ``name`` over ``numel``
+    elements of ``elem_bytes`` bytes (``channels``: C of a ``bn_act_dropout``
+    call): each input read once and each output written once (the float32
+    per-channel vectors and scalars included), and :func:`ops_per_element`
+    times the elements."""
+    per = {"bn_act_dropout": (2, 16 * channels), "bn_act_dropout_bwd": (3, 32 * channels),
+           "reparam_kl": (3, 4), "reparam_kl_bwd": (5, 4), "recon_loss_sums": (2, 8)}[name]
+    return (per[0] * numel * elem_bytes + per[1],
+            ops_per_element(name, elem_bytes, dropout) * numel)
+
+
+def _call_cost(name: str, x: torch.Tensor, p: float = 0.0) -> Tuple[int, int]:
+    """:func:`kernel_cost` of a call of kernel ``name`` on ``x`` (x, mu or r) at
+    dropout ``p``."""
+    bn = name.startswith("bn_act_dropout")
+    return kernel_cost(name, x.numel(), x.shape[1] if bn else 0, x.element_size(),
+                       bn and p > 0.0)
+
+
+@contextlib.contextmanager
+def counting(count):
+    """For the duration, tell ``count`` of every kernel call: ``count.add(kernel
+    name, bytes, operations)`` (:func:`kernel_cost`) where a wrapper launches,
+    and on a CPU tensor around the plain version, whose ops run inside
+    ``count.paused()``. One count runs at a time."""
+    global _COST
+    if _COST is not None:
+        raise RuntimeError("a cost count is already running")
+    _COST = count
+    try:
+        yield
+    finally:
+        _COST = None

@@ -86,16 +86,30 @@ def is_multihost() -> bool:
     return world_size() > 1
 
 
-def mesh_groups(num_data: int, num_model: int):
-    """The process groups of a ``num_data x num_model`` mesh over the default
-    group, process ``(d, m)`` being global rank ``d * num_model + m``:
-    ``(data groups, model groups)``, the data axis through each model index
-    and the model axis through each data index. ``torch.distributed.new_group``
-    needs every process of the default group to make every group, in the same
-    order, so each process makes all of them."""
-    data = [td.new_group([d * num_model + m for d in range(num_data)])
+def group_ranks(group) -> list:
+    """The global ranks of ``group``'s processes, in their order in ``group``,
+    on every process of the default group: each must call this (an
+    ``all_gather_object`` over the default group), and the members tell the
+    others."""
+    mine = ([td.get_global_rank(group, i) for i in range(td.get_world_size(group))]
+            if td.get_rank(group) >= 0 else None)
+    every = [None] * td.get_world_size()
+    td.all_gather_object(every, mine)
+    return next(r for r in every if r is not None)
+
+
+def mesh_groups(num_data: int, num_model: int, ranks=None):
+    """The process groups of a ``num_data x num_model`` mesh over the processes
+    of global ranks ``ranks`` (default: the default group's), process ``(d,
+    m)`` being ``ranks[d * num_model + m]``: ``(data groups, model groups)``,
+    the data axis through each model index and the model axis through each data
+    index. ``torch.distributed.new_group`` needs every process of the default
+    group to make every group, in the same order, members or not, so each
+    process makes all of them."""
+    ranks = list(range(num_data * num_model)) if ranks is None else list(ranks)
+    data = [td.new_group([ranks[d * num_model + m] for d in range(num_data)])
             for m in range(num_model)]
-    model = [td.new_group([d * num_model + m for m in range(num_model)])
+    model = [td.new_group([ranks[d * num_model + m] for m in range(num_model)])
              for d in range(num_data)]
     return data, model
 

@@ -7,7 +7,8 @@ sharding) and the critic head's kernels along the second axis (tensor
 parallelism), and lets GSPMD insert the collectives into one jitted step.
 PyTorch has no such compiler pass, so the same program is written out here. A
 :class:`Mesh` is ``num_data x num_model`` processes of a ``torch.distributed``
-world, one per device, process ``(d, m)`` at global rank ``d num_model + m``
+world (or of a group of it), one per device, process ``(d, m)`` at rank ``d
+num_model + m`` of that group
 (the JAX mesh's row-major order); :func:`make_parallel_train_step` builds the
 port's step with this process's :class:`~vaegan_tpu_torch.ops.replica.Replica`,
 whose collectives (global batch statistics, conv halos, the head's gathers, the
@@ -62,6 +63,8 @@ class Mesh:
 
     @property
     def global_rank(self) -> int:
+        """This process's rank in the mesh's group (the global rank over the
+        default group)."""
         return self.rank * self.num_model + self.model_rank
 
     def replica_for(self, spatial: bool = False) -> Replica:
@@ -80,14 +83,21 @@ class Mesh:
 
 
 def make_mesh(num_data: int = -1, num_model: int = 1, data_axis: str = "data",
-              model_axis: str = "model", group=None) -> Mesh:
+              model_axis: str = "model", group=None) -> Optional[Mesh]:
     """The ``num_data x num_model`` mesh over the processes of ``group`` (the
-    default process group; without one, the world of this process alone).
+    default process group; without one, the world of this process alone),
+    process ``(d, m)`` being rank ``d num_model + m`` of ``group``.
     ``num_data`` -1 takes every process over ``num_model``; the product must
-    be the world size. ``data_axis`` / ``model_axis`` name the axes, as in
+    be the group's size. ``data_axis`` / ``model_axis`` name the axes, as in
     JAX: a spatial ``batch_spec`` names the second, and tensor parallelism
-    shards over the axis ``state_shardings`` names (``"model"``)."""
-    world = dist.world_size(group)
+    shards over the axis ``state_shardings`` names (``"model"``).
+
+    With a model axis every process of the default group must call this with
+    the same arguments, members of ``group`` or not: the mesh's groups are made
+    by all of them (``dist.mesh_groups``), and a process outside ``group``
+    gets ``None``."""
+    ranks = dist.group_ranks(group) if group is not None and num_model > 1 else None
+    world = len(ranks) if ranks is not None else dist.world_size(group)
     if num_model < 1 or world % num_model:
         raise ValueError(f"make_mesh: num_model={num_model} does not divide the {world} "
                          "processes of the group")
@@ -101,12 +111,12 @@ def make_mesh(num_data: int = -1, num_model: int = 1, data_axis: str = "data",
     r = dist.rank(group)
     if num_model == 1:
         return Mesh(num_data=num_data, rank=r, group=group, axis_names=names)
-    if group is not None:
-        raise ValueError("a mesh with a model axis spans the default process group")
-    data_groups, model_groups = dist.mesh_groups(num_data, num_model)
+    data_groups, model_groups = dist.mesh_groups(num_data, num_model, ranks)
+    if r < 0:
+        return None
     d, m = divmod(r, num_model)
     return Mesh(num_data=num_data, rank=d, group=data_groups[m], num_model=num_model,
-                model_rank=m, model_group=model_groups[d], axis_names=names)
+                model_rank=m, model_group=model_groups[d], mesh_group=group, axis_names=names)
 
 
 @dataclass(frozen=True)
@@ -228,7 +238,8 @@ def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:
     ok = _broadcast([v for k, v in names.items() if k not in split], src, group, replica,
                     "mesh")
     if mesh.num_data > 1 and split:
-        ok &= _broadcast([names[k] for k in sorted(split)], mesh.model_rank, mesh.group,
+        ok &= _broadcast([names[k] for k in sorted(split)],
+                         torch.distributed.get_global_rank(mesh.group, 0), mesh.group,
                          replica, "data")
     if not ok:
         raise RuntimeError("replicate_state: the processes' states differ after the broadcast")
