@@ -134,7 +134,21 @@ Phases, each of which exits non-zero on failure:
    held against the in-process entry points within 1e-6 of the output's
    scale, 12 row-1 launches a reconstruct from the loaded program, the pinned
    bundle refusing batch 1; the bundle's images/s at batch 64 and batch-1
-   latency beside phase 4's.
+   latency beside phase 4's;
+14. the user journeys (``python -m vaegan_tpu_torch.examples.*``), each in its
+   own process, the independent ones started together: 14.1
+   ``reproduce_headline`` at 256², batch 4, float32, ``--use-pallas all``, 20
+   steps, 3 draws and BN recalibrated from 5 batches, for ``notebook``,
+   ``--vae`` and ``--preset vaegan_paper`` (each JSON line parsed, every number
+   finite, the paper run's EMA draws present, ``fused.LAUNCHES`` over the
+   train held to 20 steps' and the sampler's: the journey path); 14.2
+   ``train_vaegan --epochs 1 --image-size 96 --batch-size 64`` (its three
+   PNGs and a finite MSE); 14.3 ``train_multichip --virtual 2 --max-steps 4``
+   (two gloo processes sharing the card) and under ``torchrun
+   --nproc_per_node=1`` (NCCL, a world of one), each closing line; 14.4 the
+   ``hbm_cache`` loader in two gloo processes on the card, every batch of one
+   epoch with ``grad_accum`` 2 bitwise the rank-sharded host loader's. The
+   phase's wall is printed on a line of its own.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2001,31 +2015,28 @@ def phase_concat(torch, vt, bounds, card_line, sites):
     return {"paths": paths, "critic": critic, "numbers": numbers, "paper_s": t_paper}
 
 
-def run_cli(commands, cwd, timeout=900):
-    """CLI commands, each in its own process and all started together: each is
-    ``(args, counting)``, run as ``python -m vaegan_tpu_torch.cli args`` or, when
-    counting, through the wrapper that prints the kernel launches. Exits on a
-    non-zero return code (after the other processes end). Returns each
-    command's stdout."""
+def run_together(commands, cwd=HERE, timeout=900):
+    """``(label, argv)`` or ``(label, argv, cwd)`` processes, all started
+    together (two threads of the CPU each, the checkout on ``PYTHONPATH``).
+    Exits on a non-zero return code (after every process has ended). Returns
+    each one's stdout."""
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
         p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        ([sys.executable, "-c", CLI_COUNTING] if counting else
-         [sys.executable, "-m", "vaegan_tpu_torch.cli"]) + args, cwd=cwd, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for args, counting in commands]
+    procs = [subprocess.Popen(argv, cwd=own[0] if own else cwd, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _, argv, *own in commands]
     outs, failed = [], []
     try:
-        for (args, _), proc in zip(commands, procs):
+        for (label, *_), proc in zip(commands, procs):
             out, err = proc.communicate(timeout=timeout)
             lines = out.strip().splitlines()
-            log(f"cli {args[0]}: rc {proc.returncode} after {time.perf_counter() - t0:.1f} s; "
-                f"{lines[-1] if lines else '(no output)'}")
+            log(f"{label}: rc {proc.returncode} after {time.perf_counter() - t0:.1f} s; "
+                f"{lines[-1][:300] if lines else '(no output)'}")
             if proc.returncode != 0:
                 log(out[-3000:])
                 log(err[-3000:])
-                failed.append(args[0])
+                failed.append(label)
             outs.append(out)
     finally:
         for proc in procs:          # none outlives the phase, whatever happened
@@ -2033,8 +2044,18 @@ def run_cli(commands, cwd, timeout=900):
                 proc.kill()
                 proc.wait()
     if failed:
-        raise SystemExit(f"cli {failed} exited non-zero")
+        raise SystemExit(f"{failed} exited non-zero")
     return outs
+
+
+def run_cli(commands, cwd, timeout=900):
+    """CLI commands, each in its own process and all started together: each is
+    ``(args, counting)``, run as ``python -m vaegan_tpu_torch.cli args`` or, when
+    counting, through the wrapper that prints the kernel launches
+    (:func:`run_together`)."""
+    return run_together([(f"cli {args[0]}", ([sys.executable, "-c", CLI_COUNTING] if counting
+                                              else [sys.executable, "-m", "vaegan_tpu_torch.cli"])
+                          + args) for args, counting in commands], cwd, timeout)
 
 
 def phase_cli(torch, vt, card_line):
@@ -3364,6 +3385,364 @@ def phase_bundle(torch, vt, cfg, state, images, z8, t64, t1, card_line):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the user journeys (vaegan_tpu_torch.examples), each in its own process
+# ---------------------------------------------------------------------------
+JOURNEY_STEPS = 20
+# reproduce_headline's train() with its kernel launches printed on a line of
+# their own (as CLI_COUNTING does for the CLI's train)
+HEADLINE_COUNTING = ("import json, os, sys\n"
+                     "import torch\n"
+                     "from vaegan_tpu_torch.examples import reproduce_headline as rh\n"
+                     "from vaegan_tpu_torch.ops import fused\n"
+                     "train = rh.train\n"
+                     "def counted(cfg, **kw):\n"
+                     "    fused.reset_launches()\n"
+                     "    out = train(cfg, **kw)\n"
+                     "    torch.cuda.synchronize()\n"
+                     "    sys.stdout.flush()\n"
+                     "    os.write(1, ('\\nlaunches ' + json.dumps(dict(fused.LAUNCHES)) + '\\n')"
+                     ".encode())\n"
+                     "    return out\n"
+                     "rh.train = counted\n"
+                     "rh.main(sys.argv[1:])\n")
+# each run's steps are G+D (n_critics 1) and the sampler draws a grid before step 0
+HEADLINE_RUNS = (("VAE-GAN", [], STEP_LAUNCHES[True]),
+                 ("plain-VAE", ["--vae"], STEP_LAUNCHES[True]),
+                 ("VAE-GAN-paper", ["--preset", "vaegan_paper"], PAPER_LAUNCHES))
+HBM_BATCH = 8               # 14.4: the global batch, 2 processes x 2 microbatches
+JOURNEY_CLOSING = re.compile(r"^trained (\d+) steps over (\d+) devices \((\d+) process\(es\)\) "
+                             r"— ([0-9.]+) img/s$")
+
+
+def journey_launches(per_step):
+    return {k: JOURNEY_STEPS * v + SAMPLER_LAUNCHES[k] for k, v in per_step.items()}
+
+
+def hbm_rank(rank, world, store, out):
+    """One of 14.4's two gloo processes on the card: ``make_loader`` with
+    ``hbm_cache`` (the dataset staged on the card, its rows of each of 2
+    microbatches gathered there) against the rank-sharded host ``DataLoader``
+    over one epoch, batch for batch bitwise; the count saved to ``out``."""
+    import numpy as np
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.data import pipeline
+    from vaegan_tpu_torch.parallel import dist
+
+    dist.initialize(backend="gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                    device="cuda:0", timeout_s=600)
+    try:
+        d = vt.preset("notebook").data.replace(batch_size=HBM_BATCH, synthetic=True,
+                                               hbm_cache=True)
+        dev = pipeline.make_loader(d, seed=SEED, device="cuda:0", microbatches=2)
+        host = pipeline.DataLoader(pipeline.make_dataset(d), batch_size=HBM_BATCH, seed=SEED,
+                                   prefetch_batches=0, process_index=rank, process_count=world,
+                                   microbatches=2)
+        if not isinstance(dev, pipeline.DeviceDataLoader) or dev.images.device.type != "cuda":
+            raise SystemExit("make_loader did not stage the dataset on the card")
+        n = equal = 0
+        for got, want in zip(dev, host, strict=True):
+            n += 1
+            equal += int(got.is_cuda and np.array_equal(got.cpu().numpy(), want))
+        torch.save({"batches": n, "equal": equal, "rows": int(got.shape[0]),
+                    "staged_mib": dev.images.numel() * 4 // 2 ** 20}, out)
+    finally:
+        dist.shutdown()
+
+
+def finite(values):
+    return all(isinstance(v, (int, float)) and v == v and abs(v) != float("inf")
+               for v in values)
+
+
+def phase_journeys(torch, vt, card_line):
+    """Phase 14: the three journeys of ``vaegan_tpu_torch.examples`` on the card,
+    each in its own process (the independent ones started together): 14.1
+    ``reproduce_headline`` at 256², batch 4, float32, the kernels on, for
+    ``notebook``, ``--vae`` and ``--preset vaegan_paper`` (JSON line parsed,
+    every number finite, the train's launches exact, the paper run's EMA
+    draws present); 14.2 ``train_vaegan`` (its three PNGs, a finite MSE); 14.3
+    ``train_multichip`` as two gloo processes sharing the card and under
+    ``torchrun --nproc_per_node=1`` (NCCL, a world of one); 14.4 the
+    ``hbm_cache`` loader in two gloo processes on the card against the
+    rank-sharded host loader. Returns 14.1's VAE-GAN launches (the journey
+    path)."""
+    import shutil
+
+    t14 = time.perf_counter()
+    # the journeys' processes share the card with this one: hand back what
+    # this process's allocator keeps cached from the earlier phases
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 14: this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved) of the card")
+    tmp = tempfile.mkdtemp(prefix="vaegan_journeys_")
+    try:
+        log(f"== phase 14.1 and 14.4: reproduce_headline (256x256, batch 4, float32, use_pallas "
+            f"all, {JOURNEY_STEPS} steps, 3 draws, BN recalibrated from 5 batches) for "
+            "notebook, --vae and --preset vaegan_paper, launches counted; the hbm_cache loader "
+            "in two gloo processes on the card; all started together ==")
+        flags = ["--image-size", "256", "--batch-size", "4", "--dtype", "float32",
+                 "--use-pallas", "all", "--max-steps", str(JOURNEY_STEPS), "--draws", "3",
+                 "--recalibrate-bn", "5"]
+        with open(os.path.join(tmp, "count.py"), "w") as f:
+            f.write(HEADLINE_COUNTING)
+        commands = [(f"reproduce_headline {label}",
+                     [sys.executable, os.path.join(tmp, "count.py"), *extra, *flags, "--out",
+                      os.path.join(tmp, f"headline{i}")])
+                    for i, (label, extra, _) in enumerate(HEADLINE_RUNS)]
+        commands.append(("hbm_cache ranks", [
+            sys.executable, "-c", "import sys, chip_smoke\nchip_smoke.hbm_ranks(sys.argv[1])\n",
+            tmp]))
+        outs = run_together(commands, timeout=600)
+        journey = None
+        for (label, _, per_step), out in zip(HEADLINE_RUNS, outs):
+            lines = out.strip().splitlines()
+            launches = json.loads(next(l for l in reversed(lines)
+                                       if l.startswith("launches "))[len("launches "):])
+            rec = json.loads(next(l for l in reversed(lines) if l.startswith("{")))
+            want = journey_launches(per_step)
+            numbers = [*rec["eval_mse_repeat_draws"], rec["eval_mse_mean_predictor_floor"],
+                       *rec["eval_mse_repeat_draws_bn_recalibrated"],
+                       *rec.get("eval_mse_repeat_draws_ema", []),
+                       *rec["final_train_metrics"].values(), rec["train_wall_s"]]
+            log(f"14.1 {label}: {json.dumps(rec)} [{card_line}]")
+            log(f"14.1 {label}: train launches {launches} (want {want})")
+            ok = (rec["run"] == label and rec["steps"] == JOURNEY_STEPS and finite(numbers)
+                  and len(rec["eval_mse_repeat_draws"]) == 3 and launches == want)
+            if label == "VAE-GAN-paper":
+                ok = ok and len(rec.get("eval_mse_repeat_draws_ema", [])) == 3
+            if not ok:
+                raise SystemExit(f"14.1 reproduce_headline {label}: a wrong record, a "
+                                 "non-finite number or wrong launches")
+            if label == "VAE-GAN":
+                journey = launches
+        hbm = [line for line in outs[-1].splitlines() if line.startswith("14.4")]
+        for line in hbm:
+            log(line)
+
+        log("== phase 14.2 and 14.3: train_vaegan (--epochs 1 --image-size 96 --batch-size "
+            "64) and train_multichip --max-steps 4 under torchrun --nproc_per_node=1 (NCCL, a "
+            "world of one) started together, then train_multichip --virtual 2 --max-steps 4 "
+            "(two gloo processes sharing the card) ==")
+        vout = os.path.join(tmp, "vaegan_out")
+        # each multichip run in a folder of its own: a fresh run wipes its sample folder
+        runs = [os.path.join(tmp, d) for d in ("virtual", "torchrun")]
+        for d in runs:
+            os.makedirs(d)
+        commands = [
+            ("train_vaegan", [sys.executable, "-m", "vaegan_tpu_torch.examples.train_vaegan",
+                              "--epochs", "1", "--image-size", "96", "--batch-size", "64",
+                              "--out", vout]),
+            ("train_multichip --virtual 2", [
+                sys.executable, "-m", "vaegan_tpu_torch.examples.train_multichip", "--virtual",
+                "2", "--max-steps", "4"], runs[0]),
+            ("torchrun train_multichip", [
+                sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node=1", "-m", "vaegan_tpu_torch.examples.train_multichip",
+                "--max-steps", "4"], runs[1]),
+        ]
+        # two waves: beside this process, the four at once ran out of the card's memory
+        outs = run_together([commands[0], commands[2]], timeout=600)
+        outs = [outs[0], *run_together(commands[1:2], timeout=600), outs[1]]
+        last = outs[0].strip().splitlines()[-1]
+        m = re.match(r"^artifacts in (.*)/ — recon MSE ([0-9.eE+-]+|nan|inf)$", last)
+        pngs = {p: os.path.getsize(os.path.join(vout, p)) if os.path.isfile(os.path.join(vout, p))
+                else 0 for p in ("reconstructions.png", "prior_samples.png", "interpolation.png")}
+        log(f"14.2 train_vaegan: {last!r}; PNG bytes {pngs}")
+        if not (m and finite([float(m.group(2))]) and all(pngs.values())):
+            raise SystemExit("14.2 train_vaegan: no finite MSE or a PNG missing")
+        for (label, *_), out, world in zip(commands[1:], outs[1:], (2, 1)):
+            closing = [JOURNEY_CLOSING.match(l) for l in out.strip().splitlines()]
+            closing = [c for c in closing if c]
+            log(f"14.3 {label}: {closing[-1].group(0) if closing else '(no closing line)'} "
+                f"[{card_line}]")
+            if not (closing and closing[-1].groups()[:3] == ("4", str(world), str(world))
+                    and finite([float(closing[-1].group(4))])):
+                raise SystemExit(f"14.3 {label}: no closing line of 4 steps over {world}")
+        log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+        return journey
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def hbm_ranks(tmp):
+    """14.4 (run in a process of its own, beside 14.1's): :func:`hbm_rank` in
+    two gloo processes; prints a ``14.4`` line and fails unless every batch
+    of both ranks is bitwise the host loader's."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    res = run_ranks("14.4 hbm_cache", 2, "hbm_rank", tmp, env)
+    for r, got in enumerate(res):
+        print(f"14.4 hbm_cache rank {r}: {got['equal']} of {got['batches']} batches of "
+              f"{got['rows']} rows bitwise the rank-sharded host loader's (one epoch, "
+              f"grad_accum 2, {got['staged_mib']} MiB staged on the card)", flush=True)
+    if not all(got["batches"] > 0 and got["equal"] == got["batches"] for got in res):
+        raise SystemExit("14.4: a rank's hbm_cache batches differ from the host loader's")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' on/off default, measured (not part of main(): run as
+# python3 -c "import chip_smoke; chip_smoke.onoff_times()")
+# ---------------------------------------------------------------------------
+PALLAS_MODES = ("off", "losses", "all")
+ONOFF_ROUNDS = 5            # rounds of the modes in turn
+COMPILE_CHILD = """
+import json, sys, time
+import torch
+import chip_smoke as cs
+import vaegan_tpu_torch as vt
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+cfg = vt.preset("notebook")
+cfg = cfg.replace(train=cfg.train.replace(use_pallas="off"))
+state = vt.create_train_state(cfg, device="cuda", seed=cs.SEED)
+x = torch.rand((cs.TRAIN_BATCH, 256, 256, 1), generator=torch.Generator().manual_seed(1)).cuda()
+step = torch.compile(vt.make_train_step(cfg, True))
+out = {}
+try:
+    t0 = time.perf_counter()
+    step(state, x, 1)
+    torch.cuda.synchronize()
+    out["first_call_s"] = time.perf_counter() - t0
+    times = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, x, 2 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = sorted(times)
+except Exception as e:
+    out["error"] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+print("COMPILED " + json.dumps(out), flush=True)
+"""
+
+
+def spread(ms):
+    """(median, min, max) of a list of milliseconds."""
+    return (round(statistics.median(ms), 3), round(min(ms), 3), round(max(ms), 3))
+
+
+def timed_in_turns(torch, runs, rounds=ONOFF_ROUNDS, per_round=2):
+    """``{label: [ms, ...]}``: each of ``runs`` (``{label: fn(i)}``) timed
+    ``per_round`` calls a round, host clock around each call and a
+    synchronize, the labels in turn each round (one warm-up call each first)."""
+    for fn in runs.values():
+        fn(0)
+    torch.cuda.synchronize()
+    out = {k: [] for k in runs}
+    i = 1
+    for _ in range(rounds):
+        for label, fn in runs.items():
+            for _ in range(per_round):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(i)
+                torch.cuda.synchronize()
+                out[label].append((time.perf_counter() - t0) * 1e3)
+                i += 1
+    return out
+
+
+def onoff_times():
+    """``use_pallas`` "off" / "losses" / "all" timed in turns on the notebook
+    G+D step (256², float32) at batch 4 and 16, the ``vaegan_paper`` step (96²,
+    batch 4), the ``vaegan_256_dp`` G+D step (bfloat16, remat on, global batch
+    32, one process) and the batch-64 ``vaegan_infer`` reconstruct; then the
+    notebook "off" step at batch 4 with ``cudnn.benchmark`` and with
+    ``cudnn.deterministic`` against the defaults, and ``torch.compile`` of it
+    (in a process of its own, its error recorded if it raises). Prints each
+    median, min and max with the card's name and power limit, and an
+    ``ONOFF`` JSON line."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    from vaegan_tpu_torch.ops import _build
+
+    _build.build_all()
+    result = {"card": card}
+    gcpu = torch.Generator().manual_seed(1)
+
+    def steps_of(name, batch, size, **train):
+        cfg = vt.preset(name)
+        cfg = cfg.replace(data=cfg.data.replace(image_size=size, batch_size=batch),
+                          train=cfg.train.replace(**train))
+        x = torch.rand((batch, size, size, 1), generator=gcpu).cuda()
+        runs = {}
+        for mode in PALLAS_MODES:
+            c = cfg.replace(train=cfg.train.replace(use_pallas=mode))
+            state = vt.create_train_state(c, device="cuda", seed=SEED)
+            step = (vt.make_paper_train_step(c) if c.optim.scheme == "three"
+                    else vt.make_train_step(c, True))
+            runs[mode] = lambda i, step=step, state=state: step(state, x, 100 + i)
+        return runs
+
+    cases = (("notebook G+D step b4", ("notebook", 4, 256), {}),
+             ("notebook G+D step b16", ("notebook", 16, 256), {}),
+             ("vaegan_paper step b4", ("vaegan_paper", 4, 96), {}),
+             ("vaegan_256_dp G+D step b32 (remat)", ("vaegan_256_dp", 32, 256), {"remat": True}))
+    for label, args, train in cases:
+        runs = steps_of(*args, **train)
+        ms = timed_in_turns(torch, runs)
+        result[label] = {k: spread(v) for k, v in ms.items()}
+        log(f"{label}: " + "; ".join(f"{k} {v[0]} ms (min {v[1]}, max {v[2]})"
+                                     for k, v in result[label].items()) + f" [{card}]")
+        del runs
+        torch.cuda.empty_cache()
+
+    cfg = vt.preset("vaegan_infer")
+    images = torch.rand((BATCH, cfg.data.image_size, cfg.data.image_size, 1),
+                        generator=gcpu).cuda()
+    runs = {}
+    for mode in PALLAS_MODES:
+        c = cfg.replace(train=cfg.train.replace(use_pallas=mode))
+        st = vt.create_generator_state(c, device="cuda", seed=SEED)
+        runs[mode] = lambda i, c=c, st=st: vt.reconstruct(c, st, images)
+    label = f"vaegan_infer reconstruct b{BATCH}"
+    result[label] = {k: spread(v) for k, v in timed_in_turns(torch, runs, per_round=4).items()}
+    log(f"{label}: " + "; ".join(f"{k} {v[0]} ms (min {v[1]}, max {v[2]})"
+                                 for k, v in result[label].items()) + f" [{card}]")
+    del runs
+
+    # cuDNN's flags on the default ("off") notebook step at batch 4
+    off = steps_of("notebook", 4, 256)["off"]
+    flags = {}
+    for name, bench, det in (("defaults", False, False), ("cudnn.benchmark", True, False),
+                             ("cudnn.deterministic", False, True), ("defaults again", False, False)):
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = bench, det
+        flags[name] = spread(timed_in_turns(torch, {name: off}, rounds=1, per_round=10)[name])
+    torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic = False
+    result["notebook off step b4 by cuDNN flags"] = flags
+    log("notebook off step b4 by cuDNN flags: " + "; ".join(
+        f"{k} {v[0]} ms (min {v[1]}, max {v[2]})" for k, v in flags.items()) + f" [{card}]")
+    del off
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    try:
+        proc = subprocess.run([sys.executable, "-c", COMPILE_CHILD], cwd=HERE, env=env,
+                              capture_output=True, text=True, timeout=600)
+        line = next((l for l in proc.stdout.splitlines() if l.startswith("COMPILED ")), None)
+        compiled = (json.loads(line[len("COMPILED "):]) if line else
+                    {"error": f"rc {proc.returncode}: {proc.stderr.strip()[-300:]}"})
+    except subprocess.TimeoutExpired:
+        compiled = {"error": "no result within 600 s"}
+    if "ms" in compiled:
+        compiled["ms"] = spread(compiled["ms"])
+    result["torch.compile of the notebook off step b4"] = compiled
+    log(f"torch.compile of the notebook off step b4: {json.dumps(compiled)} [{card}]")
+    log("ONOFF " + json.dumps(result))
+
+
 KERNEL_TIMES = """
 import json, os, subprocess, sys
 import torch
@@ -3701,6 +4080,9 @@ def main() -> int:
     roofline = phase_roofline(torch, vt, card_line)
     bundle_launches = phase_bundle(torch, vt, cfg_all, state, images, z8, t64, t1, card_line)
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
+    # ---------------------------------------------------------------- phase 14
+    journey = phase_journeys(torch, vt, card_line)
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
@@ -3729,7 +4111,7 @@ def main() -> int:
     paths = {"paper": paper["paper"], "accum": paper["accum"], **concat["paths"],
              "cli_train": cli_launches, "loop": loop_launches, "dp": dp["launches"],
              "cli_train_dp": dp["cli_launches"], "tp_loop": mesh["tp_launches"],
-             "cli_train_dp_tp": mesh["cli_launches"]}
+             "cli_train_dp_tp": mesh["cli_launches"], "journey": journey}
 
     def critic_figures(row, run=paper["critic"]):
         c = run[row]

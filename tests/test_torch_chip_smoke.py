@@ -664,3 +664,63 @@ def test_timed_collectives_attribute_halos_gathers_and_sums(monkeypatch):
     spent.clear()
     rep.gather(h, 1)
     assert spent == {}
+
+
+# ---------------------------------------------------------------- phase 14
+@pytest.mark.parametrize("label", [r[0] for r in chip_smoke.HEADLINE_RUNS])
+def test_phase14_headline_train_launch_counts(monkeypatch, tmp_path, capsys, label):
+    """``reproduce_headline`` as phase 14.1 runs it (full widths, the kernels on,
+    here at 32² and 2 steps on the CPU): the kernel calls of its ``train`` are
+    ``journey_launches`` of the run's step (G+D steps and the sampler's
+    forward), its JSON line carries the run's name, and the paper run reports
+    its EMA draws (the preset keeps its 0.999)."""
+    import json
+
+    import torch
+
+    from vaegan_tpu_torch.examples import reproduce_headline as rh
+
+    torch.set_num_threads(1)
+    monkeypatch.setattr(chip_smoke, "JOURNEY_STEPS", 2)
+    extra, per_step = next((e, p) for lab, e, p in chip_smoke.HEADLINE_RUNS if lab == label)
+    counts = _counting(monkeypatch)
+    seen = {}
+    train = rh.train
+
+    def counted(cfg, **kw):
+        before = dict(counts)
+        out = train(cfg, **kw)
+        seen.update({k: counts[k] - before[k] for k in counts})
+        return out
+
+    monkeypatch.setattr(rh, "train", counted)
+    rh.main(extra + ["--image-size", "32", "--dtype", "float32", "--use-pallas", "all",
+                     "--max-steps", "2", "--draws", "1", "--out", str(tmp_path / "h"),
+                     "--device", "cpu"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert seen == chip_smoke.journey_launches(per_step)
+    assert rec["run"] == label and rec["steps"] == 2
+    assert ("eval_mse_repeat_draws_ema" in rec) == (label == "VAE-GAN-paper")
+    assert "rh.main(sys.argv[1:])" in chip_smoke.HEADLINE_COUNTING
+
+
+def test_phase14_closing_line_is_train_multichips(monkeypatch, tmp_path, capsys):
+    """Phase 14.3 reads ``train_multichip``'s closing line with
+    ``JOURNEY_CLOSING`` (one process on the CPU at a tiny width here)."""
+    import torch
+
+    from vaegan_tpu_torch.examples import train_multichip
+
+    torch.set_num_threads(1)
+    monkeypatch.chdir(tmp_path)
+    preset = train_multichip.preset
+    monkeypatch.setattr(train_multichip, "preset", lambda name: preset(name).replace(
+        generator=preset(name).generator.replace(depth=1, length=1, feature_size=8),
+        discriminator=preset(name).discriminator.replace(
+            num_features_conv1=8, num_blocks=(1, 1), num_strides_res=(1, 2),
+            num_features_res=(16, 16), pool_size=2, linear_widths=(16, 8, 8)),
+        data=preset(name).data.replace(synthetic_size=16)))
+    train_multichip.main(["--image-size", "16", "--batch-size", "4", "--max-steps", "2",
+                          "--device", "cpu"])
+    m = chip_smoke.JOURNEY_CLOSING.match(capsys.readouterr().out.strip().splitlines()[-1])
+    assert m and m.groups()[:3] == ("2", "1", "1")

@@ -109,6 +109,66 @@ def test_device_loader_on_cpu_equals_host_loader(drop_last):
     assert_same_batches([b.numpy() for b in got], batches(host))
 
 
+# one process of a two-process gloo world: the hbm_cache loader make_loader
+# builds there, over two epochs and a third resumed at batch 2
+HBM_WORKER = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as td
+from vaegan_tpu_torch.config import DataConfig
+from vaegan_tpu_torch.data import pipeline
+
+torch.set_num_threads(1)
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+td.init_process_group("gloo", init_method="file://" + store, world_size=2, rank=rank)
+try:
+    cfg = DataConfig(image_size=8, batch_size=8, synthetic=True, synthetic_size=36,
+                     prefetch=0, hbm_cache=True)
+    dev = pipeline.make_loader(cfg, seed=3, device="cpu", microbatches=2)
+    assert isinstance(dev, pipeline.DeviceDataLoader)
+    got = [b for _ in range(2) for b in dev] + list(dev.iter_batches(2))
+    np.save(out, np.stack([b.numpy() for b in got]))
+finally:
+    td.destroy_process_group()
+"""
+
+
+def test_device_loader_in_two_processes_equals_the_sharded_host_loader(tmp_path):
+    """Two gloo processes, each with the whole dataset staged on its device:
+    every batch bitwise the rank-sharded host loader's, with ``grad_accum`` 2's
+    rows of each microbatch, over two epochs and a resume through
+    ``iter_batches``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    outs = [tmp_path / f"rank{r}.npy" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", HBM_WORKER, str(r),
+                               str(tmp_path / "store"), str(outs[r])],
+                              cwd=root, env=env, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), "".join(errs)[-3000:]
+    for r in range(2):
+        host = pipeline.DataLoader(pipeline.SyntheticDataset(36, 8), batch_size=8, seed=3,
+                                   prefetch_batches=0, process_index=r, process_count=2,
+                                   microbatches=2)
+        want = batches(host) + list(host.iter_batches(2))
+        assert len(want) == 2 * 4 + 2 and want[0].shape == (4, 8, 8, 1)
+        assert_same_batches(list(np.load(outs[r])), want)
+
+
 def test_device_prefetch_on_cpu_passes_batches_through():
     host = pipeline.DataLoader(pipeline.SyntheticDataset(10, 8), batch_size=4, seed=1)
     want = list(pipeline.DataLoader(pipeline.SyntheticDataset(10, 8), batch_size=4, seed=1))

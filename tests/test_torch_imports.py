@@ -37,7 +37,9 @@ def test_the_scan_sees_the_package():
                    "data/fetch.py", "train/loop.py", "checkpoint.py", "api.py",
                    "utils/imaging.py", "utils/metrics.py", "utils/profiling.py", "cli.py",
                    "search.py", "entry.py", "bench.py", "ops/replica.py", "parallel/__init__.py",
-                   "parallel/dist.py", "parallel/mesh.py", "parallel/train.py"):
+                   "parallel/dist.py", "parallel/mesh.py", "parallel/train.py",
+                   "examples/__init__.py", "examples/reproduce_headline.py",
+                   "examples/train_vaegan.py", "examples/train_multichip.py"):
         assert f"vaegan_tpu_torch/{module}" in names, module
     assert "torch" in imported_roots(ROOT / "vaegan_tpu_torch" / "ops" / "fused.py")
 

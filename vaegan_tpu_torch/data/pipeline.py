@@ -365,22 +365,31 @@ class DeviceDataLoader:
     from pinned memory without blocking; a batch is then an ``index_select``
     with a slice of it, launched without a host sync. The epoch order, ``drop_last``
     and the resume hooks are the host :class:`DataLoader`'s for the same seed, so
-    a run is bitwise the same whichever loader feeds it. Single-process runs
-    only: in a multi-process run each process feeds only its own card.
+    a run is bitwise the same whichever loader feeds it.
+
+    In a multi-process run (``process_count`` > 1) every process stages the
+    whole dataset on its own card (the JAX package's replicated staging, one
+    copy a process), computes the same epoch permutation and gathers only its
+    rows of each global batch (``ops.replica.rank_rows``; with ``microbatches``
+    k > 1 its rows of each microbatch): the rows the rank-sharded host
+    :class:`DataLoader` gives it. A partial last batch is dropped, as there.
     """
 
     def __init__(self, dataset, batch_size: int = 4, shuffle: bool = True,
-                 drop_last: bool = False, seed: int = 0, device="cuda"):
-        if _multi_process():
-            raise ValueError(
-                "DeviceDataLoader (data.hbm_cache) supports single-process runs "
-                "only — use the process-sharded host DataLoader instead")
+                 drop_last: bool = False, seed: int = 0, device="cuda",
+                 process_index: int = 0, process_count: int = 1, microbatches: int = 1):
+        if not (0 <= process_index < process_count):
+            raise ValueError(f"process_index {process_index} out of range for "
+                             f"process_count {process_count}")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.drop_last = drop_last
+        self.drop_last = drop_last or process_count > 1
         self._rng = np.random.default_rng(seed)
+        # rank_rows refuses a batch the processes and microbatches do not divide
+        self._rows = (rank_rows(batch_size, process_index, process_count, microbatches)
+                      .to(self.device) if process_count > 1 else None)
 
         host = dataset.load_batch(range(len(dataset)))
         if host.nbytes > 2 << 30:
@@ -413,7 +422,10 @@ class DeviceDataLoader:
         if self.device.type == "cuda":
             idx = idx.pin_memory().to(self.device, non_blocking=True)
         for s in list(_batch_starts(len(idx), self.batch_size, self.drop_last))[start:]:
-            yield self.images.index_select(0, idx[s: s + self.batch_size])
+            rows = idx[s: s + self.batch_size]
+            if self._rows is not None:
+                rows = rows[self._rows]
+            yield self.images.index_select(0, rows)
 
 
 def device_prefetch(iterator: Iterator, device="cuda", depth: int = 2) -> Iterator[torch.Tensor]:
@@ -487,12 +499,12 @@ def make_dataset(cfg: DataConfig):
 def make_loader(cfg: DataConfig, seed: int = 0, process_index: Optional[int] = None,
                 process_count: Optional[int] = None, drop_last: Optional[bool] = None,
                 device="cuda", microbatches: int = 1):
-    """The configured loader. In a multi-process ``torch.distributed`` run the
-    host loader is sharded by rank and world size (explicit values override;
+    """The configured loader. In a multi-process ``torch.distributed`` run it
+    is sharded by rank and world size (explicit values override;
     ``microbatches``: the rows of an accumulating step's microbatches, see
     :class:`DataLoader`). ``cfg.hbm_cache`` selects the :class:`DeviceDataLoader`
-    on ``device`` (single-process only); ``drop_last`` overrides
-    ``cfg.drop_last`` when given."""
+    on ``device``, which gathers the same rows on the card; ``drop_last``
+    overrides ``cfg.drop_last`` when given."""
     if process_count is None:
         process_count = torch.distributed.get_world_size() if _multi_process() else 1
     if process_index is None:
@@ -502,7 +514,8 @@ def make_loader(cfg: DataConfig, seed: int = 0, process_index: Optional[int] = N
     if cfg.hbm_cache:
         return DeviceDataLoader(make_dataset(cfg), batch_size=cfg.batch_size,
                                 shuffle=cfg.shuffle, drop_last=drop_last, seed=seed,
-                                device=device)
+                                device=device, process_index=process_index,
+                                process_count=process_count, microbatches=microbatches)
     return DataLoader(make_dataset(cfg), batch_size=cfg.batch_size,
                       shuffle=cfg.shuffle, drop_last=drop_last, seed=seed,
                       prefetch_batches=cfg.prefetch,

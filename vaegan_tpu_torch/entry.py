@@ -21,7 +21,6 @@ that, data n x model 1.
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -104,28 +103,17 @@ def _dryrun_child(rank: int, n: int, store: str) -> None:
 def dryrun_multichip(n_devices: int, timeout_s: float = 600.0) -> None:
     """One data-parallel step over ``n_devices`` CPU processes (module
     docstring); raises if any process fails or the run outlasts ``timeout_s``."""
-    root = str(Path(__file__).resolve().parents[1])
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    from vaegan_tpu_torch.parallel import dist
+
     with tempfile.TemporaryDirectory(prefix="vaegan_dryrun_") as tmp:
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "vaegan_tpu_torch.entry", "--dryrun-child", str(r),
-             str(n_devices), os.path.join(tmp, "store")],
-            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(n_devices)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=timeout_s))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-    sys.stdout.write(outs[0][0])
-    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        res = dist.run_processes(
+            [[sys.executable, "-m", "vaegan_tpu_torch.entry", "--dryrun-child", str(r),
+              str(n_devices), os.path.join(tmp, "store")] for r in range(n_devices)],
+            timeout_s, cwd=str(Path(__file__).resolve().parents[1]))
+    sys.stdout.write(res[0][1])
+    failed = [r for r, (rc, _, _) in enumerate(res) if rc != 0]
     if failed:
-        sys.stderr.write("".join(outs[r][1] for r in failed))
+        sys.stderr.write("".join(res[r][2] for r in failed))
         raise RuntimeError(f"dryrun_multichip({n_devices}): processes {failed} failed")
 
 

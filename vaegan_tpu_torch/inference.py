@@ -28,7 +28,7 @@ import torch
 
 from vaegan_tpu_torch.config import Config
 from vaegan_tpu_torch.models import BatchNorm, Dropout, ResBlockVAE, UnsupervisedGeneratorNetwork
-from vaegan_tpu_torch.train.state import GeneratorState, resolve_device
+from vaegan_tpu_torch.train.state import GeneratorState, TrainState, resolve_device
 
 
 def _device(state: GeneratorState) -> torch.device:
@@ -64,18 +64,20 @@ def reconstruct(cfg: Config, state: GeneratorState, batch) -> Tuple[torch.Tensor
 
 
 def with_ema(state: GeneratorState) -> GeneratorState:
-    """View of ``state`` whose generator params are the EMA iterate
-    (``cfg.train.ema_decay``): a copy of the module with the EMA params loaded;
-    the BN running statistics are the live ones, as in the JAX package."""
-    if state.ema is None:
+    """View of ``state`` (a ``GeneratorState`` or a ``TrainState``) whose
+    generator params are the EMA iterate (``cfg.train.ema_decay``): a copy of
+    the module with the EMA params loaded; the BN running statistics are the
+    live ones, as in the JAX package."""
+    ema = state.g_ema if isinstance(state, TrainState) else state.ema
+    if ema is None:
         raise ValueError("state carries no generator EMA — set "
                          "cfg.train.ema_decay to maintain one during training")
     gen = copy.deepcopy(state.generator)
     params = dict(gen.named_parameters())
-    if set(state.ema) != set(params):
+    if set(ema) != set(params):
         raise ValueError("the EMA's keys do not match the generator's params")
     with torch.no_grad():
-        for k, v in state.ema.items():
+        for k, v in ema.items():
             params[k].copy_(v)
     return state.replace(generator=gen)
 

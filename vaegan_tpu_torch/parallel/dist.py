@@ -15,7 +15,9 @@ from __future__ import annotations
 import datetime
 import os
 import socket
-from typing import Optional
+import subprocess
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as td
@@ -124,3 +126,27 @@ def shutdown() -> None:
     """Destroy the default process group, if there is one."""
     if is_initialized():
         td.destroy_process_group()
+
+
+def run_processes(argvs: Sequence[Sequence[str]], timeout_s: float,
+                  cwd: Optional[str] = None) -> List[Tuple[int, str, str]]:
+    """Run each argv, all started together, with this checkout on
+    ``PYTHONPATH`` (the processes of a run on one host, each making its own
+    process group); wait for every one, killing those still running when a
+    wait outlasts ``timeout_s`` or fails. Returns ``(returncode, stdout,
+    stderr)`` of each, in order."""
+    root = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen(list(argv), cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]

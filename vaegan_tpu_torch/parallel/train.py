@@ -14,8 +14,10 @@ own with no ``torchrun`` environment: the world of one, as a one-device JAX
 mesh). Without a process group it starts one (``parallel.dist.initialize``:
 NCCL on CUDA, gloo on the CPU). Each process reads its rows of every global
 batch from the rank-sharded host loader (``drop_last``: a partial batch cannot
-be split); ``data.hbm_cache`` keeps the dataset on the card in a world of one
-only, as in the JAX package.
+be split) or, with ``data.hbm_cache``, gathers the same rows from a copy of the
+dataset staged on its own card (``data.pipeline.DeviceDataLoader``), in any
+world: the JAX package stages the dataset once for the devices of its one
+process, the port once a process.
 """
 
 from __future__ import annotations
