@@ -34,7 +34,9 @@ Phases, each of which exits non-zero on failure:
    the 12 sites (each at the p the step runs it with), ``reparam_kl`` forward and
    backward, ``recon_loss_sums`` (also at batch 16); y, dx and z bitwise the plain
    versions', the dropout mask and the reparameterization noise replayed bit for
-   bit by the backwards; rows 2, 3 and 5 (one launch each, a grid reduction
+   bit by the backwards, row 4 without a KL cotangent bitwise a zero one on
+   special values (signed zeros, e^lv overflow, NaN); row 4 also on one
+   resident wave and SMs x 8 blocks; rows 2, 3 and 5 (one launch each, a grid reduction
    inside) run twenty times bitwise equal, one run beside a matrix product on a
    side stream and one on a second stream at once, and show one kernel and no
    other under torch.profiler (its device time printed beside the call's);
@@ -101,7 +103,8 @@ Phases, each of which exits non-zero on failure:
    row 1 24 times), step ms, peak memory and a profiled step; 11.2 remat on
    against off at batch 16 (step ms, peak memory); 11.3 rows 1-4 with a
    non-zero index base at the DP step's bfloat16 sites bitwise against their
-   plain versions, timed beside their bounds; 11.4 two gloo processes on the
+   plain versions, timed beside their bounds (inputs rotated, as in every
+   kernel timing); 11.4 two gloo processes on the
    one card against this process's one-rank step (float32, global batch 8;
    the CPU test's tolerances), with the all-reduce time a step; 11.5 ``cli
    train --dp`` under ``torchrun --nproc_per_node=1``, its launches counted;
@@ -214,13 +217,13 @@ BRANCH = re.compile(r"^(@!?U?P[T0-9]+\s+)?BRA(?:\.[A-Z]+)*\s+(!?U?P[T0-9]+,\s*)?
 WIDE_LOAD = re.compile(r"^(@\S+\s+)?LDG\.E\.(128|64)\b")
 DEAD_END = re.compile(r"^(EXIT|RET)\b")
 FLOAT_ATOMIC = re.compile(r"\b(RED|ATOM|ATOMG|ATOMS)\.\S*F(16x2|32|64)\b")
-# each kernel's hot loop reads these arrays with one wide access per 4 elements
+# the arrays each kernel's hot loop reads, each with wide (8- or 16-byte) loads
 KERNEL_INPUTS = {"bn_act_dropout_fwd_kernel": 1, "bn_act_dropout_bwd_kernel": 2,
                  "reparam_fwd_kernel": 2, "reparam_bwd_kernel": 3, "recon_sums_kernel": 2}
 # each kernel's bool template arguments, in order
 KERNEL_FLAGS = {"bn_act_dropout_fwd_kernel": ("dropout", "striped"),
                 "bn_act_dropout_bwd_kernel": ("dropout", "striped"),
-                "reparam_fwd_kernel": ("striped",), "reparam_bwd_kernel": ("striped",),
+                "reparam_fwd_kernel": ("striped",), "reparam_bwd_kernel": ("striped", "kl"),
                 "recon_sums_kernel": ()}
 
 
@@ -242,17 +245,24 @@ def _backward(address, ins):
     return b is not None and b[0] <= address
 
 
-def hot_loop_instructions(code, inputs):
+def _wide_bytes(ins):
+    """Bytes of a wide (8- or 16-byte) global load, else 0."""
+    m = WIDE_LOAD.match(ins)
+    return int(m.group(2)) // 8 if m else 0
+
+
+def hot_loop_instructions(code, inputs, elem_bytes=4):
     """Instructions per element on the hot path of a kernel's grid-stride loop, as a
     lower bound. The loop is the backward branch whose body holds the most 16- or
     8-byte global loads. Of the paths from its head to that branch, the count takes
-    the one with the most wide loads (the aligned vector path) and, of those, the
-    fewest instructions: every forward branch that can skip work (a slow path such
-    as cosf's Payne-Hanek reduction or sqrtf's special cases, a dropout branch
-    decided at run time) counts as skipping it, so no branch that is not taken can
-    raise the count. A branch out of the loop falls through; a nested loop's body
-    counts at most once. Elements per pass: 4 per wide load on the path over the
-    ``inputs`` arrays read."""
+    the one that loads the most bytes with them (the aligned vector path) and, of
+    those, the fewest instructions: every forward branch that can skip work (a slow
+    path such as cosf's Payne-Hanek reduction or sqrtf's special cases, a dropout
+    branch decided at run time) counts as skipping it, so no branch that is not
+    taken can raise the count. A branch out of the loop falls through; a nested
+    loop's body counts at most once. Elements per pass: the bytes of the path's wide
+    loads over the ``inputs`` arrays read, at ``elem_bytes`` an element (a 16-byte
+    load is 4 float32 or 8 bfloat16 elements)."""
     index = {a: i for i, (a, _) in enumerate(code)}
     loops = []
     for i, (a, ins) in enumerate(code):
@@ -264,8 +274,8 @@ def hot_loop_instructions(code, inputs):
     if not loops:
         return None
     _, _, head, end = min(loops)
-    # best[i]: (-wide loads, instructions) of the best path from i to the back branch
-    best = {end: (-int(bool(WIDE_LOAD.match(code[end][1]))), 1)}
+    # best[i]: (-wide load bytes, instructions) of the best path from i to the back branch
+    best = {end: (-_wide_bytes(code[end][1]), 1)}
     for i in range(end - 1, head - 1, -1):
         a, ins = code[i]
         b = _branch(ins)
@@ -278,18 +288,18 @@ def hot_loop_instructions(code, inputs):
         paths = [best[j] for j in succ if j in best]
         if paths:
             w, n = min(paths)
-            best[i] = (w - bool(WIDE_LOAD.match(ins)), n + 1)
+            best[i] = (w - _wide_bytes(ins), n + 1)
     if head not in best or best[head][0] == 0:
         return None
     wide, executed = best[head]
-    return executed * inputs / (4 * -wide)
+    return executed * inputs * elem_bytes / -wide
 
 
 def kernel_counts(libs, cuobjdump):
     """From ``cuobjdump -sass`` of each built library: {(kernel, dtype, vec,
-    dropout, striped): instructions per element} of every kernel instance with a
-    vectorised loop (vec and dropout None, striped False, where the kernel has no
-    such template argument), and the names of the kernels that hold a float
+    dropout, striped, kl): instructions per element} of every kernel instance with
+    a vectorised loop (vec, dropout and kl None, striped False, where the kernel
+    has no such template argument), and the names of the kernels that hold a float
     atomic."""
     counts, atomics = {}, []
     for lib in libs.values():
@@ -304,13 +314,13 @@ def kernel_counts(libs, cuobjdump):
                     break
             else:
                 continue
-            n = hot_loop_instructions(code, inputs)
+            dtype = "bfloat16" if m.group(1).startswith("13") else "float32"
+            n = hot_loop_instructions(code, inputs, 2 if dtype == "bfloat16" else 4)
             if n is not None:
-                dtype = "bfloat16" if m.group(1).startswith("13") else "float32"
                 flags = dict(zip(KERNEL_FLAGS[kernel],
                                  (f == "1" for f in re.findall(r"Lb(\d)E", m.group(3)))))
                 counts[(kernel, dtype, int(m.group(2)) if m.group(2) else None,
-                        flags.get("dropout"), flags.get("striped", False))] = n
+                        flags.get("dropout"), flags.get("striped", False), flags.get("kl"))] = n
     return counts, atomics
 
 
@@ -327,16 +337,20 @@ class Bounds:
     def __init__(self, bw, instr_rate, counts):
         self.bw, self.instr_rate, self.counts = bw, instr_rate, counts
 
-    def __call__(self, nbytes, n, kernel, dtype, vec=None, dropout=None, striped=False):
+    def __call__(self, nbytes, n, kernel, dtype, vec=None, dropout=None, striped=False,
+                 kl=None):
         """(least ms, "bytes" or "operations", byte ms, SASS issue ms, operations
         ms) of the kernel's instance for a contiguous or a ``striped`` index
-        map."""
+        map (row 4: ``kl``, with a KL cotangent or not; a build whose row 4 has
+        no such instance counts its one loop)."""
         from vaegan_tpu_torch.ops import fused
 
         tb = nbytes / self.bw
         to = fused.ops_per_element(KERNEL_NAMES[kernel], 2 if "bfloat16" in str(dtype) else 4,
                                    bool(dropout)) * n / OPS_RATE
-        ti = self.counts[(kernel, str(dtype)[6:], vec, dropout, striped)] * n / self.instr_rate
+        key = (kernel, str(dtype)[6:], vec, dropout, striped)
+        count = self.counts.get(key + (kl,)) or self.counts[key + (None,)]
+        ti = count * n / self.instr_rate
         return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations", tb * 1e3, ti * 1e3,
                 to * 1e3)
 
@@ -525,7 +539,8 @@ def phase_kernel(torch, sites, bounds):
             f"bound {b:.4f} ms, byte bound {tb:.4f} ms ({100 * tb / k:.1f}% of the byte bound "
             "reached)")
     log(f"bn_act_dropout over the {len(sites)} sites of one batch-{BATCH} reconstruct (f32, p=0): "
-        f"kernel {summary['ms']:.4f} ms, bound {summary['bound_ms']:.4f} ms, plain "
+        f"kernel {summary['ms']:.4f} ms, bound {summary['bound_ms']:.4f} ms (SASS issue "
+        f"{summary['instr_ms']:.4f} ms), plain "
         f"{summary['plain_ms']:.4f} ms; F.leaky_relu(F.batch_norm(...)) as two PyTorch calls "
         f"{summary['two_call_ms']:.4f} ms (yardstick only, not one library call)")
     return summary
@@ -603,6 +618,39 @@ def twenty_runs(torch, fn, first, busy):
         outs.append(fn())
     torch.cuda.synchronize()
     return all(all(torch.equal(a, b) for a, b in zip(o, first)) for o in outs)
+
+
+def special_kl_zero(torch, fused, mu, lv, gz):
+    """Row 4 without a KL cotangent (its instance that leaves e^lv out) against
+    the one with a zero cotangent, bit for bit, and against the plain version
+    (NaNs where it has them, the sign of each zero, the rest as
+    :func:`check_close`), on copies of the inputs with, in one group of 8 in
+    every 64 elements, gz = +-0 beside lv > 0 and lv < 0, lv >= 89 (e^lv
+    overflows) and a NaN lv; returns a line for the log."""
+    m, l, g = (t.clone() for t in (mu, lv, gz))
+    flat = [t.permute(0, 2, 3, 1).reshape(-1) for t in (m, l, g)]   # NHWC views
+    at = torch.arange(0, flat[0].numel() - 7, 64, device=flat[0].device)
+    vals = {0: (0.0, 0.5), 1: (-0.0, 0.5), 2: (0.0, -0.5), 3: (-0.0, -0.5), 4: (1.0, 89.0),
+            5: (0.0, 100.0), 6: (1.0, float("nan")), 7: (-0.0, 1e-10)}
+    for j, (gv, lval) in vals.items():
+        flat[2][at + j] = gv
+        flat[1][at + j] = lval
+    bits = torch.int32 if mu.dtype == torch.float32 else torch.int16
+    none = fused.reparam_kl_backward(m, l, g, None, 77)
+    zero = fused.reparam_kl_backward(m, l, g, torch.zeros((), device=mu.device), 77)
+    ref = fused.reparam_kl_backward_reference(m, l, g, None, 77)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(bits), b.view(bits)) for a, b in zip(none, zero)):
+        raise SystemExit("row 4: without a KL cotangent it is not bitwise the zero cotangent's")
+    for name, a, r in zip(("dmu", "dlv"), none, ref):
+        nan = torch.isnan(r)
+        zeros = r == 0
+        if not (torch.equal(nan, torch.isnan(a)) and torch.equal(
+                torch.signbit(a[zeros]), torch.signbit(r[zeros]))):
+            raise SystemExit(f"row 4 {name}: NaNs or signed zeros differ from the plain version")
+        check_close(f"row 4 {name} (special values)", a[~nan], r[~nan], mu.dtype)
+    return (f"no KL cotangent bitwise a zero one over {8 * at.numel()} special values, NaNs "
+            f"and signed zeros as the plain version's")
 
 
 def phase_train_kernels(torch, sites, latent, bounds):
@@ -770,6 +818,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             r4 = fused.reparam_kl_backward_reference(mu, lv, gz, gk, 77)
             errs4 += [check_close(f"row 4 {n} gkl={gk is not None}", a, b, dtype)
                       for n, a, b in zip(("dmu", "dlv"), k4, r4)]
+        zk = special_kl_zero(torch, fused, mu, lv, gz)
         zero = torch.zeros_like(mu, dtype=torch.float32)
         e_fwd, _ = fused.reparam_kl_forward(zero, zero, 5)        # z = 0 + 1 * eps
         _, e_bwd = fused.reparam_kl_backward(zero, zero, torch.full_like(zero, 2.0), None, 5)
@@ -782,7 +831,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
         mom = (float(e64.mean()), float(e64.var()), float((e64 ** 4).mean()))
         log(f"row 3/4 {str(dtype)[6:]}: z bitwise equal, kl {float(kl)!r} vs plain "
             f"{float(klr)!r}, deterministic_x{RUNS}={det}; backward max_abs_err="
-            f"{max(errs4):.3e}; eps "
+            f"{max(errs4):.3e}; {zk}; eps "
             f"forward==backward bitwise={replay}, |eps - plain|max={e_err:.3e} (tolerance 4e-6), "
             f"mean={mom[0]:.2e} var={mom[1]:.5f} E[eps^4]={mom[2]:.4f} over {e64.numel()} draws")
         n_el = e64.numel()
@@ -808,11 +857,11 @@ def phase_train_kernels(torch, sites, latent, bounds):
             k_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward(*rot[i % len(rot)], None, 77))
             p_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward_reference(
                 *rot[i % len(rot)], None, 77), windows=1, warmup=1)
-            b = bounds(5 * n * 4, n, "reparam_bwd_kernel", dtype)
+            b = bounds(5 * n * 4, n, "reparam_bwd_kernel", dtype, kl=False)
             note("reparam_kl_bwd", k_ms, p_ms, b, max(errs4))
             log(f"row 4 f32 {shape} (gkl None, as on the step): kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}; bytes {b[2]:.4f}, SASS issue "
-                f"{b[3]:.4f})")
+                f"{b[3]:.4f}); {row4_grids(torch, fused, rot, 77, 0, None)}")
             del rot
         del mu, lv, gz, z, zr, zero, e_fwd, e_bwd, e_plain, e64
 
@@ -2262,6 +2311,39 @@ def fit_batch(torch, vt, mesh, tmp):
     raise SystemExit(f"vaegan_256_dp fits at none of the global batches {DP_BATCHES}")
 
 
+def site_notes(out):
+    """``note(name, kernel ms, plain ms, bound, err)``: adds a site's figures to
+    ``out[name]`` (a phase's summary of a row over its sites)."""
+    def note(name, k_ms, p_ms, b, err):
+        o = out[name]
+        o["ms"] += k_ms
+        o["plain_ms"] += p_ms
+        o["bound_ms"] += b[0]
+        o["issue_ms"] += b[3]
+        o["bound_by"] = "operations" if b[1] != "bytes" else o["bound_by"]
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+        o["sites"] += 1
+    return note
+
+
+def row4_grids(torch, fused, rot, seed, base, stripe):
+    """Row 4 without a KL cotangent on two other grids than the wrapper's: one
+    resident wave and SMs x 8 blocks; ms on the rotated inputs ``rot``, as text
+    (a build with no such launch says so)."""
+    launch = getattr(fused, "_launch_reparam_bwd", None)
+    if launch is None:
+        return "no other grid to time in this build"
+    mu = rot[0][0]
+    big_l, big_g = stripe or (mu.numel(), mu.numel())
+    grids = {"one resident wave": fused._reparam_bwd_wave(mu, big_l != big_g),
+             "SMs x 8": 8 * fused._sms(mu.device)}
+    ms = {k: time_cuda(torch, lambda j, b=b: launch(*rot[j % len(rot)], None, seed, base, big_l,
+                                                     big_g, b))
+          for k, b in grids.items()}
+    return ", ".join(f"on {k} ({grids[k]} blocks) {v:.4f} ms" for k, v in ms.items()) + (
+        f" (the wrapper's grid: {fused.reparam_bwd_blocks(mu)} blocks)")
+
+
 def phase_dp_kernels(torch, sites, latent, bounds, batch):
     """Phase 11.3: rows 1-4 with a non-zero index base at the DP path's
     generator sites (bfloat16, the local batch): each call's base is the one
@@ -2273,22 +2355,16 @@ def phase_dp_kernels(torch, sites, latent, bounds, batch):
     log(f"== phase 11.3: rows 1-4 with an index base, at the 12 generator sites of a "
         f"vaegan_256_dp step (bfloat16, batch {batch}; base = batch x C x H x W, rank 1 of "
         "two at this batch) bitwise against their plain versions with the same base; kernel: "
-        "median of 5 CUDA-event windows of 20 launches; plain: one window of 2 ==")
+        "median of 5 CUDA-event windows of 20 launches, inputs rotated through >= 256 MB; "
+        "plain: one window of 2 ==")
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
     bf16 = torch.bfloat16
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
-               "max_abs_err": 0.0, "sites": 0, "dtype": "bfloat16", "batch": batch}
+               "issue_ms": 0.0, "max_abs_err": 0.0, "sites": 0, "dtype": "bfloat16",
+               "batch": batch}
            for k in ("bn_act_dropout", "bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd")}
-
-    def note(name, k_ms, p_ms, b, err):
-        o = out[name]
-        o["ms"] += k_ms
-        o["plain_ms"] += p_ms
-        o["bound_ms"] += b[0]
-        o["bound_by"] = "operations" if b[1] != "bytes" else o["bound_by"]
-        o["max_abs_err"] = max(o["max_abs_err"], err)
-        o["sites"] += 1
+    note = site_notes(out)
 
     for i, (c, h, w) in enumerate(sites):
         p = 0.5 if i % 2 == 0 else 0.0          # bn1 drops at 0.5, bn2 at 0
@@ -2311,14 +2387,16 @@ def phase_dp_kernels(torch, sites, latent, bounds, batch):
                              f"version's, or the base did not move the mask ({moved})")
         err = max(check_close(f"row 2 site {i} {nm}", k[j], kr[j], bf16, True)
                   for j, nm in enumerate(("dscale", "dbias", "dmean", "dvar"), 1))
-        k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(x, *args))
-        p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(x, *args), reps=2,
-                       windows=1, warmup=1)
+        rot = rotation(x, gy)
+        k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(rot[j % len(rot)][0], *args))
+        p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(rot[j % len(rot)][0],
+                                                                       *args),
+                       reps=2, windows=1, warmup=1)
         b1 = bounds(2 * n * 2 + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", bf16, None, p > 0)
         note("bn_act_dropout", k1, p1, b1, 0.0)
-        k2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward(x, gy, *args))
-        p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(x, gy, *args),
-                       reps=2, windows=1, warmup=1)
+        k2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward(*rot[j % len(rot)], *args))
+        p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(
+            *rot[j % len(rot)], *args), reps=2, windows=1, warmup=1)
         launch = fused.bwd_launch_for(x, p)
         b2 = bounds(3 * n * 2 + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", bf16, launch.vec,
                     p > 0)
@@ -2327,7 +2405,7 @@ def phase_dp_kernels(torch, sites, latent, bounds, batch):
             f"max_abs_err={err:.3e}; row 1 kernel_ms={k1:.4f} plain_ms={p1:.4f} "
             f"bound_ms={b1[0]:.4f} ({b1[1]}); row 2 kernel_ms={k2:.4f} plain_ms={p2:.4f} "
             f"bound_ms={b2[0]:.4f} ({b2[1]})")
-        del x, gy, y, r, k, kr
+        del x, gy, y, r, k, kr, rot
         torch.cuda.empty_cache()
 
     h, w, c = latent
@@ -2345,24 +2423,28 @@ def phase_dp_kernels(torch, sites, latent, bounds, batch):
         raise SystemExit(f"rows 3/4 with base {n}: z, dmu or dlv is not bitwise the plain "
                          f"version's, or the base did not move the noise ({moved})")
     err3 = check_close("row 3 kl", kl, klr, bf16, True)
-    k3 = time_cuda(torch, lambda j: fused.reparam_kl_forward(mu, lv, 88, n))
-    p3 = time_cuda(torch, lambda j: fused.reparam_kl_reference(mu, lv, 88, n), reps=2,
-                   windows=1, warmup=1)
+    rot = rotation(mu, lv, gz)
+    k3 = time_cuda(torch, lambda j: fused.reparam_kl_forward(*rot[j % len(rot)][:2], 88, n))
+    p3 = time_cuda(torch, lambda j: fused.reparam_kl_reference(*rot[j % len(rot)][:2], 88, n),
+                   reps=2, windows=1, warmup=1)
     b3 = bounds(3 * n * 2 + 4, n, "reparam_fwd_kernel", bf16)
     note("reparam_kl", k3, p3, b3, err3)
-    k4 = time_cuda(torch, lambda j: fused.reparam_kl_backward(mu, lv, gz, None, 88, n))
-    p4 = time_cuda(torch, lambda j: fused.reparam_kl_backward_reference(mu, lv, gz, None, 88, n),
+    k4 = time_cuda(torch, lambda j: fused.reparam_kl_backward(*rot[j % len(rot)], None, 88, n))
+    p4 = time_cuda(torch, lambda j: fused.reparam_kl_backward_reference(*rot[j % len(rot)], None,
+                                                                        88, n),
                    reps=2, windows=1, warmup=1)
-    b4 = bounds(5 * n * 2, n, "reparam_bwd_kernel", bf16)
+    b4 = bounds(5 * n * 2, n, "reparam_bwd_kernel", bf16, kl=False)
     note("reparam_kl_bwd", k4, p4, b4, 0.0)
+    grids = row4_grids(torch, fused, rot, 88, n, None)
     log(f"rows 3/4 {(batch, c, h, w)} base={n}: z, dmu, dlv bitwise equal, kl {float(kl)!r} vs "
         f"plain {float(klr)!r}; row 3 kernel_ms={k3:.4f} plain_ms={p3:.4f} bound_ms={b3[0]:.4f} "
-        f"({b3[1]}); row 4 kernel_ms={k4:.4f} plain_ms={p4:.4f} bound_ms={b4[0]:.4f} ({b4[1]})")
+        f"({b3[1]}); row 4 kernel_ms={k4:.4f} plain_ms={p4:.4f} bound_ms={b4[0]:.4f} ({b4[1]}; "
+        f"SASS issue {b4[3]:.4f}); {grids}")
     for name, o in out.items():
         log(f"{name} with the index base over {o['sites']} site(s) of the DP step: kernel "
             f"{o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
-            f"({o['bound_by']})")
-    del mu, lv, gz, z, zr, d, dr
+            f"({o['bound_by']}; SASS issue {o['issue_ms']:.4f} ms)")
+    del mu, lv, gz, z, zr, d, dr, rot
     torch.cuda.empty_cache()
     return out
 
@@ -2881,24 +2963,18 @@ def phase_stripe_kernels(torch, sites, latent, bounds):
         f"of the 12 generator sites of a vaegan_256_dp step (bfloat16, global batch "
         f"{STRIPE_BATCH}: {STRIPE_BATCH // 2} rows x H/{MESH_MODEL} each), bitwise against "
         "their plain versions with the same map and (rows 1, 3) against the kernel on the "
-        "global tensor cut to the part; kernel: median of 5 CUDA-event windows of 20 launches; "
-        "plain: one window of 2; the contiguous map (L = G) is phase 11.3's ==")
+        "global tensor cut to the part; kernel: median of 5 CUDA-event windows of 20 launches, "
+        "inputs rotated through >= 256 MB; plain: one window of 2; the contiguous map (L = G) "
+        "is phase 11.3's ==")
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
     cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
     bf16 = torch.bfloat16
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
-               "max_abs_err": 0.0, "sites": 0, "dtype": "bfloat16", "batch": STRIPE_BATCH,
+               "issue_ms": 0.0, "max_abs_err": 0.0, "sites": 0, "dtype": "bfloat16",
+               "batch": STRIPE_BATCH,
                "part": f"rows {STRIPE_BATCH // 2}-{STRIPE_BATCH - 1}, stripe 1 of {MESH_MODEL}"}
            for k in ("bn_act_dropout", "bn_act_dropout_bwd", "reparam_kl", "reparam_kl_bwd")}
-
-    def note(name, k_ms, p_ms, b, err):
-        o = out[name]
-        o["ms"] += k_ms
-        o["plain_ms"] += p_ms
-        o["bound_ms"] += b[0]
-        o["bound_by"] = "operations" if b[1] != "bytes" else o["bound_by"]
-        o["max_abs_err"] = max(o["max_abs_err"], err)
-        o["sites"] += 1
+    note = site_notes(out)
 
     for i, (c, h, w) in enumerate(sites):
         p = 0.5 if i % 2 == 0 else 0.0          # bn1 drops at 0.5, bn2 at 0
@@ -2924,15 +3000,17 @@ def phase_stripe_kernels(torch, sites, latent, bounds):
         del full, cut
         err = max(check_close(f"row 2 site {i} {nm}", k[j], kr[j], bf16, True)
                   for j, nm in enumerate(("dscale", "dbias", "dmean", "dvar"), 1))
-        k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(x, *args))
-        p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(x, *args), reps=2,
-                       windows=1, warmup=1)
+        rot = rotation(x, gy)
+        k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(rot[j % len(rot)][0], *args))
+        p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(rot[j % len(rot)][0],
+                                                                       *args),
+                       reps=2, windows=1, warmup=1)
         b1 = bounds(2 * n * 2 + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", bf16, None, p > 0,
                     p > 0)
         note("bn_act_dropout", k1, p1, b1, 0.0)
-        k2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward(x, gy, *args))
-        p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(x, gy, *args),
-                       reps=2, windows=1, warmup=1)
+        k2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward(*rot[j % len(rot)], *args))
+        p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(
+            *rot[j % len(rot)], *args), reps=2, windows=1, warmup=1)
         launch = fused.bwd_launch_for(x, p, True)
         b2 = bounds(3 * n * 2 + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", bf16, launch.vec,
                     p > 0, p > 0)
@@ -2941,7 +3019,7 @@ def phase_stripe_kernels(torch, sites, latent, bounds):
             f"bitwise equal, y the global kernel's part, sums max_abs_err={err:.3e}; row 1 "
             f"kernel_ms={k1:.4f} plain_ms={p1:.4f} bound_ms={b1[0]:.4f} ({b1[1]}); row 2 "
             f"kernel_ms={k2:.4f} plain_ms={p2:.4f} bound_ms={b2[0]:.4f} ({b2[1]})")
-        del x, gy, y, r, k, kr
+        del x, gy, y, r, k, kr, rot
         torch.cuda.empty_cache()
 
     h, w, c = latent
@@ -2963,26 +3041,33 @@ def phase_stripe_kernels(torch, sites, latent, bounds):
                          "version's, or z is not the global kernel's part")
     del full_mu, full_lv, cut
     err3 = check_close("row 3 kl", kl, klr, bf16, True)
-    k3 = time_cuda(torch, lambda j: fused.reparam_kl_forward(mu, lv, 88, base, st))
-    p3 = time_cuda(torch, lambda j: fused.reparam_kl_reference(mu, lv, 88, base, st), reps=2,
-                   windows=1, warmup=1)
+    rot = rotation(mu, lv, gz)
+    k3 = time_cuda(torch, lambda j: fused.reparam_kl_forward(*rot[j % len(rot)][:2], 88, base,
+                                                             st))
+    p3 = time_cuda(torch, lambda j: fused.reparam_kl_reference(*rot[j % len(rot)][:2], 88, base,
+                                                               st),
+                   reps=2, windows=1, warmup=1)
     b3 = bounds(3 * n * 2 + 4, n, "reparam_fwd_kernel", bf16, striped=True)
     note("reparam_kl", k3, p3, b3, err3)
-    k4 = time_cuda(torch, lambda j: fused.reparam_kl_backward(mu, lv, gz, None, 88, base, st))
-    p4 = time_cuda(torch, lambda j: fused.reparam_kl_backward_reference(mu, lv, gz, None, 88,
-                                                                        base, st),
+    k4 = time_cuda(torch, lambda j: fused.reparam_kl_backward(*rot[j % len(rot)], None, 88, base,
+                                                              st))
+    p4 = time_cuda(torch, lambda j: fused.reparam_kl_backward_reference(*rot[j % len(rot)], None,
+                                                                        88, base, st),
                    reps=2, windows=1, warmup=1)
-    b4 = bounds(5 * n * 2, n, "reparam_bwd_kernel", bf16, striped=True)
+    b4 = bounds(5 * n * 2, n, "reparam_bwd_kernel", bf16, striped=True, kl=False)
     note("reparam_kl_bwd", k4, p4, b4, 0.0)
+    grids = row4_grids(torch, fused, rot, 88, base, st)
     log(f"rows 3/4 {tuple(mu.shape)} base={base} L={big_l} G={big_g}: z, dmu, dlv bitwise "
         f"equal, z the global kernel's part, kl {float(kl)!r} vs plain {float(klr)!r}; row 3 "
         f"kernel_ms={k3:.4f} plain_ms={p3:.4f} bound_ms={b3[0]:.4f} ({b3[1]}); row 4 "
-        f"kernel_ms={k4:.4f} plain_ms={p4:.4f} bound_ms={b4[0]:.4f} ({b4[1]})")
+        f"kernel_ms={k4:.4f} plain_ms={p4:.4f} bound_ms={b4[0]:.4f} ({b4[1]}; SASS issue "
+        f"{b4[3]:.4f}); {grids}")
     for name, o in out.items():
         log(f"{name} with the stripe map over {o['sites']} site(s): kernel {o['ms']:.4f} ms, "
             f"plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}; "
-            f"{100 * o['bound_ms'] / o['ms']:.1f}% of the bound's time)")
-    del mu, lv, gz, z, zr, d, dr
+            f"{100 * o['bound_ms'] / o['ms']:.1f}% of the bound's time; SASS issue "
+            f"{o['issue_ms']:.4f} ms)")
+    del mu, lv, gz, z, zr, d, dr, rot
     torch.cuda.empty_cache()
     return out
 
@@ -3744,9 +3829,11 @@ def onoff_times():
 
 
 KERNEL_TIMES = """
-import json, os, subprocess, sys
+import importlib.util, json, os, subprocess, sys
 import torch
-import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("chip_smoke", os.environ["CHIP_SMOKE"])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 import vaegan_tpu_torch as vt
 from vaegan_tpu_torch.ops import _build
 
@@ -3764,23 +3851,24 @@ gen = vt.create_generator_state(cfg.replace(train=cfg.train.replace(use_pallas="
                                 device="cuda", seed=cs.SEED).generator
 sites = cs.fused_sites(torch, gen, cfg.data.image_size, cfg.generator.in_channels)
 latent = vt.latent_shape(cfg)
-pick = lambda d: {k: {f: v[f] for f in ("ms", "bound_ms")} for k, v in d.items()}
+pick = lambda d: {k: {f: v[f] for f in ("ms", "bound_ms", "issue_ms", "instr_ms") if f in v}
+                  for k, v in d.items()}
 out = {"instructions": {" ".join(str(a) for a in k if a is not None): v for k, v in counts.items()},
        "training": pick(cs.phase_train_kernels(torch, sites, latent, bounds)),
-       "dp": pick(cs.phase_dp_kernels(torch, sites, latent, bounds, 32))}
-if hasattr(cs, "phase_stripe_kernels"):
-    out["stripe"] = pick(cs.phase_stripe_kernels(torch, sites, latent, bounds))
+       "dp": pick(cs.phase_dp_kernels(torch, sites, latent, bounds, 32)),
+       "stripe": pick(cs.phase_stripe_kernels(torch, sites, latent, bounds))}
 print("PAIR " + json.dumps(out), flush=True)
 """
 
 
 def paired_kernels(trees, timeout=900):
-    """Rows 1-5's kernel and bound milliseconds at the training, DP and (where
-    a tree has phase 12.2) stripe sites, and each kernel instance's hot-loop
-    instructions per element (:func:`kernel_counts`), for each checkout in ``trees`` in
-    turn, each from its own root with its own build (:data:`KERNEL_TIMES`):
-    give a parent's tree and this one as parent, this, this, parent to compare
-    two versions on one card. Prints one ``PAIR`` line per tree."""
+    """Rows 1-5's kernel, bound and SASS issue milliseconds at the training, DP
+    and stripe sites, and each kernel instance's hot-loop instructions per
+    element (:func:`kernel_counts`), for each checkout in ``trees`` in turn, each
+    with its own package and build and this script's phases and timing
+    (:data:`KERNEL_TIMES`): give a parent's tree and this one as parent, this,
+    this, parent to compare two versions on one card. Prints each tree's log
+    and then one ``PAIR`` line for it."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3789,12 +3877,16 @@ def paired_kernels(trees, timeout=900):
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     for tree in trees:
         root = os.path.abspath(tree)
-        env = dict(os.environ, PYTHONPATH=root)
+        env = dict(os.environ, PYTHONPATH=root, CHIP_SMOKE=os.path.join(HERE, "chip_smoke.py"))
         proc = subprocess.run([sys.executable, "-c", KERNEL_TIMES], cwd=root, env=env,
                               capture_output=True, text=True, timeout=timeout)
-        line = [x for x in proc.stdout.splitlines() if x.startswith("PAIR ")]
+        lines = proc.stdout.splitlines()
+        line = [x for x in lines if x.startswith("PAIR ")]
         if proc.returncode or not line:
             sys.exit(f"{tree}: rc {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        for x in lines:
+            if not x.startswith("PAIR "):
+                log(f"[{tree}] {x}")
         log(f"PAIR {os.path.relpath(root, HERE)} [{smi}] {line[0][5:]}")
 
 

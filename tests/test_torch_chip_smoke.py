@@ -147,9 +147,9 @@ def test_each_dropout_instance_has_its_own_count(monkeypatch):
         a, 0, stdout=FWD_INSTANCES))
     counts, atomics = chip_smoke.kernel_counts({"bn_act_dropout": "lib.so"}, "cuobjdump")
     key = ("bn_act_dropout_fwd_kernel", "float32", None)
-    assert counts == {key + (False, False): pytest.approx(4 / 4),
-                      key + (True, False): pytest.approx(6 / 4),
-                      key + (True, True): pytest.approx(8 / 4)}
+    assert counts == {key + (False, False, None): pytest.approx(4 / 4),
+                      key + (True, False, None): pytest.approx(6 / 4),
+                      key + (True, True, None): pytest.approx(8 / 4)}
     assert atomics == []
     bounds = chip_smoke.Bounds(bw=1e12, instr_rate=1e9, counts=counts)
     n = 1000
@@ -184,6 +184,86 @@ def test_ptxas_summary_names_each_kernel_by_its_instance():
         "bn_act_dropout_fwd_kernel<bf16, dropout>: Used 40 registers, used 1 barriers; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ]
+
+
+# Row 4's backward as a build with (striped, kl) template arguments compiles it: a
+# bfloat16 instance whose pass reads 8 elements of each of its 3 arrays with one 16-byte
+# load, a float32 one with two, and a bfloat16 loop of an earlier build (one template
+# argument) with 8-byte loads of 4 elements.
+BWD_INSTANCES = """
+        Function : _ZN12_GLOBAL__N_118reparam_bwd_kernelI13__nv_bfloat16Lb1ELb0EEEvPKT_S4_S4_PKfPS2_S7_xjjxixx
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
+        /*0020*/                   LDG.E.128 R8, desc[UR4][R12.64] ;     /* 0x0000000402047981 */
+        /*0030*/                   LDG.E.128 R16, desc[UR4][R14.64] ;    /* 0x0000000402047981 */
+        /*0040*/                   IMAD.WIDE.U32 R20, R21, R22, RZ ;     /* 0x0000000402047981 */
+        /*0050*/                   FMUL R4, R4, R9 ;                     /* 0x0000000904047220 */
+        /*0060*/                   STG.E.128 desc[UR4][R12.64], R4 ;     /* 0x000000040c007986 */
+        /*0070*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
+        /*0080*/                   EXIT ;                                /* 0x000000000000794d */
+        ..........
+        Function : _ZN12_GLOBAL__N_118reparam_bwd_kernelIfLb0ELb1EEEvPKT_S3_S3_PKfPS1_S6_xjjxixx
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;      /* 0x0000000402047981 */
+        /*0020*/                   LDG.E.128 R8, desc[UR4][R2.64+0x10] ; /* 0x0000000402047981 */
+        /*0030*/                   LDG.E.128 R12, desc[UR4][R6.64] ;     /* 0x0000000402047981 */
+        /*0040*/                   LDG.E.128 R16, desc[UR4][R6.64+0x10] ; /* 0x0000000402047981 */
+        /*0050*/                   LDG.E.128 R20, desc[UR4][R10.64] ;    /* 0x0000000402047981 */
+        /*0060*/                   LDG.E.128 R24, desc[UR4][R10.64+0x10] ; /* 0x0000000402047981 */
+        /*0070*/                   FMUL R4, R4, R9 ;                     /* 0x0000000904047220 */
+        /*0080*/                   STG.E.128 desc[UR4][R12.64], R4 ;     /* 0x000000040c007986 */
+        /*0090*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
+        /*00a0*/                   EXIT ;                                /* 0x000000000000794d */
+        ..........
+        Function : _ZN12_GLOBAL__N_118reparam_bwd_kernelI13__nv_bfloat16Lb1EEEvPKT_S4_S4_PKfPS2_S7_xjjxixx
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.64 R4, desc[UR4][R2.64] ;       /* 0x0000000402047981 */
+        /*0020*/                   LDG.E.64 R6, desc[UR4][R12.64] ;      /* 0x0000000402047981 */
+        /*0030*/                   LDG.E.64 R8, desc[UR4][R14.64] ;      /* 0x0000000402047981 */
+        /*0040*/                   FMUL R4, R4, R9 ;                     /* 0x0000000904047220 */
+        /*0050*/              @!P0 BRA 0x10 ;                            /* 0x0000000000008947 */
+        /*0060*/                   EXIT ;                                /* 0x000000000000794d */
+        ..........
+"""
+
+
+@pytest.mark.parametrize("which,inputs,elem_bytes,per_element", [
+    (0, 3, 2, 7 / 8),     # bf16, one 16-byte load an array: 8 elements a pass
+    (1, 3, 4, 9 / 8),     # f32, two 16-byte loads an array: 8 elements
+    (2, 3, 2, 5 / 4),     # bf16, one 8-byte load an array: 4 elements
+    (1, 3, 2, 9 / 16),    # the f32 listing read as bf16: 16 elements
+])
+def test_hot_loop_elements_follow_load_width_and_dtype(which, inputs, elem_bytes, per_element):
+    """Elements a pass are the path's wide-load bytes over the arrays read, at
+    the element size: a 16-byte load is 4 float32 or 8 bfloat16 elements, an
+    8-byte load 2 or 4."""
+    code = list(chip_smoke.sass_functions(BWD_INSTANCES).values())[which]
+    assert chip_smoke.hot_loop_instructions(code, inputs, elem_bytes) == pytest.approx(
+        per_element)
+
+
+def test_row4_instances_are_keyed_on_striped_and_kl(monkeypatch):
+    """``kernel_counts`` keys row 4's instances on (striped, kl) and reads each
+    one's elements from its dtype; ``Bounds`` finds the instance asked for, and
+    for an earlier build whose row 4 has no kl argument it counts the one loop
+    (kl None)."""
+    import subprocess
+
+    import torch
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: subprocess.CompletedProcess(
+        a, 0, stdout=BWD_INSTANCES))
+    counts, _ = chip_smoke.kernel_counts({"reparam_kl": "lib.so"}, "cuobjdump")
+    k = "reparam_bwd_kernel"
+    assert counts == {(k, "bfloat16", None, None, True, False): pytest.approx(7 / 8),
+                      (k, "float32", None, None, False, True): pytest.approx(9 / 8),
+                      (k, "bfloat16", None, None, True, None): pytest.approx(5 / 4)}
+    bounds = chip_smoke.Bounds(bw=1e12, instr_rate=1e9, counts=counts)
+    n = 8000
+    issue = lambda **kw: bounds(10 * n, n, k, torch.bfloat16, striped=True, **kw)[3]  # noqa: E731
+    assert issue(kl=False) == pytest.approx(7 / 8 * n / 1e9 * 1e3)
+    assert issue(kl=True) == issue() == pytest.approx(5 / 4 * n / 1e9 * 1e3)
+    assert bounds(20 * n, n, k, torch.float32, kl=True)[3] == pytest.approx(9 / 8 * n / 1e6)
 
 
 def test_rotation_copies_keep_each_inputs_strides():

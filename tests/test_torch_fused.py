@@ -312,6 +312,122 @@ def test_reparam_kl_cotangent_none_counts_as_zero():
     assert all(torch.equal(p, q) for p, q in zip(a, b))
 
 
+# The exact function row 4 keeps: special values, in flat NHWC order, each group of 8
+# (the backward kernel's span) holding some. gz = +-0 beside lv > 0 (e^lv > 1) and lv < 0,
+# and beside a positive and a negative mu (the sign of dmu = gz + 0 mu); lv = 1e-10 (e^lv
+# rounds to 1); lv >= 89 (e^lv overflows float32) and a NaN lv.
+SPECIAL = [  # (gz, lv, mu) at flat positions 0, 3, 6, ...
+    (0.0, 0.5, 1.0), (-0.0, 0.5, 1.0), (0.0, -0.5, -1.0), (-0.0, -0.5, -1.0),
+    (-0.0, 0.5, -1.0), (-0.0, -0.5, 1.0), (0.0, 1e-10, 0.0), (-0.0, 1e-10, -0.0),
+    (1.0, 89.0, 0.5), (0.0, 100.0, 0.5), (1.0, float("nan"), 0.5), (-0.0, 89.0, 0.5),
+]
+
+
+def _special(dtype, shape=(2, 6, 5, 7)):
+    """mu, lv, gz (N, C, H, W) channels_last of ``dtype`` with :data:`SPECIAL`
+    among seeded random values."""
+    mu, lv = _mu_lv(shape)
+    gz = np.random.default_rng(3).normal(size=shape).astype(np.float32)
+    for arr, j in ((gz, 0), (lv, 1), (mu, 2)):
+        flat = arr.reshape(-1)
+        flat[:3 * len(SPECIAL):3] = [v[j] for v in SPECIAL]
+    return tuple(nchw(a).to(dtype) for a in (mu, lv, gz))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_reparam_backward_without_kl_is_a_zero_kl_cotangent(dtype):
+    """No KL cotangent (None) is a zero one bit for bit, the sign of every zero
+    result included: gz = +-0 beside lv > 0 gives dlv = +0 (a zero plus
+    (-0)(1 - e^lv) = +0), beside lv < 0 the sign of gz/2 e^{lv/2} eps; dmu = gz +
+    0 mu takes mu's sign where gz = -0."""
+    mu, lv, gz = _special(dtype)
+    none = fused.reparam_kl_backward_reference(mu, lv, gz, None, 31)
+    zero = fused.reparam_kl_backward_reference(mu, lv, gz, torch.zeros(()), 31)
+    for a, b in zip(none, zero):
+        assert torch.equal(_bits(a), _bits(b))
+    dmu, dlv = (t.permute(0, 2, 3, 1).reshape(-1).float() for t in none)
+    at = 3 * np.arange(len(SPECIAL))
+    for i, (g, l, m) in zip(at, SPECIAL):
+        if g == 0 and 0.1 < l < 88:
+            assert float(dlv[i]) == 0 and not torch.signbit(dlv[i])
+        if g == 0 and str(g) == "-0.0":
+            assert float(dmu[i]) == 0 and bool(torch.signbit(dmu[i])) == (str(m)[0] == "-")
+    # elsewhere dlv is gz/2 e^{lv/2} eps exactly (adding a zero changes no other value)
+    eps = fused.reparam_noise(mu.shape, 31, "cpu")
+    a = ((gz.float() * 0.5) * torch.exp(0.5 * lv.float())) * eps
+    ok = (a != 0) & (lv.float() <= 88)
+    assert torch.equal(none[1].float()[ok], a.to(dtype).float()[ok])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_reparam_backward_overflow_and_nan_log_variance(dtype):
+    """Where e^lv overflows (lv >= 89), dlv is NaN without a KL cotangent or with
+    a zero one (the zero KL term is (-0)(1 - inf)) and +inf with a positive one;
+    a NaN lv gives a NaN dlv either way; dmu stays gz + gkl mu."""
+    mu, lv, gz = _special(dtype)
+    for gkl in (None, torch.zeros(()), torch.tensor(0.25)):
+        k = 0.0 if gkl is None else float(gkl)
+        dmu, dlv = (t.permute(0, 2, 3, 1).reshape(-1).float()
+                    for t in fused.reparam_kl_backward_reference(mu, lv, gz, gkl, 31))
+        for j, (g, l, m) in enumerate(SPECIAL):
+            if not l <= 88:
+                want = float("nan") if k == 0 or l != l else float("inf")
+                assert float(dlv[3 * j]) == want or want != want and torch.isnan(dlv[3 * j])
+                assert float(dmu[3 * j]) == pytest.approx(g + k * m, abs=1e-6)
+        assert torch.isfinite(dmu).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_reparam_backward_stripe_is_the_global_draws_slice(dtype):
+    """On process (1, 1) of a 2 x 2 mesh with H split, the backward with the
+    stripe index map equals the backward of the global tensors cut to that
+    process's rows and stripe, bit for bit (the noise replayed from the global
+    index), with and without a KL cotangent."""
+    from vaegan_tpu_torch.ops.replica import Replica
+
+    rep = Replica(rank=1, world=2, model_rank=1, num_model=2, spatial=True)
+    full = _special(dtype, (4, 6, 8, 5))
+    part = [rep.take(t, 2).contiguous(memory_format=torch.channels_last) for t in full]
+    base, big_l, big_g = rep.index_map(part[0].shape)
+    assert big_l < big_g and big_l % 8 == 0 and base > 0
+    for gkl in (None, torch.tensor(0.25)):
+        got = fused.reparam_kl_backward_reference(*part, gkl, 31, base, (big_l, big_g))
+        want = fused.reparam_kl_backward_reference(*full, gkl, 31)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(rep.take(b, 2)))
+
+
+def test_reparam_backward_special_values_match_jax():
+    """At the special values, the plain backward against the JAX package: its
+    KL part (gz = 0, gkl = 1) against ``jax.grad`` of
+    ``vaegan_tpu.losses.kl_divergence`` (mu, and -(1 - e^lv)/2: +inf where e^lv
+    overflows, NaN at the NaN lv); its z part (gz = 1, no KL cotangent) by
+    d sum z / d lv = (z - mu)/2 with the replayed eps, where e^lv is finite (it
+    is NaN where e^lv overflows: the zero KL term is (-0)(1 - inf)), and d sum z /
+    d mu = 1. Tolerance 1e-5 relative."""
+    from vaegan_tpu import losses as jlosses
+
+    mu, lv, _ = _special(torch.float32)
+    kmu, klv = jax.grad(lambda m, l: jlosses.kl_divergence(m, l, "sum"), argnums=(0, 1))(
+        jnp.asarray(nhwc(mu)), jnp.asarray(nhwc(lv)))
+    dmu, dlv = fused.reparam_kl_backward_reference(mu, lv, torch.zeros_like(mu),
+                                                   torch.ones(()), 31)
+    np.testing.assert_allclose(nhwc(dmu), np.asarray(kmu), rtol=1e-6)
+    np.testing.assert_allclose(nhwc(dlv), np.asarray(klv), rtol=1e-5, atol=1e-6)
+    assert np.isinf(np.asarray(klv)).any() and np.isnan(np.asarray(klv)).any()
+    z, _ = fused.reparam_kl_reference(mu, lv, 31)
+    dmu, dlv = fused.reparam_kl_backward_reference(mu, lv, torch.ones_like(mu), None, 31)
+    assert torch.equal(dmu, torch.ones_like(dmu))
+    finite = lv <= 88
+    np.testing.assert_allclose(dlv[finite].numpy(), ((z - mu) / 2)[finite].numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.isnan(dlv[~finite]).all()
+
+
 # ---------------------------------------------------------------------------
 # row 5: recon_loss_sums
 # ---------------------------------------------------------------------------
@@ -420,6 +536,21 @@ def test_registered_operator_is_the_forward(p):
     graph = torch.export.export(Site(), (xt,)).graph
     assert [n.target for n in graph.nodes if n.op == "call_function"] == [
         torch.ops.vaegan.bn_act_dropout.default]
+
+
+@pytest.mark.parametrize("n,max_blocks,want", [
+    (1, 396, 1),                          # below one block's pass
+    (2048, 396, 1), (2049, 396, 2),       # a block takes 256 x 8 elements a pass
+    (4 * 256 * 64 * 64, 2112, 2048),      # the training site: one pass a thread
+    (16 * 256 * 32 * 64, 2112, 2112),     # the stripe site: 16 blocks an SM
+])
+def test_reparam_bwd_grid(n, max_blocks, want, monkeypatch):
+    """Row 4's grid: no more blocks than the elements need at 8 a thread, at
+    most ``max_blocks``, at least one; the wrapper's ``max_blocks`` is 16 an
+    SM."""
+    assert fused._reparam_bwd_grid(n, max_blocks) == want
+    monkeypatch.setattr(fused, "_sms", lambda device: max_blocks / 16)
+    assert fused.reparam_bwd_blocks(torch.empty(n)) == want
 
 
 # ---------------------------------------------------------------------------

@@ -131,13 +131,13 @@ def _masks_collection(masks: dict, kind: str):
     return jax.tree.map(jnp.asarray, jinterop.reference_dropout_masks_to_collection(pairs, kind))
 
 
-def _numpy_critic_masks(critic, rng):
+def _numpy_critic_masks(critic, rng, batch=BATCH):
     """A channel keep-mask (B, C, 1, 1) for each critic Dropout2d (after conv1)."""
     out = {}
     for name, m in critic.named_modules():
         if isinstance(m, vt.models.ResBlockDiscriminator):
             c = m.conv1.weight_orig.shape[0]
-            out[f"{name}.dropout"] = torch.from_numpy(rng.random((BATCH, c, 1, 1)) >= 0.5)
+            out[f"{name}.dropout"] = torch.from_numpy(rng.random((batch, c, 1, 1)) >= 0.5)
     return out
 
 
@@ -493,6 +493,92 @@ def gan_only_kink(report=print) -> dict:
         return out
     finally:
         mp.undo()
+
+
+# ------------------------------------------------------ seed 2's KL excursion
+def seed2_kl_excursion(steps: int = 100, report=print, argv=()) -> dict:
+    """Seed 2's summed KL in both packages, step by step: the recipe of
+    ``reproduce_headline --seed 2 --dtype float32 --use-pallas all`` (the
+    notebook preset at 256², batch 4, a G update and the penalty every step),
+    for ``steps`` steps from the port's seed-2 weights carried into the JAX
+    state, on the port's seed-2 batches. Draws: the port's fused step (the plain
+    versions on the CPU) draws its dropout masks and noise, which are rebuilt
+    and injected into the JAX "losses" step; the critic's masks and the GP
+    alphas are drawn here with numpy and injected into both, as in
+    :func:`trajectory`. Prints a line a step (``python -c "import
+    tests.test_torch_train_step as t; t.seed2_kl_excursion()"`` from the repo
+    root) and returns ``{"port": [kl, ...], "jax": [kl, ...]}``. ``argv``: more
+    of the script's flags (the test runs it at a small size)."""
+    from vaegan_tpu.config import Config as JConfig
+    from vaegan_tpu_torch.data.pipeline import make_loader
+    from vaegan_tpu_torch.examples import reproduce_headline as rh
+    from vaegan_tpu_torch.train.step import step_seed
+
+    cfg = rh.build_config(rh.build_parser().parse_args(
+        ["--seed", "2", "--dtype", "float32", "--use-pallas", "all", *argv]))
+    jcfg = JConfig.from_dict(cfg.to_dict())
+    jcfg = jcfg.replace(train=jcfg.train.replace(use_pallas="losses"))
+    port = vt.create_train_state(cfg, device="cpu")
+    pool = port.critic.pool_shape
+    js = jstate_mod.create_train_state(jcfg, jax.random.key(2))
+    gv = jinterop.reference_generator_to_variables(
+        {k: v.numpy() for k, v in port.generator.state_dict().items()})
+    dv = jinterop.reference_discriminator_to_variables(
+        {k: v.numpy() for k, v in port.critic.state_dict().items()}, pool)
+    cast = lambda t, like: jax.tree.map(lambda a, b: jnp.asarray(a, b.dtype), t, like)  # noqa: E731
+    js = js.replace(
+        g_params=cast(gv["params"], js.g_params), g_stats=cast(gv["batch_stats"], js.g_stats),
+        d_params=cast(dv["params"], js.d_params), d_stats=cast(dv["batch_stats"], js.d_stats),
+        d_spectral=cast(dv["spectral"], js.d_spectral))
+    jstep = jax.jit(lambda s, b, inj: jstep_mod.make_train_step(jcfg, True, inject=inj)(
+        s, b, jax.random.key(1)))
+    step = lambda inj: make_train_step(cfg, True, inject=inj)  # noqa: E731
+    rng = np.random.default_rng(2)
+    batch_size = cfg.data.batch_size
+    out = {"port": [], "jax": []}
+    loader = make_loader(cfg.data, seed=cfg.train.seed, device="cpu")
+    batches = (b for _ in range(cfg.train.n_epochs) for b in loader)
+    for i, batch in zip(range(steps), batches):
+        batch = np.asarray(batch, np.float32)
+        inj = {f"d_masks_{k}": _numpy_critic_masks(port.critic, rng, batch_size)
+               for k in ("real", "fake", "interp", "gen")}
+        inj["alpha"] = torch.from_numpy(rng.random(batch_size).astype(np.float32))
+        port, metrics = step(inj)(port, torch.from_numpy(batch), step_seed(cfg.train.seed, i))
+        jinj = dict(inj)
+        jinj.update(fused_draws(port.generator))
+        jinj = {k: (_masks_collection(v, "discriminator" if k.startswith("d_") else
+                                      "generator") if "masks" in k else
+                    jnp.asarray(np.asarray(v))) for k, v in jinj.items()}
+        js, jmetrics = jstep(js, jnp.asarray(batch), jinj)
+        out["port"].append(float(metrics["kl"]))
+        out["jax"].append(float(jmetrics["kl"]))
+        report(f"step {i}: KL port {out['port'][-1]!r} JAX {out['jax'][-1]!r}")
+    return out
+
+
+def test_seed2_helper_holds_both_packages_to_one_start(monkeypatch):
+    """:func:`seed2_kl_excursion` at a small size (the preset narrowed, 32²):
+    the two packages start from the same weights, batches and draws, so the
+    first step's summed KL (of the forward before any update) agrees within
+    1e-5 relative, and every step's is finite in both."""
+    from vaegan_tpu_torch.examples import reproduce_headline as rh
+
+    base = rh.preset
+
+    def narrow(name):
+        cfg = base(name)
+        return cfg.replace(
+            generator=cfg.generator.replace(depth=1, length=1, feature_size=4),
+            discriminator=cfg.discriminator.replace(
+                num_features_conv1=8, num_blocks=(1, 1), num_strides_res=(1, 2),
+                num_features_res=(8, 16), linear_widths=(16, 8)),
+            data=cfg.data.replace(synthetic_size=8))
+
+    monkeypatch.setattr(rh, "preset", narrow)
+    out = seed2_kl_excursion(steps=3, report=lambda line: None, argv=("--image-size", "32"))
+    assert len(out["port"]) == len(out["jax"]) == 3
+    assert all(np.isfinite(out["port"] + out["jax"]))
+    assert out["port"][0] == pytest.approx(out["jax"][0], rel=1e-5)
 
 
 def test_gan_only_second_g_update_is_a_kink_of_the_step():

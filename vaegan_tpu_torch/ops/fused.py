@@ -44,8 +44,10 @@ with no stripe is the one-process draw. ``base`` is a multiple of 4 (one
 Philox call's words); a stripe's L and G are multiples of 4 for the dropout
 stream and of 2 for the noise, so that one call's words fall in one image.
 Each of the four kernels is built in two instances: a stripe map (L < G)
-launches the one that divides by L, every other map the contiguous one, whose
-loop computes ``base + e`` alone.
+launches the striped one (rows 1-3 divide by L in its loop; row 4 carries
+its global index from pass to pass), every other map the contiguous one, whose
+loop computes ``base + e`` alone. Row 4 also comes with and without a KL
+cotangent: ``gkl=None`` leaves out e^lv where that changes no bit.
 
 ``LAUNCHES`` counts kernel launches per kernel name: one is added where a
 wrapper launches its kernel, and nowhere else. While :func:`counting` runs,
@@ -310,7 +312,8 @@ def _cluster_grid(n: int, per_block: int, max_clusters: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _max_clusters(lib: str, name: str, device_index, *args) -> int:
     """How many clusters of a kernel fit on the current device at once
-    (``cudaOccupancyMaxActiveClusters``, at least 1), asked once per device and
+    (``cudaOccupancyMaxActiveClusters``; or, for a kernel launched without
+    clusters, blocks on one SM), at least 1, asked once per device and
     kernel."""
     fn = _kernel_fn(lib, name, (ctypes.c_int,) * len(args))
     n = fn(*args)
@@ -640,6 +643,47 @@ def reparam_kl_backward_reference(mu, lv, gz, gkl, seed: int, base: int = 0, str
     return _channels_last(dmu.to(mu.dtype)), _channels_last(dlv.to(lv.dtype))
 
 
+def _reparam_bwd_grid(n: int, max_blocks: int) -> int:
+    """The backward kernel's blocks for n elements (256 threads of 8 elements a
+    pass): no more than the elements need, at most ``max_blocks``."""
+    return max(1, min(-(-n // 2048), max_blocks))
+
+
+def reparam_bwd_blocks(mu: torch.Tensor) -> int:
+    """The backward kernel's grid for the CUDA tensor ``mu``: 16 blocks an SM,
+    fewer where the elements need fewer. More blocks than fit at once, each of
+    a few passes, end more evenly than one resident wave, whose last pass
+    leaves most of the card idle (measured on an H100, PERF.md)."""
+    return _reparam_bwd_grid(mu.numel(), 16 * _sms(mu.device))
+
+
+def _reparam_bwd_wave(mu: torch.Tensor, striped: bool = False, kl: bool = False) -> int:
+    """One resident wave of the backward kernel's instance (``striped``: for
+    L < G; ``kl``: with a KL cotangent) for the CUDA tensor ``mu``: the blocks
+    that fit on the card at once, fewer where the elements need fewer."""
+    with torch.cuda.device(mu.device):
+        per_sm = _max_clusters("reparam_kl", "vaegan_reparam_kl_bwd_blocks_per_sm",
+                               mu.device.index, _DTYPE_CODE[mu.dtype], int(striped), int(kl))
+    return _reparam_bwd_grid(mu.numel(), per_sm * _sms(mu.device))
+
+
+def _launch_reparam_bwd(mu, lv, gz, gkl, seed: int, base: int, big_l: int, big_g: int,
+                        blocks: int):
+    """One launch of the backward kernel on ``blocks`` blocks (checked inputs on
+    the card, channels_last); counts nothing."""
+    dmu = torch.empty_like(mu, memory_format=torch.channels_last)
+    dlv = torch.empty_like(lv, memory_format=torch.channels_last)
+    fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_bwd", (_P,) * 6 + (
+        _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, _LC, _LC, ctypes.c_int, _P))
+    with torch.cuda.device(mu.device):
+        rc = fn(mu.data_ptr(), lv.data_ptr(), gz.data_ptr(),
+                None if gkl is None else gkl.data_ptr(), dmu.data_ptr(), dlv.data_ptr(),
+                mu.numel(), _DTYPE_CODE[mu.dtype], seed, base, big_l, big_g, blocks,
+                _stream(mu.device))
+    _raise_on(rc, "reparam_kl backward")
+    return dmu, dlv
+
+
 def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base: int = 0,
                         stripe=None):
     """The forward's gradient ``(dmu, dlv)`` for the cotangents ``gz`` of z and
@@ -657,17 +701,8 @@ def reparam_kl_backward(mu, lv, gz, gkl: Optional[torch.Tensor], seed: int, base
         with _plain_cost("reparam_kl_bwd", mu):
             return reparam_kl_backward_reference(mu, lv, gz, gkl, seed, base, stripe)
     big_l, big_g = _check_reparam(mu, lv, seed, base, stripe)
-    n = mu.numel()
-    dmu = torch.empty_like(mu, memory_format=torch.channels_last)
-    dlv = torch.empty_like(lv, memory_format=torch.channels_last)
-    fn = _kernel_fn("reparam_kl", "vaegan_reparam_kl_bwd", (_P,) * 6 + (
-        _LC, ctypes.c_int, ctypes.c_ulonglong, _LC, _LC, _LC, ctypes.c_int, _P))
-    with torch.cuda.device(mu.device):
-        rc = fn(mu.data_ptr(), lv.data_ptr(), gz.data_ptr(),
-                None if gkl is None else gkl.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n,
-                _DTYPE_CODE[mu.dtype], seed, base, big_l, big_g, _sms(mu.device) * 8,
-                _stream(mu.device))
-    _raise_on(rc, "reparam_kl backward")
+    dmu, dlv = _launch_reparam_bwd(mu, lv, gz, gkl, seed, base, big_l, big_g,
+                                   reparam_bwd_blocks(mu))
     LAUNCHES["reparam_kl_bwd"] += 1
     _launched_cost("reparam_kl_bwd", mu)
     return dmu, dlv
