@@ -122,7 +122,7 @@ Phases, each of which exits non-zero on failure:
    processes): 11.1's runs with each step's launches exact, and the saved
    checkpoint restored into one process; 12.4 ``cli train --dp`` with
    ``num_model`` 2 under ``torchrun --nproc_per_node=2`` (gloo), launches
-   counted, and ``entry.dryrun_multichip(4)`` on the CPU;
+   counted, and ``entry.dryrun_multichip(4)`` on the CPU while it runs;
 13. the last of the JAX surface: 13.1 ``python -m vaegan_tpu_torch.bench
    --roofline`` with ``BENCH_PALLAS=all`` on the notebook G+D step, ``--paper``
    and ``BENCH_CRITIC_ONLY=1`` (96², batch 128, bfloat16): each JSON line, the
@@ -140,18 +140,34 @@ Phases, each of which exits non-zero on failure:
    latency beside phase 4's;
 14. the user journeys (``python -m vaegan_tpu_torch.examples.*``), each in its
    own process, the independent ones started together: 14.1
-   ``reproduce_headline`` at 256², batch 4, float32, ``--use-pallas all``, 20
+   ``reproduce_headline`` at 256², batch 4, float32, ``--use-pallas all``, 8
    steps, 3 draws and BN recalibrated from 5 batches, for ``notebook``,
    ``--vae`` and ``--preset vaegan_paper`` (each JSON line parsed, every number
    finite, the paper run's EMA draws present, ``fused.LAUNCHES`` over the
-   train held to 20 steps' and the sampler's: the journey path); 14.2
+   train held to 8 steps' and the sampler's: the journey path); 14.2
    ``train_vaegan --epochs 1 --image-size 96 --batch-size 64`` (its three
    PNGs and a finite MSE); 14.3 ``train_multichip --virtual 2 --max-steps 4``
    (two gloo processes sharing the card) and under ``torchrun
    --nproc_per_node=1`` (NCCL, a world of one), each closing line; 14.4 the
    ``hbm_cache`` loader in two gloo processes on the card, every batch of one
    epoch with ``grad_accum`` 2 bitwise the rank-sharded host loader's. The
-   phase's wall is printed on a line of its own.
+   phase's wall is printed on a line of its own;
+15. the research tools (``python -m vaegan_tpu_torch.tools.*``), each in its
+   own process through :func:`counted_tool` (which appends its kernel
+   launches to a log), in two waves of processes started together:
+   ``edges_multiseed --seeds 1`` (one epoch at 64², batch 64; its two
+   ``reproduce_headline`` runs counted in their own processes),
+   ``paper_probe --keep-best`` on 24 files of ``make_nifti_dataset`` (which
+   runs first, in this process; 256², batch 4, 20 steps, EMA 0.999,
+   visuals), both byte audits at their defaults (``conv_fusion_evidence``
+   with kernels off and on, and ``paper_loss_fusion_evidence`` without and
+   with ``--pallas``), ``gan_only_budget --keep-best`` (20 steps) and
+   ``run_256dp_virtual_mesh`` (two gloo processes, global batch 8, float32,
+   as 11.4); then ``large_batch_recipe`` (4 steps at batch 64) and
+   ``profile_step_residual --steps 2``. Each tool's JSON and files are
+   checked, its launches must be exactly :func:`tool_launches`' (the tool
+   paths), and each process's peak memory is printed. The phase's wall is
+   printed on a line of its own.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3190,42 +3206,49 @@ def phase_mesh(torch, vt, bounds, card_line, sites, latent):
             f"picks since the processes share the card; vaegan_256_dp with "
             f"parallel.num_model={MESH_MODEL}, use_pallas all, remat on, global batch "
             f"{TP_BATCH}, {DP_CLI_STEPS} steps), launches counted per process; "
-            "entry.dryrun_multichip(4) on the CPU ==")
+            "entry.dryrun_multichip(4) on the CPU meanwhile ==")
         with open(os.path.join(tmp, "count.py"), "w") as f:
             f.write(CLI_COUNTING)
         c = tp_config(vt, tmp, n_critics=1, n_epochs=1,
                       sample_dir=os.path.join(tmp, "cli_samples"), checkpoint_dir=None)
         with open(os.path.join(tmp, "cfg_tp.json"), "w") as f:
             json.dump(c.to_dict(), f)
+        from vaegan_tpu_torch.entry import dryrun_multichip
+
+        # the dry run (CPU processes) runs while torchrun's processes use the card
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              f"--nproc_per_node={MESH_MODEL}", os.path.join(tmp, "count.py"), "train", "--dp",
              "--device", "cuda:0", "--config",
              os.path.join(tmp, "cfg_tp.json"), "--max-steps", str(DP_CLI_STEPS),
              "--checkpoint", os.path.join(tmp, "cli_tp_ck")], cwd=HERE, env=env,
-            capture_output=True, text=True, timeout=600)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                dryrun_multichip(4)
+            dry_s = time.perf_counter() - t0
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         want = {k: DP_CLI_STEPS * v + SAMPLER_LAUNCHES[k]
                 for k, v in DP_STEP_LAUNCHES[True].items()}
-        cli_launches = [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+        cli_launches = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
                         if line.startswith("launches ")]
-        done = proc.stdout.count(f"done: {DP_CLI_STEPS} steps")
+        done = out.count(f"done: {DP_CLI_STEPS} steps")
         log(f"cli train --dp (num_model {MESH_MODEL}): rc {proc.returncode} after "
             f"{time.perf_counter() - t0:.1f} s, 'done' on {done} processes; launches per "
             f"process {cli_launches} (want {want} each)")
         if proc.returncode != 0 or cli_launches != [want] * MESH_MODEL or done != MESH_MODEL:
-            log(proc.stdout[-3000:])
-            log(proc.stderr[-3000:])
+            log(out[-3000:])
+            log(err[-3000:])
             raise SystemExit("cli train --dp with a model axis failed or launched the wrong "
                              "kernels")
-        from vaegan_tpu_torch.entry import dryrun_multichip
-
-        printed = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(printed):
-            dryrun_multichip(4)
         line = printed.getvalue().strip()
-        log(f"{line} ({time.perf_counter() - t0:.1f} s)")
+        log(f"{line} ({dry_s:.1f} s, beside torchrun's)")
         if "dryrun_multichip(4) ok (mesh data=2 x model=2, dp + critic-head tp + spatial " \
                 "sharding" not in line:
             raise SystemExit("dryrun_multichip(4) did not run the 2-D mesh")
@@ -3247,8 +3270,8 @@ ROOFLINE_RUNS = (("notebook G+D step", (), {}),
                  ("notebook critic-only step", (), {"BENCH_CRITIC_ONLY": "1"}))
 ROOFLINE_LAUNCHES = (STEP_LAUNCHES[True], PAPER_LAUNCHES, STEP_LAUNCHES[False])
 # timed steps of each roofline run (the bench's default is 20; a G+D step with
-# the penalty takes about 1.25 s there)
-ROOFLINE_STEPS = "5"
+# the penalty takes about 1.25 s there; 5 until phase 15 was added)
+ROOFLINE_STEPS = "2"
 # the data sheet's memory rate with a 5% margin: no triad reads above it
 TRIAD_CEILING_GBS = 3.35e3 * 1.05
 
@@ -3473,7 +3496,7 @@ def phase_bundle(torch, vt, cfg, state, images, z8, t64, t1, card_line):
 # ---------------------------------------------------------------------------
 # phase 14: the user journeys (vaegan_tpu_torch.examples), each in its own process
 # ---------------------------------------------------------------------------
-JOURNEY_STEPS = 20
+JOURNEY_STEPS = 8          # reproduce_headline's steps (20 until phase 15 was added)
 # reproduce_headline's train() with its kernel launches printed on a line of
 # their own (as CLI_COUNTING does for the CLI's train)
 HEADLINE_COUNTING = ("import json, os, sys\n"
@@ -3666,6 +3689,323 @@ def hbm_ranks(tmp):
               f"grad_accum 2, {got['staged_mib']} MiB staged on the card)", flush=True)
     if not all(got["batches"] > 0 and got["equal"] == got["batches"] for got in res):
         raise SystemExit("14.4: a rank's hbm_cache batches differ from the host loader's")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the research tools (vaegan_tpu_torch.tools), each in its own process
+# ---------------------------------------------------------------------------
+TOOL_STEPS = 20             # paper_probe's and gan_only_budget's steps
+TOOL_EVAL_EVERY = 10        # their evals (and gan_only's grids) at steps 1, 10 and 20
+TOOL_NIFTI_FILES = 24       # the dataset paper_probe reads, written by make_nifti_dataset
+TOOL_LBR_STEPS = 4          # large_batch_recipe's steps (96², the penalty every step) at
+TOOL_LBR_BATCH = 64         # batch 64 (cut from 128: it runs beside profile_step_residual's 128)
+TOOL_PROFILE_STEPS = 2      # profile_step_residual's timed and traced steps
+TOOL_EDGES_SIZE = 64        # edges_multiseed's runs: one epoch of 1200 images at 64²,
+TOOL_EDGES_BATCH = 64       # batch 64 (18 steps a run)
+# one gan_only G+D step (BCE with no penalty, so the critic is fused at its 7
+# sites). Forwards: the generator's 12, the critic's 7 on the real and on the
+# fake batch and 7 in the G half; backwards: 7 + 7 in the D half, 7 + 12 in the
+# G half (through the critic into the generator)
+GAN_ONLY_LAUNCHES = {"bn_act_dropout": 33, "bn_act_dropout_bwd": 33, "reparam_kl": 1,
+                     "reparam_kl_bwd": 1, "recon_loss_sums": 1}
+# eval-mode forwards, row 1 only: a reconstruct (the generator's 12 sites), the
+# fused critic (7), and save_visual_evidence (reconstruct 12, sample 6,
+# interpolate 18: two encodes and a decode)
+RECONSTRUCT_BN, CRITIC_BN, VISUALS_BN = 12, 7, 36
+# a tool, or a run a tool starts, with its kernel launches appended to a log
+TOOL_COUNTING = ("import sys, chip_smoke\n"
+                 "chip_smoke.counted_tool(sys.argv[1], sys.argv[2], sys.argv[3:])\n")
+RANK_COUNTING = ("import sys, chip_smoke\n"
+                 "chip_smoke.counted_rank(sys.argv[1], sys.argv[2:])\n")
+
+
+def no_launches():
+    return dict.fromkeys(STEP_LAUNCHES[True], 0)
+
+
+def add_launches(*terms):
+    """The sum of ``(count, launches)`` terms, kernel by kernel."""
+    total = no_launches()
+    for n, launches in terms:
+        for k, v in launches.items():
+            total[k] += n * v
+    return total
+
+
+def bn_only(n):
+    return dict(no_launches(), bn_act_dropout=n)
+
+
+def write_launches(log_path, record):
+    import torch
+
+    from vaegan_tpu_torch.ops import fused
+
+    peak = None
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        peak = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    with open(log_path, "a") as f:
+        f.write(json.dumps({**record, "launches": dict(fused.LAUNCHES), "peak_gib": peak}) + "\n")
+
+
+def counted_tool(module, log_path, argv):
+    """``main(argv)`` of ``module`` in this process, its kernel launches
+    appended to ``log_path`` as one JSON line. The runs that a tool starts go
+    through this function too: ``edges_multiseed``'s ``reproduce_headline``
+    processes (whose ``train()`` alone is counted, as phase 14 counts it) and
+    ``run_256dp_virtual_mesh``'s ranks (:func:`counted_rank`, one log a rank;
+    the preset cut to phase 11.4's float32 global batch)."""
+    import importlib
+
+    from vaegan_tpu_torch.ops import fused
+
+    mod = importlib.import_module(module)
+    name = module.rsplit(".", 1)[-1]
+    if name == "edges_multiseed":
+        arm = mod.arm_command
+
+        def counted_arm(vae, seed, args):
+            cmd = arm(vae, seed, args)
+            i = cmd.index("-m")
+            return cmd[:i] + ["-c", TOOL_COUNTING, cmd[i + 1], log_path] + cmd[i + 2:]
+        mod.arm_command = counted_arm
+    elif name == "run_256dp_virtual_mesh":
+        preset = mod.preset
+
+        def cut(preset_name):
+            cfg = preset(preset_name)
+            return cfg.replace(data=cfg.data.replace(batch_size=DP_RANK_BATCH),
+                               train=cfg.train.replace(dtype="float32"))
+        mod.preset = cut
+        rank = mod.rank_command
+        mod.rank_command = lambda *a: ([sys.executable, "-c", RANK_COUNTING, log_path]
+                                       + rank(*a)[3:])
+    elif name == "reproduce_headline":
+        train = mod.train
+
+        def counted_train(cfg, **kw):
+            fused.reset_launches()
+            out = train(cfg, **kw)
+            write_launches(log_path, {"run": name, "steps": out[0].step})
+            return out
+        mod.train = counted_train
+        mod.main(argv)
+        return
+    fused.reset_launches()
+    mod.main(argv)
+    write_launches(log_path, {"run": name})
+
+
+def counted_rank(log_path, argv):
+    """A ``run_256dp_virtual_mesh`` rank (``rank_main(*argv)``), its launches
+    written to ``<log_path>.rank<r>``."""
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.tools import run_256dp_virtual_mesh as mesh
+
+    fused.reset_launches()
+    mesh.rank_main(*argv)
+    write_launches(f"{log_path}.rank{argv[0]}", {"run": f"rank {argv[0]}"})
+
+
+def read_log(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def last_json(out):
+    """The last JSON object of a tool's output: its last line, or an
+    indented document that ends it."""
+    lines = out.strip().splitlines()
+    if lines and lines[-1].startswith("{"):
+        return json.loads(lines[-1])
+    start = out.rfind("\n{")
+    return json.loads(out[start + 1:] if start >= 0 else out)
+
+
+def tool_evals(steps, every):
+    return sum(1 for s in range(1, steps + 1) if s % every == 0 or s == 1)
+
+
+def tool_launches(edges_steps=(), steps=TOOL_STEPS, every=TOOL_EVAL_EVERY,
+                  lbr_steps=TOOL_LBR_STEPS, profile_steps=TOOL_PROFILE_STEPS):
+    """The kernel launches of each phase-15 tool run: its steps', its
+    eval-mode forwards' (row 1 alone), its sample grids' (the sampler's
+    train-mode forward) and its timing loops'. ``edges_steps``: the steps of
+    each of edges_multiseed's runs, whose ``train()`` alone is counted;
+    run_256dp_virtual_mesh's two ranks take 2 + 1 steps each and rank 0
+    evaluates the live and the EMA iterate."""
+    from vaegan_tpu_torch.tools import common
+
+    forwards = 1 + common.TIMED_WARMUP + common.TIMED_REPS * common.TIMED_WINDOWS
+    evals = tool_evals(steps, every)
+    per_eval = 2 * RECONSTRUCT_BN + 2 * CRITIC_BN      # live and EMA, the critic twice
+    return {
+        "make_nifti_dataset": no_launches(),
+        "conv_fusion_evidence": bn_only(2 * forwards),
+        "paper_loss_fusion_evidence": no_launches(),
+        "paper_loss_fusion_evidence --pallas": dict(no_launches(), reparam_kl=forwards,
+                                                    reparam_kl_bwd=forwards),
+        "gan_only_budget": add_launches((steps, GAN_ONLY_LAUNCHES), (evals, SAMPLER_LAUNCHES),
+                                        (evals + 2, bn_only(RECONSTRUCT_BN))),
+        "paper_probe": add_launches((steps, PAPER_LAUNCHES), (1, bn_only(
+            evals * per_eval + 3 * (per_eval + RECONSTRUCT_BN) + VISUALS_BN))),
+        "large_batch_recipe": add_launches((lbr_steps, STEP_LAUNCHES[True]),
+                                           (3, bn_only(RECONSTRUCT_BN))),
+        "edges_multiseed": add_launches(*(t for n in edges_steps for t in (
+            (n, STEP_LAUNCHES[True]), (1, SAMPLER_LAUNCHES)))),
+        "run_256dp_virtual_mesh": add_launches((2 * 3, DP_STEP_LAUNCHES[True]),
+                                               (1, bn_only(2 * RECONSTRUCT_BN))),
+        "profile_step_residual": add_launches((3 + 2 * profile_steps, STEP_LAUNCHES[True])),
+    }
+
+
+def phase_tools(torch, vt, card_line):
+    """Phase 15: every research tool of ``vaegan_tpu_torch.tools`` on the card,
+    each in its own process through :func:`counted_tool` (three waves of
+    processes started together), each tool's output checked and its kernel
+    launches held to what its path runs. Returns the launches by tool path."""
+    import shutil
+
+    from vaegan_tpu_torch.ops import fused
+    from vaegan_tpu_torch.tools import make_nifti_dataset
+
+    t15 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="vaegan_tools_")
+    logs = {}
+
+    def tool(label, name, *argv):
+        logs[label] = os.path.join(tmp, f"{label.replace(' ', '_')}.launches")
+        return (label, [sys.executable, "-c", TOOL_COUNTING, f"vaegan_tpu_torch.tools.{name}",
+                        logs[label], *argv], tmp)
+
+    nii, pallas = os.path.join(tmp, "nii"), ("--use-pallas", "all")
+    try:
+        log(f"== phase 15: the research tools (python -m vaegan_tpu_torch.tools.*), their "
+            f"launches counted: make_nifti_dataset ({TOOL_NIFTI_FILES} files) in this process; "
+            "then, each in its own process, wave 1: edges_multiseed (--seeds 1, one epoch at "
+            f"{TOOL_EDGES_SIZE}², batch {TOOL_EDGES_BATCH}), paper_probe (the NIfTI files at "
+            f"256², batch 4, {TOOL_STEPS} steps, --keep-best, EMA 0.999), "
+            "conv_fusion_evidence and paper_loss_fusion_evidence (both at their defaults, "
+            f"both modes), gan_only_budget ({TOOL_STEPS} steps, --keep-best), "
+            f"run_256dp_virtual_mesh (2 gloo processes, global batch {DP_RANK_BATCH}, "
+            f"float32); wave 2: large_batch_recipe ({TOOL_LBR_STEPS} steps, batch "
+            f"{TOOL_LBR_BATCH}) and profile_step_residual (--steps {TOOL_PROFILE_STEPS}) ==")
+        # make_nifti_dataset renders on the host and launches nothing: it runs
+        # in this process, its launches the counts' difference
+        before = dict(fused.LAUNCHES)
+        nifti = make_nifti_dataset.main(["--out", nii, "--n", str(TOOL_NIFTI_FILES)])
+        nifti_launches = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        wave1 = [
+            tool("edges_multiseed", "edges_multiseed", "--seeds", "1", "--epochs", "1",
+                 "--image-size", str(TOOL_EDGES_SIZE), "--batch-size", str(TOOL_EDGES_BATCH),
+                 "--recalibrate-bn", "2", "--save-visuals-seed", "-1", "--out",
+                 os.path.join(tmp, "edges"), *pallas),
+            tool("paper_probe", "paper_probe", "--data-dir", nii, "--image-size", "256",
+                 "--batch", "4", "--steps", str(TOOL_STEPS), "--eval-every",
+                 str(TOOL_EVAL_EVERY), "--keep-best", "--ema-decay", "0.999",
+                 "--save-visuals", os.path.join(tmp, "paper_vis"), *pallas),
+            tool("conv_fusion_evidence", "conv_fusion_evidence", "--hlo",
+                 os.path.join(tmp, "conv_ops.txt")),
+            tool("paper_loss_fusion_evidence", "paper_loss_fusion_evidence"),
+            tool("paper_loss_fusion_evidence --pallas", "paper_loss_fusion_evidence",
+                 "--pallas"),
+            tool("gan_only_budget", "gan_only_budget", "--steps", str(TOOL_STEPS),
+                 "--eval-every", str(TOOL_EVAL_EVERY), "--grid-every", str(TOOL_EVAL_EVERY),
+                 "--keep-best", "--out", os.path.join(tmp, "gan_only"), *pallas),
+            tool("run_256dp_virtual_mesh", "run_256dp_virtual_mesh", "--devices", "2",
+                 *pallas),
+        ]
+        # the two steps at 96² with the penalty at batch 128 would not fit together
+        wave2 = [
+            tool("large_batch_recipe", "large_batch_recipe", "--steps", str(TOOL_LBR_STEPS),
+                 "--batch", str(TOOL_LBR_BATCH), "--log-every", "2", *pallas),
+            tool("profile_step_residual", "profile_step_residual", "--steps",
+                 str(TOOL_PROFILE_STEPS), *pallas),
+        ]
+        outs = {}
+        for wave in (wave1, wave2):
+            outs.update(zip((c[0] for c in wave), run_together(wave, timeout=600)))
+        recs = {"make_nifti_dataset": nifti,
+                **{label: last_json(out) for label, out in outs.items()}}
+        counted = {label: read_log(path) for label, path in logs.items()}
+        launches = {label: lines[-1]["launches"] for label, lines in counted.items()
+                    if label not in ("edges_multiseed", "run_256dp_virtual_mesh")}
+        launches["make_nifti_dataset"] = nifti_launches
+        for label, rec in recs.items():
+            log(f"15 {label}: {json.dumps(rec)[:1500]} [{card_line}]")
+
+        files = sorted(os.listdir(nii))
+        ok = {"make_nifti_dataset": (recs["make_nifti_dataset"]["n"] == TOOL_NIFTI_FILES
+                                     and sum(f.endswith(".gz") for f in files)
+                                     == TOOL_NIFTI_FILES // 3)}
+        rec = recs["conv_fusion_evidence"]
+        ok["conv_fusion_evidence"] = (
+            rec["modes"]["all"]["kernel_calls"] == {"bn_act_dropout": 2}
+            and not rec["modes"]["off"]["kernel_calls"]
+            and finite([v for m in rec["modes"].values() for v in
+                        (m["measured_bytes_MB"], m["ratio_vs_aggressive"], m["ms"])])
+            and os.path.getsize(os.path.join(tmp, "conv_ops.txt")) > 0)
+        for label, pallas_on in (("paper_loss_fusion_evidence", False),
+                                 ("paper_loss_fusion_evidence --pallas", True)):
+            rec = recs[label]
+            ok[label] = (rec["kernel_calls"] == ({"reparam_kl": 1, "reparam_kl_bwd": 1}
+                                                 if pallas_on else {})
+                         and finite([rec["measured_bytes_MB"], rec["ratio_vs_aggressive"],
+                                     rec["ms"]]))
+        rec = recs["gan_only_budget"]
+        out_dir = os.path.join(tmp, "gan_only")
+        ok["gan_only_budget"] = (
+            "keep_best" in rec and finite([rec["recon_proxy_last"], rec["keep_best"][
+                "best_recon_proxy"], rec["loglog_fit"]["slope"]])
+            and all(os.path.isfile(os.path.join(out_dir, f)) for f in (
+                "curve.jsonl", "summary.json", "final_recon_panel.png", "best_recon_panel.png",
+                *(f"samples_{s:06d}.png" for s in (1, TOOL_EVAL_EVERY, TOOL_STEPS)))))
+        rec = recs["paper_probe"]
+        ok["paper_probe"] = (
+            len(rec.get("eval_mse_repeat_draws_best_iterate", [])) == 3
+            and len(rec.get("eval_mse_repeat_draws_ema", [])) == 3
+            and finite([*rec["eval_mse_repeat_draws"], *rec["eval_mse_repeat_draws_ema"],
+                        *rec["eval_mse_repeat_draws_best_iterate"],
+                        rec["eval_mse_mean_predictor_floor"]])
+            and all(os.path.getsize(p) > 0 for p in rec["visuals"].values()))
+        rec = recs["large_batch_recipe"]
+        ok["large_batch_recipe"] = (len(rec["eval_mse_draws"]) == 3
+                                    and finite(rec["eval_mse_draws"] + rec["tail_recon"]))
+        rec = recs["edges_multiseed"]
+        arms = [a for a in counted["edges_multiseed"] if a["run"] == "reproduce_headline"]
+        launches["edges_multiseed"] = add_launches(*((1, a["launches"]) for a in arms))
+        ok["edges_multiseed"] = (len(arms) == 2 and len(rec["pairs"]) == 1 and finite(
+            [v for k, v in rec["pairs"][0].items() if k != "seed"]))
+        rec = recs["run_256dp_virtual_mesh"]
+        ranks = [read_log(f"{logs['run_256dp_virtual_mesh']}.rank{r}")[-1] for r in range(2)]
+        launches["run_256dp_virtual_mesh"] = add_launches(*((1, r["launches"]) for r in ranks))
+        ok["run_256dp_virtual_mesh"] = (rec["phase_b_resumed_to_step"] == 3 and finite(
+            [rec["eval_mse_live"], rec["eval_mse_ema"], *rec["final_metrics"].values()]))
+        rec = recs["profile_step_residual"]
+        families = {f["op"] for f in rec["top_families"]}
+        ok["profile_step_residual"] = (
+            bool(rec["top_ops"]) and {f"vaegan_{k}" for k in STEP_LAUNCHES[True]} <= families
+            and finite([rec["step_time_ms"], rec["kernels_ms_per_step"],
+                        rec["device_busy_share"]]))
+        want = tool_launches([a["steps"] for a in arms])
+
+        peaks = {label: max(x["peak_gib"] or 0 for x in lines)
+                 for label, lines in counted.items()}
+        peaks["run_256dp_virtual_mesh"] = max(r["peak_gib"] or 0 for r in ranks)
+        peaks["make_nifti_dataset"] = 0
+        for label in recs:
+            log(f"15 {label}: launches {launches[label]} (want {want[label]}); peak "
+                f"{peaks[label]} GiB a process; checks {'pass' if ok[label] else 'FAIL'}")
+        bad = [label for label in recs if not ok[label] or launches[label] != want[label]]
+        if bad:
+            raise SystemExit(f"phase 15: {bad}: a wrong record or wrong launches")
+        log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+        return {f"tool {label}": v for label, v in launches.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4151,21 +4491,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 8
+    t = time.perf_counter()
     loop_launches = phase_loop(torch, vt, card_line, t4)
+    log(f"phase 8: {time.perf_counter() - t:.1f} s")
 
     # ---------------------------------------------------------------- phase 9
+    t = time.perf_counter()
     paper = phase_paper(torch, vt, bounds, card_line, tf32_defaults)
+    log(f"phase 9: {time.perf_counter() - t:.1f} s")
 
     # ---------------------------------------------------------------- phase 10
+    t = time.perf_counter()
     concat = phase_concat(torch, vt, bounds, card_line, paper["sites"])
+    log(f"phase 10.1: {time.perf_counter() - t:.1f} s")
     cli_launches = phase_cli(torch, vt, card_line)
+    log(f"phase 10.1-10.2: {time.perf_counter() - t:.1f} s")
     phase_bench(torch, vt, card_line)
+    log(f"phase 10: {time.perf_counter() - t:.1f} s")
 
     # ---------------------------------------------------------------- phase 11
+    t = time.perf_counter()
     dp = phase_dp(torch, vt, bounds, card_line, sites, vt.latent_shape(cfg))
+    log(f"phase 11: {time.perf_counter() - t:.1f} s")
 
     # ---------------------------------------------------------------- phase 12
+    t = time.perf_counter()
     mesh = phase_mesh(torch, vt, bounds, card_line, sites, vt.latent_shape(cfg))
+    log(f"phase 12: {time.perf_counter() - t:.1f} s")
 
     # ---------------------------------------------------------------- phase 13
     t13 = time.perf_counter()
@@ -4175,6 +4527,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 14
     journey = phase_journeys(torch, vt, card_line)
+
+    # ---------------------------------------------------------------- phase 15
+    tools = phase_tools(torch, vt, card_line)
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
@@ -4195,15 +4550,16 @@ def main() -> int:
     # launches: the data-parallel path's (phase 11: train_data_parallel of
     # vaegan_256_dp, all five kernels); each other path's launches (the notebook
     # loop of phase 8, the paper loop of phase 9, the notebook's accumulating
-    # step, and phase 12's tensor-parallel loop and CLI, one process's count)
-    # stand beside them, with row 1's serving figures, rows 1-2's figures at the
+    # step, phase 12's tensor-parallel loop and CLI, one process's count, and
+    # phase 15's tool paths) stand beside them, with row 1's serving figures,
+    # rows 1-2's figures at the
     # critic's sites, rows 1-4's at the DP step's shapes with an index base
     # ("dp") and on a stripe of them ("stripe")
     src = "vaegan_tpu_torch/csrc/"
     paths = {"paper": paper["paper"], "accum": paper["accum"], **concat["paths"],
              "cli_train": cli_launches, "loop": loop_launches, "dp": dp["launches"],
              "cli_train_dp": dp["cli_launches"], "tp_loop": mesh["tp_launches"],
-             "cli_train_dp_tp": mesh["cli_launches"], "journey": journey}
+             "cli_train_dp_tp": mesh["cli_launches"], "journey": journey, **tools}
 
     def critic_figures(row, run=paper["critic"]):
         c = run[row]

@@ -39,7 +39,12 @@ def test_the_scan_sees_the_package():
                    "search.py", "entry.py", "bench.py", "ops/replica.py", "parallel/__init__.py",
                    "parallel/dist.py", "parallel/mesh.py", "parallel/train.py",
                    "examples/__init__.py", "examples/reproduce_headline.py",
-                   "examples/train_vaegan.py", "examples/train_multichip.py"):
+                   "examples/train_vaegan.py", "examples/train_multichip.py",
+                   "tools/__init__.py", "tools/common.py", "tools/make_nifti_dataset.py",
+                   "tools/paper_probe.py", "tools/gan_only_budget.py",
+                   "tools/large_batch_recipe.py", "tools/edges_multiseed.py",
+                   "tools/profile_step_residual.py", "tools/conv_fusion_evidence.py",
+                   "tools/paper_loss_fusion_evidence.py", "tools/run_256dp_virtual_mesh.py"):
         assert f"vaegan_tpu_torch/{module}" in names, module
     assert "torch" in imported_roots(ROOT / "vaegan_tpu_torch" / "ops" / "fused.py")
 

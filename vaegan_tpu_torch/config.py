@@ -218,8 +218,9 @@ class TrainConfig(_Replaceable):
     # Default "off" by round-4 paired measurement (BENCH_NOTES.md): the custom-
     # call boundary blocks XLA's own fusion of the loss section, costing 1.1-
     # 1.2% on the WGAN steps and 14% on the three-opt paper step, while the
-    # byte audit shows plain-jnp already schedules the loss math at the fused
-    # ideal (tools/paper_loss_fusion_evidence.py: 1.05x conservative bound).
+    # TPU's byte audit shows plain-jnp already schedules the loss math at the
+    # fused ideal (1.05x its conservative bound; the audit's port is
+    # ``python -m vaegan_tpu_torch.tools.paper_loss_fusion_evidence``).
     use_pallas: Any = "off"
     remat: bool = False                # jax.checkpoint the generator blocks
     init_scheme: str = "reference"     # faithful init quirks (README.md:700-707) | "clean"
@@ -348,14 +349,15 @@ def preset(name: str) -> Config:
       loss). At a DCGAN-class budget the game DOES reach the anchored
       configs' quality band (held-batch recon proxy below the mean-predictor
       floor by step ~2.5k at 96^2 b64) but does not HOLD it — the equilibrium
-      oscillates and degrades after ~10k steps (tools/gan_only_budget.py,
-      BENCH_NOTES.md round 4); the anchored configs (1, 3, 5) buy stability,
-      and remain the quality-verified ones. Operational recipe (round 5,
-      measured through a full 20k-step divergence): run with
-      ``tools/gan_only_budget.py --keep-best`` — the on-device best-iterate
-      snapshot retains the curve minimum (proxy 0.0117, below the
-      mean-predictor floor, at step ~2.5k) while the live endpoint diverges
-      (result/gan_only_keepbest/).
+      oscillates and degrades after ~10k steps
+      (``python -m vaegan_tpu_torch.tools.gan_only_budget``, BENCH_NOTES.md
+      round 4); the anchored configs (1, 3, 5) buy stability, and remain the
+      quality-verified ones. Operational recipe (round 5, measured on the TPU
+      through a full 20k-step divergence): run with ``python -m
+      vaegan_tpu_torch.tools.gan_only_budget --keep-best`` — the on-device
+      best-iterate snapshot retains the curve minimum (proxy 0.0117, below
+      the mean-predictor floor, at step ~2.5k) while the live endpoint
+      diverges (result/gan_only_keepbest/).
     - ``vaegan_paper``  — BASELINE config 3: Dis_l feature matching + BCE + three optimizers.
     - ``vaegan_infer``  — BASELINE config 4: inference/generation-path config.
     - ``vaegan_256_dp`` — BASELINE config 5: 256x256, large batch, data parallel.
@@ -394,8 +396,9 @@ def preset(name: str) -> Config:
         # EMA iterate reaches the pixel-configs' band transiently (96^2 3-seed
         # EMA minima 0.034/0.053/0.062) and the endpoint diverges. The
         # operational recipe is therefore gamma=100 + ema_decay=0.999 +
-        # best-iterate selection on a held batch (tools/paper_probe.py
-        # --keep-best), like config 2's DCGAN-budget recipe.
+        # best-iterate selection on a held batch (``python -m
+        # vaegan_tpu_torch.tools.paper_probe --keep-best``), like config 2's
+        # DCGAN-budget recipe.
         return base.replace(
             discriminator=_notebook_disc(),
             loss=base.loss.replace(

@@ -25,7 +25,9 @@ it adds to ``fused.LAUNCHES``, with its bytes (each input read once, each
 output written once) and operations (``fused.kernel_cost``); on a CPU tensor
 the plain version's own ops are left out of the count and the same formula
 counted in their place, so both devices count a kernel alike. ``"kernels"``
-holds, per kernel, its calls and what they added. The count reads only
+holds, per kernel, its calls and what they added, and ``"ops"`` every op and
+kernel call that moved bytes, in order, as ``(name, bytes)``: the passes a
+byte audit names. The count reads only
 shapes, dtypes and storages: it adds no device synchronisation, and outside
 :func:`step_cost` a launch only tests that no count runs.
 """
@@ -33,7 +35,7 @@ shapes, dtypes and storages: it adds no device synchronisation, and outside
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -92,6 +94,7 @@ class _Count(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.kernels: Dict[str, Dict[str, int]] = {}
+        self.ops: List[Tuple[str, int]] = []
         self._paused = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -101,7 +104,10 @@ class _Count(TorchDispatchMode):
             count = flop_registry.get(func._overloadpacket)
             if count is not None:
                 self.flops += count(*args, **kwargs, out_val=out)
-            self.bytes += op_bytes(func, args, kwargs, out)
+            nbytes = op_bytes(func, args, kwargs, out)
+            self.bytes += nbytes
+            if nbytes:
+                self.ops.append((str(func), nbytes))
         return out
 
     @contextlib.contextmanager
@@ -121,13 +127,15 @@ class _Count(TorchDispatchMode):
         k["flops"] += ops
         self.flops += ops
         self.bytes += nbytes
+        self.ops.append((f"vaegan::{name}", nbytes))
 
 
 def step_cost(fn: Callable, *args) -> Dict[str, Any]:
     """Run ``fn(*args)`` once and count it: ``{"flops", "bytes accessed",
-    "kernels"}`` (module docstring); ``"result"`` is what ``fn`` returned."""
+    "kernels", "ops"}`` (module docstring); ``"result"`` is what ``fn``
+    returned."""
     mode = _Count()
     with fused.counting(mode), mode:
         result = fn(*args)
     return {"flops": float(mode.flops), "bytes accessed": float(mode.bytes),
-            "kernels": mode.kernels, "result": result}
+            "kernels": mode.kernels, "ops": mode.ops, "result": result}
