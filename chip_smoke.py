@@ -63,7 +63,7 @@ Phases, each of which exits non-zero on failure:
    epoch equals its decode. Then the loop with its launch counts per step
    (phase 6's plus the sampler's forward on grid steps), finite metrics, 4
    grids and the last 3 checkpoints; the sampler leaves the state bitwise as it
-   was; a run stopped at step 8 and resumed matches the uninterrupted run's
+   was; a run stopped at step 4 and resumed to 8 matches the uninterrupted run's
    losses, and a checkpoint round trip is bitwise. Numbers: loop images/s with
    each feed beside the bare step's, the device-busy share of 4 profiled loop
    steps, host syncs per step outside the metric flush;
@@ -122,9 +122,10 @@ Phases, each of which exits non-zero on failure:
    processes): 11.1's runs with each step's launches exact, and the saved
    checkpoint restored into one process; 12.4 ``cli train --dp`` with
    ``num_model`` 2 under ``torchrun --nproc_per_node=2`` (gloo), launches
-   counted, and ``entry.dryrun_multichip(4)`` on the CPU while it runs;
-13. the last of the JAX surface: 13.1 ``python -m vaegan_tpu_torch.bench
-   --roofline`` with ``BENCH_PALLAS=all`` on the notebook G+D step, ``--paper``
+   counted, started before 12.3 and run beside its processes, and
+   ``entry.dryrun_multichip(4)`` on the CPU after 12.3;
+13. the last of the JAX surface: 13.1 the bench's ``--roofline`` (its
+   ``main``, in this process) with ``BENCH_PALLAS=all`` on the notebook G+D step, ``--paper``
    and ``BENCH_CRITIC_ONLY=1`` (96², batch 128, bfloat16): each JSON line, the
    triad one kernel a repetition under torch.profiler, no triad above the data
    sheet's rate x 1.05, no step above the achieved rate x 1.05, the counted
@@ -154,9 +155,9 @@ Phases, each of which exits non-zero on failure:
    phase's wall is printed on a line of its own;
 15. the research tools (``python -m vaegan_tpu_torch.tools.*``), each in its
    own process through :func:`counted_tool` (which appends its kernel
-   launches to a log), in two waves of processes started together:
-   ``edges_multiseed --seeds 1`` (one epoch at 64², batch 64; its two
-   ``reproduce_headline`` runs counted in their own processes),
+   launches to a log): ``edges_multiseed --seeds 1`` (one epoch at 64², batch
+   64; its two ``reproduce_headline`` runs counted in their own processes)
+   beside two waves of processes started together:
    ``paper_probe --keep-best`` on 24 files of ``make_nifti_dataset`` (which
    runs first, in this process; 256², batch 4, 20 steps, EMA 0.999,
    visuals), both byte audits at their defaults (``conv_fusion_evidence``
@@ -167,7 +168,29 @@ Phases, each of which exits non-zero on failure:
    ``profile_step_residual --steps 2``. Each tool's JSON and files are
    checked, its launches must be exactly :func:`tool_launches`' (the tool
    paths), and each process's peak memory is printed. The phase's wall is
-   printed on a line of its own.
+   printed on a line of its own;
+16. the last of the JAX package's surface: 16.3 the JAX package's Orbax
+   checkpoints of ``tests/data/orbax`` (``tests/make_orbax_fixtures.py``),
+   read by the port with no JAX (every leaf's sha256 the one orbax recorded),
+   restored into a port state on the card and stepped twice with every
+   kernel on and exact launches (:data:`FIXTURE_LAUNCHES`); then, started
+   together, 16.2 the live capture endpoint in a process of its own
+   (:func:`endpoint_child`: notebook G+D steps at b4 on the main thread while
+   another thread asks for a 500 ms capture, which must hold row 1's device
+   events and the main thread's aten ops; a second ``start_server`` raises;
+   ``stop()`` frees the port), ``cli sample`` from a copy of the
+   three-optimizer fixture and ``cli train --resume`` from a copy of the
+   two-optimizer one for 2 more steps (``4.pt`` beside the Orbax step 2);
+   then 16.1 the phase-decomposed transposed conv
+   (``ops.conv.PHASE_DECOMPOSE_CONV_TRANSPOSE``, default False) at full
+   width: a b64 ``vaegan_infer`` reconstruct with it on against it off
+   within 1e-4 of the output's scale, a notebook G+D step at b4 with it on
+   (phase 6's launches, the same draws) against it off at
+   :func:`compare_steps`' tolerances, and each transposed-conv site of the
+   decoder timed dilated / phase / dilated again, forward and
+   forward+backward, at b4 and b64 float32 and at the ``vaegan_256_dp``
+   bfloat16 sites at b32, beside the whole reconstruct and step. Phases 1-16
+   print their walls.
 
 The second-to-last line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -371,17 +394,24 @@ class Bounds:
                 to * 1e3)
 
 
-def time_cuda(torch, fn, reps=20, windows=5, warmup=3):
+# calls in the one timed window of a plain version or a yardstick (20 before):
+# their times stand beside the kernels' for scale, not as figures of their own
+PLAIN_REPS = 5
+
+
+def time_cuda(torch, fn, reps=20, windows=3, warmup=3, sleep=40_000_000):
     """Device milliseconds per call of ``fn(i)``: CUDA events around ``reps``
-    back-to-back calls, queued behind a sleep kernel so the host's launch cost
-    stays off the clock; the median over ``windows`` such windows."""
+    back-to-back calls, queued behind a sleep kernel of ``sleep`` SM clocks (the
+    default ~20 ms, far more than the host takes to queue the calls) so the
+    host's launch cost stays off the clock; the median over ``windows`` such
+    windows."""
     for i in range(warmup):
         fn(i)
     times = []
     for _ in range(windows):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(100_000_000)       # ~50 ms of the SM clock
+        torch.cuda._sleep(sleep)
         s.record()
         for i in range(reps):
             fn(i)
@@ -477,8 +507,8 @@ def phase_kernel(torch, sites, bounds):
     from vaegan_tpu_torch.ops import fused
 
     log("== phase 2: bn_act_dropout kernel vs its plain version "
-        f"(batch {BATCH}; kernel: median of 5 CUDA-event windows of 20 back-to-back "
-        "launches after 3 warm-up; plain: one window of 20 calls; y bitwise the plain "
+        f"(batch {BATCH}; kernel: median of 3 CUDA-event windows of 20 back-to-back "
+        f"launches after 3 warm-up; plain: one window of {PLAIN_REPS} calls; y bitwise the plain "
         "version's) ==")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "two_call_ms": 0.0,
@@ -516,7 +546,7 @@ def phase_kernel(torch, sites, bounds):
                 rest = args[1:]
                 k_ms = time_cuda(torch, lambda i: fused.bn_act_dropout(xs[i % len(xs)], *rest))
                 p_ms = time_cuda(torch, lambda i: fused.bn_act_dropout_reference(
-                    xs[i % len(xs)], *rest), windows=1, warmup=1)
+                    xs[i % len(xs)], *rest), reps=PLAIN_REPS, windows=1, warmup=1)
                 numel = x.numel()
                 nbytes = 2 * numel * x.element_size() + 4 * c * 4
                 b_ms, bound_by, tb, ti, _ = bounds(nbytes, numel, "bn_act_dropout_fwd_kernel",
@@ -545,7 +575,7 @@ def phase_kernel(torch, sites, bounds):
         xs = [r[0] for r in rotation(x32)]
         two = time_cuda(torch, lambda i: torch.nn.functional.leaky_relu(
             torch.nn.functional.batch_norm(xs[i % len(xs)], mean, var, scale, bias, False, 0.0,
-                                           1e-5), SLOPE), windows=1, warmup=1)
+                                           1e-5), SLOPE), reps=PLAIN_REPS, windows=1, warmup=1)
         del xs
         summary["two_call_ms"] += two
         del x32
@@ -676,7 +706,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
     from vaegan_tpu_torch.ops import fused
 
     log(f"== phase 5: training kernels vs their plain versions (batch {TRAIN_BATCH}, the "
-        "notebook step's shapes; kernel: median of 5 CUDA-event windows of 20 launches, inputs "
+        "notebook step's shapes; kernel: median of 3 CUDA-event windows of 20 launches, inputs "
         "rotated through >= 256 MB; plain and yardstick: one window; tolerances: elementwise f32 "
         "1e-6 + 1e-6|ref|, bf16 1 ulp; sums 1e-5 of max(1, max|ref|); eps 4e-6 absolute; rows "
         f"2, 3 and 5 run {RUNS} times bitwise equal, one run beside a 4096^2 matrix product on a "
@@ -729,7 +759,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             rot = rotation(x)
             k_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_forward(rot[n % len(rot)][0], *args))
             p_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_reference(
-                rot[n % len(rot)][0], *args), windows=1, warmup=1)
+                rot[n % len(rot)][0], *args), reps=PLAIN_REPS, windows=1, warmup=1)
             n = x.numel()
             b = bounds(2 * n * x.element_size() + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", dtype,
                        None, p > 0)
@@ -778,7 +808,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             split = profile_split(torch, call)
             one_kernel(f"row 2 site {i}", split)
             p_ms = time_cuda(torch, lambda n: fused.bn_act_dropout_backward_reference(
-                *rot[n % len(rot)], *args), windows=1, warmup=1)
+                *rot[n % len(rot)], *args), reps=PLAIN_REPS, windows=1, warmup=1)
             # yardstick: what PyTorch's own autograd runs for BN -> LeakyReLU ->
             # dropout: the two masks, then native_batch_norm_backward
             inv = torch.rsqrt(var + 1e-5)
@@ -794,7 +824,8 @@ def phase_train_kernels(torch, sites, latent, bounds):
                     ga, xx, scale, None, None, mean, inv, True, 1e-5,
                     [True, True, True])
 
-            y_ms = time_cuda(torch, yard, windows=1, warmup=1) if dtype == torch.float32 else 0.0
+            y_ms = (time_cuda(torch, yard, reps=PLAIN_REPS, windows=1, warmup=1)
+                    if dtype == torch.float32 else 0.0)
             n = x.numel()
             launch = fused.bwd_launch_for(x, p)
             b = bounds(3 * n * x.element_size() + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", dtype,
@@ -862,7 +893,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             split = profile_split(torch, call)
             one_kernel("row 3", split)
             p_ms = time_cuda(torch, lambda i: fused.reparam_kl_reference(*rot[i % len(rot)], 77),
-                             windows=1, warmup=1)
+                             reps=PLAIN_REPS, windows=1, warmup=1)
             b = bounds(3 * n * 4 + 4, n, "reparam_fwd_kernel", dtype)
             note("reparam_kl", k_ms, p_ms, b, err3)
             launch = fused.reparam_launch_for(mu)
@@ -872,7 +903,7 @@ def phase_train_kernels(torch, sites, latent, bounds):
             rot = rotation(mu, lv, gz)
             k_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward(*rot[i % len(rot)], None, 77))
             p_ms = time_cuda(torch, lambda i: fused.reparam_kl_backward_reference(
-                *rot[i % len(rot)], None, 77), windows=1, warmup=1)
+                *rot[i % len(rot)], None, 77), reps=PLAIN_REPS, windows=1, warmup=1)
             b = bounds(5 * n * 4, n, "reparam_bwd_kernel", dtype, kl=False)
             note("reparam_kl_bwd", k_ms, p_ms, b, max(errs4))
             log(f"row 4 f32 {shape} (gkl None, as on the step): kernel_ms={k_ms:.4f} "
@@ -908,10 +939,10 @@ def phase_train_kernels(torch, sites, latent, bounds):
 
             floor_ms = time_cuda(torch, floor)
             p_ms = time_cuda(torch, lambda i: fused.recon_loss_sums_reference(*rot[i % len(rot)]),
-                             windows=1, warmup=1)
+                             reps=PLAIN_REPS, windows=1, warmup=1)
             y_ms = time_cuda(torch, lambda i: (F.l1_loss(*rot[i % len(rot)], reduction="sum"),
                                                F.mse_loss(*rot[i % len(rot)], reduction="sum")),
-                             windows=1, warmup=1)
+                             reps=PLAIN_REPS, windows=1, warmup=1)
             b = bounds(2 * n * r_.element_size() + 8, n, "recon_sums_kernel", dtype)
             log(f"row 5 b{batch} {str(dtype)[6:]} n={n}: sums {s.tolist()} vs plain {sr.tolist()}, "
                 f"max_abs_err={err:.3e}, deterministic_x{RUNS}={det}, kernel_ms={k_ms:.4f} "
@@ -1005,11 +1036,32 @@ def compare_steps(what, a, b):
     return ok
 
 
+def one_g_step(torch, vt, cfg_, dev, batch, inj_extra=None, seed=7):
+    """One G step from fresh seeded weights with injected critic draws; returns
+    its metrics, its gradients and (fused) its own draws."""
+    from vaegan_tpu_torch.train import fused_draws
+
+    st = vt.create_train_state(cfg_, device=dev, seed=SEED)
+    grads = record_grads(st)
+    inj = critic_draws(torch, st.critic, batch.shape[0], torch.Generator().manual_seed(11), dev)
+    if inj_extra:
+        inj.update({k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                        else v.to(dev)) for k, v in inj_extra.items()})
+    x = batch.to(dev)
+    st, m = vt.make_train_step(cfg_, True, inject=inj)(st, x, seed)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    rec = {"metrics": {k: float(v) for k, v in m.items()},
+           "grads": {k: {n: t.cpu() for n, t in v.items()} for k, v in grads.items()},
+           "draws": fused_draws(st.generator) if cfg_.train.use_pallas == "all" else None}
+    del st
+    return rec
+
+
 def phase_train_step(torch, vt, tf32_defaults):
     """The notebook training step at full width through the port's entry points."""
     from vaegan_tpu_torch.models import layers
     from vaegan_tpu_torch.ops import fused
-    from vaegan_tpu_torch.train import fused_draws
     import vaegan_tpu_torch.train.step as step_mod
 
     cfg = vt.preset("notebook")
@@ -1049,24 +1101,8 @@ def phase_train_step(torch, vt, tf32_defaults):
     log(f"main path (training): {len(plan)} steps, launches {main_path}")
 
     # ---- the fused step against the use_pallas='off' step, and TF32 checks
-    def one_step(cfg_, dev, batch, inj_extra=None, seed=7):
-        """One G step from fresh seeded weights with injected critic draws;
-        returns its metrics, its gradients and (fused) its own draws."""
-        st = vt.create_train_state(cfg_, device=dev, seed=SEED)
-        grads = record_grads(st)
-        inj = critic_draws(torch, st.critic, batch.shape[0], torch.Generator().manual_seed(11), dev)
-        if inj_extra:
-            inj.update({k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
-                            else v.to(dev)) for k, v in inj_extra.items()})
-        x = batch.to(dev)
-        st, m = vt.make_train_step(cfg_, True, inject=inj)(st, x, seed)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        rec = {"metrics": {k: float(v) for k, v in m.items()},
-               "grads": {k: {n: t.cpu() for n, t in v.items()} for k, v in grads.items()},
-               "draws": fused_draws(st.generator) if cfg_.train.use_pallas == "all" else None}
-        del st
-        return rec
+    def one_step(*args, **kw):
+        return one_g_step(torch, vt, *args, **kw)
 
     x0 = batches[0]
     results = {}
@@ -1192,6 +1228,7 @@ def device_busy_ms(prof, device_type):
 
 
 LOOP_IMAGES = 32          # 8 batches of 4 an epoch
+RESUME_STEPS = 8          # the resume check's run, stopped half way (16 before)
 NIFTI_FILES, NIFTI_SIDE = 16, 300
 
 
@@ -1417,7 +1454,8 @@ def phase_loop(torch, vt, card_line, t4):
         del state, before
         torch.cuda.empty_cache()
 
-        # ---- resume: stopped at 8 and resumed to 16, against the uninterrupted run.
+        # ---- resume: stopped at RESUME_STEPS / 2 and resumed to RESUME_STEPS, against
+        # the uninterrupted run.
         # With cuDNN's default algorithms two runs of this loop part after a few
         # steps (run-to-run rounding, amplified by the game from random weights at
         # full width; the figure against the main run is printed), so both runs
@@ -1426,34 +1464,35 @@ def phase_loop(torch, vt, card_line, t4):
         flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
         try:
-            ucfg = loop_config(vt, tmp, checkpoint_dir=None,
+            half = RESUME_STEPS // 2
+            ucfg = loop_config(vt, tmp, checkpoint_dir=None, max_steps=RESUME_STEPS,
                                sample_dir=os.path.join(tmp, "samples_whole"))
             _, ulog = vt.train(ucfg, logger=MetricsLogger(sinks=[], flush_every=4))
             rcfg = loop_config(vt, tmp, checkpoint_dir=os.path.join(tmp, "ck_resume"),
-                               checkpoint_every=steps // 2,
+                               checkpoint_every=half, max_steps=RESUME_STEPS,
                                sample_dir=os.path.join(tmp, "samples_resume"))
-            vt.train(rcfg.replace(train=rcfg.train.replace(max_steps=steps // 2)),
+            vt.train(rcfg.replace(train=rcfg.train.replace(max_steps=half)),
                      logger=MetricsLogger(sinks=[], flush_every=4))
             resumed, rlog = vt.train(rcfg, resume=True,
                                      logger=MetricsLogger(sinks=[], flush_every=4))
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
-        whole = [m for m in ulog.history if "_wall_s" not in m][steps // 2:]
+        whole = [m for m in ulog.history if "_wall_s" not in m][half:]
         rhist = [m for m in rlog.history if "_wall_s" not in m]
-        off = {i + steps // 2 + 1: metrics_close(m, ref) for i, (m, ref) in enumerate(zip(rhist, whole))}
+        off = {i + half + 1: metrics_close(m, ref) for i, (m, ref) in enumerate(zip(rhist, whole))}
 
         def worst(got, ref):
             return max(abs(m[k] - r[k]) / (1e-5 + 2e-4 * abs(r[k]))
                        for m, r in zip(got, ref) for k in r)
 
-        log(f"resume (cudnn.deterministic): stopped at step {steps // 2}, resumed to "
-            f"{resumed.step}: {len(rhist)} steps run; losses of steps {steps // 2 + 1}-{steps} "
+        log(f"resume (cudnn.deterministic): stopped at step {half}, resumed to "
+            f"{resumed.step}: {len(rhist)} steps run; losses of steps {half + 1}-{RESUME_STEPS} "
             f"against the uninterrupted run: bitwise equal={rhist == whole}, largest difference "
             f"{worst(rhist, whole):.3f} of the tolerance, 2e-4 relative + 1e-5 a metric (phase 6's "
             f"run-to-run figure for one step). For scale, the uninterrupted deterministic run "
             f"against the main run (default algorithms) over the same steps: "
-            f"{worst(whole, history[steps // 2:]):.3e} of it {lap()}")
-        if resumed.step != steps or len(rhist) != steps // 2 or any(off.values()):
+            f"{worst(whole, history[half:RESUME_STEPS]):.3e} of it {lap()}")
+        if resumed.step != RESUME_STEPS or len(rhist) != half or any(off.values()):
             raise SystemExit(f"resume: out of tolerance at {[(s, k) for s, k in off.items() if k]}")
         mgr = CheckpointManager(rcfg.train.checkpoint_dir)
         template = vt.create_train_state(rcfg, device="cuda", seed=SEED + 1)
@@ -1634,7 +1673,7 @@ def phase_critic_kernels(torch, sites, bounds, batch=TRAIN_BATCH, phase="9.1"):
         rot = rotation(x)
         k1 = time_cuda(torch, lambda j: fused.bn_act_dropout_forward(rot[j % len(rot)][0], *args))
         p1 = time_cuda(torch, lambda j: fused.bn_act_dropout_reference(rot[j % len(rot)][0], *args),
-                       windows=1, warmup=1)
+                       reps=PLAIN_REPS, windows=1, warmup=1)
         b1 = bounds(2 * n * 4 + 4 * c * 4, n, "bn_act_dropout_fwd_kernel", torch.float32, None,
                     False)
         note("bn_act_dropout", k1, p1, b1, 0.0)
@@ -1655,7 +1694,7 @@ def phase_critic_kernels(torch, sites, bounds, batch=TRAIN_BATCH, phase="9.1"):
         split = profile_split(torch, call)
         one_kernel(f"critic site {i} row 2", split)
         p2 = time_cuda(torch, lambda j: fused.bn_act_dropout_backward_reference(
-            *rot[j % len(rot)], *args), windows=1, warmup=1)
+            *rot[j % len(rot)], *args), reps=PLAIN_REPS, windows=1, warmup=1)
         launch = fused.bwd_launch_for(x, 0.0)
         b2 = bounds(3 * n * 4 + 8 * c * 4, n, "bn_act_dropout_bwd_kernel", torch.float32,
                     launch.vec, False)
@@ -2085,12 +2124,24 @@ def run_together(commands, cwd=HERE, timeout=900):
     together (two threads of the CPU each, the checkout on ``PYTHONPATH``).
     Exits on a non-zero return code (after every process has ended). Returns
     each one's stdout."""
+    return finish_together(start_together(commands, cwd), timeout)
+
+
+def start_together(commands, cwd=HERE):
+    """:func:`run_together`'s processes, started; :func:`finish_together`
+    waits for them."""
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
         p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(argv, cwd=own[0] if own else cwd, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for _, argv, *own in commands]
+    return commands, procs, time.perf_counter()
+
+
+def finish_together(started, timeout=900):
+    """Wait for :func:`start_together`'s processes: :func:`run_together`'s
+    checks and result."""
+    commands, procs, t0 = started
     outs, failed = [], []
     try:
         for (label, *_), proc in zip(commands, procs):
@@ -2371,7 +2422,7 @@ def phase_dp_kernels(torch, sites, latent, bounds, batch):
     log(f"== phase 11.3: rows 1-4 with an index base, at the 12 generator sites of a "
         f"vaegan_256_dp step (bfloat16, batch {batch}; base = batch x C x H x W, rank 1 of "
         "two at this batch) bitwise against their plain versions with the same base; kernel: "
-        "median of 5 CUDA-event windows of 20 launches, inputs rotated through >= 256 MB; "
+        "median of 3 CUDA-event windows of 20 launches, inputs rotated through >= 256 MB; "
         "plain: one window of 2 ==")
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
@@ -2979,7 +3030,7 @@ def phase_stripe_kernels(torch, sites, latent, bounds):
         f"of the 12 generator sites of a vaegan_256_dp step (bfloat16, global batch "
         f"{STRIPE_BATCH}: {STRIPE_BATCH // 2} rows x H/{MESH_MODEL} each), bitwise against "
         "their plain versions with the same map and (rows 1, 3) against the kernel on the "
-        "global tensor cut to the part; kernel: median of 5 CUDA-event windows of 20 launches, "
+        "global tensor cut to the part; kernel: median of 3 CUDA-event windows of 20 launches, "
         "inputs rotated through >= 256 MB; plain: one window of 2; the contiguous map (L = G) "
         "is phase 11.3's ==")
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
@@ -3156,57 +3207,14 @@ def phase_mesh(torch, vt, bounds, card_line, sites, latent):
         # ---- 12.2 rows 1-4 on a stripe
         kernels = phase_stripe_kernels(torch, sites, latent, bounds)
 
-        # ---- 12.3 tensor parallelism alone through the loop: the counts are set to
-        # 0 in each process just before its runs and read just after
-        cfg = tp_config(vt, tmp)
-        log(f"== phase 12.3: train_data_parallel of vaegan_256_dp with parallel.num_model="
-            f"{MESH_MODEL} (the critic head split over the model axis, each process the whole "
-            f"global batch of {TP_BATCH}; bfloat16, use_pallas='all', remat on), {MESH_MODEL} "
-            "gloo processes on the card: phase 11.1's three runs (2 steps and a checkpoint, a "
-            "resume that restores it bitwise, 2 more steps) with each step's launches exact; "
-            "the last checkpoint restored into a one-process state ==")
-        t0 = time.perf_counter()
-        runs = run_ranks("12.3", MESH_MODEL, "tp_rank", tmp, env, timeout=900)
-        wall = time.perf_counter() - t0
-        split = split_kernels(cfg)
-        bad = []
-        for r, res in enumerate(runs):
-            wrong = [i for i, (got, (g, grid)) in enumerate(zip(res["per_step"], DP_PLAN))
-                     if got != dp_step_launches(g, grid)]
-            log(f"tp rank {r}: {res['steps']} steps, launches {res['launches']}, per step "
-                f"{res['per_step']}; metrics finite={res['finite']}, restore of step 2 bitwise "
-                f"{'equal' if not res['diff'] else 'DIFFERS at ' + str(res['diff'][:4])}, grids "
-                f"{res['grids']}, checkpoints {res['kept']}; a step of the resumed run "
-                f"{res['step_s'] * 1e3:.1f} ms [{card_line}, gloo]")
-            if (wrong or res["steps"] != len(DP_PLAN) or not res["finite"] or res["diff"]
-                    or res["kept"] != [2, 4] or res["grids"] != ["0.png", "2.png"]
-                    or not all(res["launches"].values())):
-                bad.append(r)
-        whole = whole_from_slices(torch, [res["critic"] for res in runs], split)
-        one = CheckpointManager(cfg.train.checkpoint_dir).restore(
-            vt.create_train_state(cfg.replace(parallel=cfg.parallel.replace(num_model=1)),
-                                  device="cuda", seed=SEED))
-        restored = {k: v.cpu() for k, v in one.critic.state_dict().items()}
-        same = restored.keys() == whole.keys() and all(torch.equal(restored[k], whole[k])
-                                                       for k in whole)
-        shapes = {k: tuple(runs[0]["critic"][k].shape) for k in split}
-        log(f"tp path: split kernels {shapes} on each process; the step-4 checkpoint restored "
-            f"into a one-process state equals the processes' critic put back together "
-            f"bitwise: {same}; the two processes {wall:.1f} s with their start [{card_line}]")
-        del one, restored, whole
-        torch.cuda.empty_cache()
-        if bad or not same:
-            raise SystemExit(f"tp path: wrong launches, a non-finite metric, a restore that "
-                             f"differs or missing grids or checkpoints on ranks {bad}, or a "
-                             "checkpoint that does not restore into one process")
-
-        # ---- 12.4 cli train --dp with num_model 2, and the dry run
+        # ---- 12.4's torchrun processes start first and run beside 12.3's (both
+        # check paths, neither is a figure of record); the dry run follows 12.3
         log(f"== phase 12.4: torchrun --standalone --nproc_per_node={MESH_MODEL} -m "
             "vaegan_tpu_torch.cli train --dp --device cuda:0 (gloo, which the process group "
             f"picks since the processes share the card; vaegan_256_dp with "
             f"parallel.num_model={MESH_MODEL}, use_pallas all, remat on, global batch "
-            f"{TP_BATCH}, {DP_CLI_STEPS} steps), launches counted per process; "
-            "entry.dryrun_multichip(4) on the CPU meanwhile ==")
+            f"{TP_BATCH}, {DP_CLI_STEPS} steps), launches counted per process, started now and "
+            "run beside 12.3's processes; entry.dryrun_multichip(4) on the CPU after 12.3 ==")
         with open(os.path.join(tmp, "count.py"), "w") as f:
             f.write(CLI_COUNTING)
         c = tp_config(vt, tmp, n_critics=1, n_epochs=1,
@@ -3215,8 +3223,7 @@ def phase_mesh(torch, vt, bounds, card_line, sites, latent):
             json.dump(c.to_dict(), f)
         from vaegan_tpu_torch.entry import dryrun_multichip
 
-        # the dry run (CPU processes) runs while torchrun's processes use the card
-        t0 = time.perf_counter()
+        t_cli = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              f"--nproc_per_node={MESH_MODEL}", os.path.join(tmp, "count.py"), "train", "--dp",
@@ -3225,6 +3232,54 @@ def phase_mesh(torch, vt, bounds, card_line, sites, latent):
              "--checkpoint", os.path.join(tmp, "cli_tp_ck")], cwd=HERE, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
+            # ---- 12.3 tensor parallelism alone through the loop: the counts are
+            # set to 0 in each process just before its runs and read just after
+            cfg = tp_config(vt, tmp)
+            log(f"== phase 12.3: train_data_parallel of vaegan_256_dp with parallel.num_model="
+                f"{MESH_MODEL} (the critic head split over the model axis, each process the "
+                f"whole global batch of {TP_BATCH}; bfloat16, use_pallas='all', remat on), "
+                f"{MESH_MODEL} gloo processes on the card beside 12.4's: phase 11.1's three runs "
+                "(2 steps and a checkpoint, a resume that restores it bitwise, 2 more steps) "
+                "with each step's launches exact; the last checkpoint restored into a "
+                "one-process state ==")
+            t0 = time.perf_counter()
+            runs = run_ranks("12.3", MESH_MODEL, "tp_rank", tmp, env, timeout=900)
+            wall = time.perf_counter() - t0
+            split = split_kernels(cfg)
+            bad = []
+            for r, res in enumerate(runs):
+                wrong = [i for i, (got, (g, grid)) in enumerate(zip(res["per_step"], DP_PLAN))
+                         if got != dp_step_launches(g, grid)]
+                log(f"tp rank {r}: {res['steps']} steps, launches {res['launches']}, per step "
+                    f"{res['per_step']}; metrics finite={res['finite']}, restore of step 2 "
+                    f"bitwise {'equal' if not res['diff'] else 'DIFFERS at ' + str(res['diff'][:4])}"
+                    f", grids {res['grids']}, checkpoints {res['kept']}; a step of the resumed "
+                    f"run {res['step_s'] * 1e3:.1f} ms [{card_line}, gloo, beside 12.4]")
+                if (wrong or res["steps"] != len(DP_PLAN) or not res["finite"] or res["diff"]
+                        or res["kept"] != [2, 4] or res["grids"] != ["0.png", "2.png"]
+                        or not all(res["launches"].values())):
+                    bad.append(r)
+            whole = whole_from_slices(torch, [res["critic"] for res in runs], split)
+            one = CheckpointManager(cfg.train.checkpoint_dir).restore(
+                vt.create_train_state(cfg.replace(parallel=cfg.parallel.replace(num_model=1)),
+                                      device="cuda", seed=SEED))
+            restored = {k: v.cpu() for k, v in one.critic.state_dict().items()}
+            same = restored.keys() == whole.keys() and all(torch.equal(restored[k], whole[k])
+                                                           for k in whole)
+            shapes = {k: tuple(runs[0]["critic"][k].shape) for k in split}
+            log(f"tp path: split kernels {shapes} on each process; the step-4 checkpoint "
+                f"restored into a one-process state equals the processes' critic put back "
+                f"together bitwise: {same}; the two processes {wall:.1f} s with their start "
+                f"[{card_line}]")
+            del one, restored, whole
+            torch.cuda.empty_cache()
+            if bad or not same:
+                raise SystemExit(f"tp path: wrong launches, a non-finite metric, a restore "
+                                 f"that differs or missing grids or checkpoints on ranks {bad}, "
+                                 "or a checkpoint that does not restore into one process")
+
+            # ---- 12.4's dry run (CPU processes) while torchrun's may still run
+            t0 = time.perf_counter()
             printed = io.StringIO()
             with contextlib.redirect_stdout(printed):
                 dryrun_multichip(4)
@@ -3234,6 +3289,7 @@ def phase_mesh(torch, vt, bounds, card_line, sites, latent):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        t0 = t_cli
         want = {k: DP_CLI_STEPS * v + SAMPLER_LAUNCHES[k]
                 for k, v in DP_STEP_LAUNCHES[True].items()}
         cli_launches = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
@@ -3340,17 +3396,30 @@ def phase_roofline(torch, vt, card_line):
     log(f"triad repetition under torch.profiler: {split_text(split, 5)}")
     if len(split) != 1:
         raise SystemExit(f"the triad is not one kernel a repetition: {split}")
+    from vaegan_tpu_torch import bench
+
     lines = []
     for (label, args, env), want in zip(ROOFLINE_RUNS, ROOFLINE_LAUNCHES):
+        # in this process, as phase 10.3 runs the bench (a process of its own
+        # spends 10-40 s starting torch and the card)
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "vaegan_tpu_torch.bench", "--roofline",
-                               *args], cwd=HERE, env=dict(os.environ, BENCH_PALLAS="all",
-                                                          BENCH_STEPS=ROOFLINE_STEPS, **env),
-                              capture_output=True, text=True, timeout=600)
-        out = [x for x in proc.stdout.splitlines() if x.startswith("{")]
-        if proc.returncode or not out:
-            raise SystemExit(f"bench --roofline ({label}): rc {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        env = dict(BENCH_PALLAS="all", BENCH_STEPS=ROOFLINE_STEPS, **env)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main(["--roofline", *args, "--device", "cuda"])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        torch.cuda.empty_cache()
+        out = [x for x in buf.getvalue().splitlines() if x.startswith("{")]
+        if rc or not out:
+            raise SystemExit(f"bench --roofline ({label}): rc {rc}\n{buf.getvalue()[-2000:]}")
         rec = json.loads(out[-1])
         log(json.dumps(rec))
         # launches: fused.LAUNCHES over the timed steps and over the counted
@@ -3885,8 +3954,9 @@ def phase_tools(torch, vt, card_line):
     try:
         log(f"== phase 15: the research tools (python -m vaegan_tpu_torch.tools.*), their "
             f"launches counted: make_nifti_dataset ({TOOL_NIFTI_FILES} files) in this process; "
-            "then, each in its own process, wave 1: edges_multiseed (--seeds 1, one epoch at "
-            f"{TOOL_EDGES_SIZE}², batch {TOOL_EDGES_BATCH}), paper_probe (the NIfTI files at "
+            "then, each in its own process, edges_multiseed (--seeds 1, one epoch at "
+            f"{TOOL_EDGES_SIZE}², batch {TOOL_EDGES_BATCH}; beside both waves), wave 1: "
+            "paper_probe (the NIfTI files at "
             f"256², batch 4, {TOOL_STEPS} steps, --keep-best, EMA 0.999), "
             "conv_fusion_evidence and paper_loss_fusion_evidence (both at their defaults, "
             f"both modes), gan_only_budget ({TOOL_STEPS} steps, --keep-best), "
@@ -3925,9 +3995,20 @@ def phase_tools(torch, vt, card_line):
             tool("profile_step_residual", "profile_step_residual", "--steps",
                  str(TOOL_PROFILE_STEPS), *pallas),
         ]
+        # edges_multiseed runs its two arms one after the other and outlasts the
+        # rest of wave 1, so it runs on beside wave 2 (the two waves' memory
+        # would not fit together; it needs little)
+        edges = start_together(wave1[:1])
         outs = {}
-        for wave in (wave1, wave2):
-            outs.update(zip((c[0] for c in wave), run_together(wave, timeout=600)))
+        try:
+            for wave in (wave1[1:], wave2):
+                outs.update(zip((c[0] for c in wave), run_together(wave, timeout=600)))
+        except BaseException:
+            for proc in edges[1]:
+                proc.kill()
+                proc.wait()
+            raise
+        outs.update(zip((c[0] for c in wave1[:1]), finish_together(edges, timeout=600)))
         recs = {"make_nifti_dataset": nifti,
                 **{label: last_json(out) for label, out in outs.items()}}
         counted = {label: read_log(path) for label, path in logs.items()}
@@ -4006,6 +4087,385 @@ def phase_tools(torch, vt, card_line):
         return {f"tool {label}": v for label, v in launches.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the phase-decomposed transposed conv, the live capture endpoint and
+# the JAX package's Orbax checkpoints
+# ---------------------------------------------------------------------------
+ORBAX_FIXTURES = os.path.join(HERE, "tests", "data", "orbax")
+FIXTURE_STEPS = 2           # the steps each restored fixture takes on the card
+# one step's launches of each fixture's config (32², batch 2, a depth-1 generator
+# with 8 fused BN sites) with use_pallas="all": the notebook's G+D step and the
+# three-optimizer paper step (its critic fused at 7 sites a forward)
+FIXTURE_LAUNCHES = {
+    "rmsprop_ema": {"bn_act_dropout": 8, "bn_act_dropout_bwd": 8, "reparam_kl": 1,
+                    "reparam_kl_bwd": 1, "recon_loss_sums": 1},
+    "three": {"bn_act_dropout": 27, "bn_act_dropout_bwd": 46, "reparam_kl": 1,
+              "reparam_kl_bwd": 1, "recon_loss_sums": 0},
+}
+CAPTURE_MS = 500            # the endpoint's capture while the child's steps run
+# the transposed-conv sites' timing points: (label, preset, batch)
+CONV_POINTS = (("b4 float32", "notebook", TRAIN_BATCH), ("b64 float32", "vaegan_infer", BATCH),
+               ("vaegan_256_dp b32 bfloat16", "vaegan_256_dp", 32))
+CONV_SLEEP = 20_000_000     # ~10 ms ahead of each timed window: enough for 5 queued calls
+ENDPOINT_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.endpoint_child())\n"
+
+
+@contextlib.contextmanager
+def phase_conv_flag(on: bool):
+    """``ops.conv.PHASE_DECOMPOSE_CONV_TRANSPOSE`` set for the duration."""
+    from vaegan_tpu_torch.ops import conv
+
+    saved = conv.PHASE_DECOMPOSE_CONV_TRANSPOSE
+    conv.PHASE_DECOMPOSE_CONV_TRANSPOSE = on
+    try:
+        yield
+    finally:
+        conv.PHASE_DECOMPOSE_CONV_TRANSPOSE = saved
+
+
+def transposed_sites(torch, gen, size, channels):
+    """``[(name, layer, NCHW input shape at batch 1)]`` of each transposed conv
+    of ``gen`` (each upsample block's conv1 and shortcut), from one forward."""
+    from vaegan_tpu_torch.models.layers import Conv2D
+
+    found = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: found.append((name, mod, tuple(inp[0].shape))))
+        for name, m in gen.named_modules() if isinstance(m, Conv2D) and m.transpose]
+    try:
+        with torch.no_grad():
+            gen(torch.zeros((1, size, size, channels), device="cuda"), train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    return found
+
+
+def time_conv_site(torch, layer, shape, dtype, backward):
+    """Device ms of the layer on rotated ``shape`` inputs, the phase path and
+    the dilated one (forward, or forward and backward with respect to the input
+    and the weight), in one call so both see the card alike."""
+    from vaegan_tpu_torch.ops import ieee_float32
+
+    xs = [t[0].requires_grad_(backward) for t in rotation(
+        torch.randn(shape, device="cuda", dtype=dtype).contiguous(
+            memory_format=torch.channels_last))]
+    g = None
+    if backward:
+        with torch.no_grad():
+            g = torch.ones_like(layer(xs[0].detach()))
+
+    # a float32 backward in IEEE float32, as the train step holds it: the
+    # layer pins its forward only, and the process's flags change by phase
+    pin = ieee_float32 if dtype == torch.float32 else contextlib.nullcontext
+
+    def call(i):
+        if backward:
+            with pin():
+                layer(xs[i % len(xs)]).backward(g)
+        else:
+            with torch.no_grad():
+                layer(xs[i % len(xs)])
+
+    out = {}
+    for path, flag in (("dilated", False), ("phase", True), ("dilated again", False)):
+        with phase_conv_flag(flag):
+            out[path] = time_cuda(torch, call, reps=5, windows=3, warmup=2, sleep=CONV_SLEEP)
+    layer.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_conv(torch, vt, cfg_all, state, images, card_line):
+    """16.1: the phase-decomposed transposed conv at full width on the card."""
+    from vaegan_tpu_torch.ops import conv, fused
+
+    log("== phase 16.1: the phase-decomposed transposed conv (ops.conv, the flag "
+        f"PHASE_DECOMPOSE_CONV_TRANSPOSE, default {conv.PHASE_DECOMPOSE_CONV_TRANSPOSE}) "
+        "at full width ==")
+    if conv.PHASE_DECOMPOSE_CONV_TRANSPOSE:
+        raise SystemExit("the flag's default is not the JAX package's (False)")
+    # the served model: a b64 reconstruct with the flag on against it off. The
+    # phase path regroups each output's sum (4 taps x C), about 1 float32 ulp a
+    # conv; held, as phase 3 holds the kernels, to 1e-4 of the output's scale
+    fused.reset_launches()
+    with torch.inference_mode(), phase_conv_flag(True):
+        on = vt.reconstruct(cfg_all, state, images)[0]
+    torch.cuda.synchronize()
+    launches = dict(fused.LAUNCHES)
+    with torch.inference_mode():
+        off = vt.reconstruct(cfg_all, state, images)[0]
+    err, scale = float((on - off).abs().max()), float(off.abs().max())
+    log(f"reconstruct b{BATCH}, phase vs dilated: max_abs_err={err:.3e}, max|ref|={scale:.3e}, "
+        f"tolerance {1e-4 * scale:.3e}; launches with the flag on {launches}")
+    if not err <= 1e-4 * scale or launches["bn_act_dropout"] != 12:
+        raise SystemExit("16.1: the phase path's reconstruct disagrees or its launches are wrong")
+    del on, off
+    recon_ms = {}
+    for path, flag in (("dilated", False), ("phase", True)):
+        with phase_conv_flag(flag):
+            recon_ms[path] = 1e3 * time_host(
+                torch, lambda: vt.reconstruct(cfg_all, state, images), reps=5, warmup=1)
+
+    # the notebook's G+D step (b4): launches exactly phase 6's; losses and
+    # gradients against the flag-off step. Both draw the same: the fused draws
+    # are a function of the step's seed, the critic's are injected
+    cfg = vt.preset("notebook")
+    cfg_train = cfg.replace(train=cfg.train.replace(use_pallas="all"))
+    x = torch.rand((TRAIN_BATCH,) + (cfg.data.image_size,) * 2 + (1,), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    fused.reset_launches()
+    with phase_conv_flag(True):
+        rec_on = one_g_step(torch, vt, cfg_train, "cuda", x)
+    step_launches = dict(fused.LAUNCHES)
+    rec_off = one_g_step(torch, vt, cfg_train, "cuda", x)
+    same_draws = not tree_diff(torch, rec_on["draws"], rec_off["draws"])
+    log(f"notebook G+D step b{TRAIN_BATCH} with the flag on: launches {step_launches} (want "
+        f"{STEP_LAUNCHES[True]}); fused draws equal to the flag-off step's: {same_draws}")
+    if step_launches != STEP_LAUNCHES[True] or not same_draws:
+        raise SystemExit("16.1: the phase-path step's launches or draws are wrong")
+    if not compare_steps("notebook G+D step b4, phase vs dilated transposed convs", rec_on,
+                         rec_off):
+        raise SystemExit("16.1: the phase-path step disagrees with the dilated one")
+    del rec_on, rec_off
+    st = vt.create_train_state(cfg_train, device="cuda", seed=SEED)
+    step = vt.make_train_step(cfg_train, True)
+    counter = iter(range(10 ** 6))
+    step_ms = {}
+    for path, flag in (("dilated", False), ("phase", True)):
+        with phase_conv_flag(flag):
+            step_ms[path] = 1e3 * time_host(
+                torch, lambda: step(st, x, 16000 + next(counter)), reps=4, warmup=1)
+    del st, step
+    torch.cuda.empty_cache()
+
+    # each transposed-conv site of the decoder, dilated against phase
+    sites = {}
+    for label, preset, batch in CONV_POINTS:
+        pcfg = vt.preset(preset)
+        gen = state.generator if preset == "vaegan_infer" else vt.build_generator(
+            pcfg, device="cuda", seed=SEED)
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[pcfg.train.dtype]
+        for name, layer, shape in transposed_sites(torch, gen, pcfg.data.image_size,
+                                                   pcfg.generator.in_channels):
+            shape = (batch,) + shape[1:]
+            for mode, backward in (("fwd", False), ("fwd+bwd", True)):
+                t = time_conv_site(torch, layer, shape, dtype, backward)
+                # "depth_2 shortcut", "depth_1 conv1", ...
+                site = name.split("decoder-")[-1].replace("-upsample.", " ").removesuffix(".0")
+                sites[f"{label} {site} {mode}"] = t
+                log(f"  {label} {name} {shape} {mode}: dilated {t['dilated']:.4f} ms "
+                    f"(again {t['dilated again']:.4f}), phase {t['phase']:.4f} ms, phase / dilated "
+                    f"{t['phase'] / t['dilated']:.3f} [{card_line}]")
+        del gen
+        torch.cuda.empty_cache()
+    log(f"reconstruct b{BATCH}: dilated {recon_ms['dilated']:.3f} ms, phase "
+        f"{recon_ms['phase']:.3f} ms; notebook G+D step b{TRAIN_BATCH}: dilated "
+        f"{step_ms['dilated']:.3f} ms, phase {step_ms['phase']:.3f} ms [{card_line}]")
+    faster = sum(t["phase"] < min(t["dilated"], t["dilated again"]) for t in sites.values())
+    log(f"verdict: the phase path is faster at {faster} of {len(sites)} site timings; the "
+        f"flag stays {conv.PHASE_DECOMPOSE_CONV_TRANSPOSE} (the JAX package's default)")
+    return {"recon_ms": recon_ms, "step_ms": step_ms, "sites": sites,
+            "launches": step_launches}
+
+
+def endpoint_child() -> int:
+    """16.2, in a process of its own: notebook G+D steps at b4 (kernels on) on
+    the main thread while another thread asks the capture endpoint for
+    :data:`CAPTURE_MS`; prints what the capture holds as a JSON line."""
+    import http.client
+    import threading
+
+    import torch
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.utils import profiling
+
+    cfg = vt.preset("notebook")
+    cfg = cfg.replace(train=cfg.train.replace(use_pallas="all"))
+    state = vt.create_train_state(cfg, device="cuda", seed=SEED)
+    step = vt.make_train_step(cfg, True)
+    x = torch.rand((TRAIN_BATCH, 256, 256, 1), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    for i in range(2):
+        state, _ = step(state, x, i)
+    torch.cuda.synchronize()
+    server = profiling.start_server(0)
+    answer = {}
+    try:
+        try:
+            profiling.start_server(0)
+            second = "a second server started"
+        except RuntimeError as e:
+            second = f"raised: {e}"
+
+        def ask():
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=300)
+            conn.request("GET", f"/capture?duration_ms={CAPTURE_MS}")
+            r = conn.getresponse()
+            answer.update(json.loads(r.read()), status=r.status)
+            conn.close()
+
+        asker = threading.Thread(target=ask)
+        asker.start()
+        steps = 0
+        while asker.is_alive():
+            state, _ = step(state, x, 100 + steps)
+            torch.cuda.synchronize()
+            steps += 1
+        asker.join()
+    finally:
+        server.stop()
+    profiling.start_server(server.port).stop()      # raises if stop() left the port taken
+    events = json.load(open(answer["path"]))["traceEvents"]
+    main = threading.main_thread().native_id
+    rec = {"status": answer["status"], "cpu_events": answer["cpu_events"],
+           "device_events": answer["device_events"], "steps_during": steps,
+           "row1_device_events": sum(e.get("cat") == "kernel"
+                                     and "bn_act_dropout_fwd_kernel" in e.get("name", "")
+                                     for e in events),
+           "main_thread_aten_ops": sum(e.get("cat") == "cpu_op" and e.get("tid") == main
+                                       and e.get("name", "").startswith("aten::")
+                                       for e in events),
+           "second_start": second, "port_freed": True}
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def fixture_leaves(torch, name):
+    """A committed fixture's step read by the port (no JAX on the card): its
+    step, its leaf count, and the leaves whose sha256 is not the one orbax
+    recorded (``leaves.json``) or that one side lacks."""
+    import hashlib
+
+    from vaegan_tpu_torch import orbax_reader
+
+    ck = os.path.join(ORBAX_FIXTURES, name, "checkpoint")
+    (step,) = [int(d) for d in os.listdir(ck) if d.isdigit()]
+    with open(os.path.join(ORBAX_FIXTURES, name, "leaves.json")) as f:
+        recorded = {tuple(r["path"]): r["sha256"] for r in json.load(f)}
+    got = {}
+
+    def walk(node, path):
+        if isinstance(node, (dict, list)):
+            for k, v in (node.items() if isinstance(node, dict) else enumerate(node)):
+                walk(v, path + (str(k),))
+        elif node is None:
+            got[path] = None
+        else:       # a bfloat16 leaf is a tensor: its bits are those orbax hashed
+            raw = (node.view(torch.int16).numpy() if isinstance(node, torch.Tensor)
+                   else node).tobytes()
+            got[path] = hashlib.sha256(raw).hexdigest()
+
+    walk(orbax_reader.read_tree(os.path.join(ck, str(step))), ())
+    bad = sorted(set(recorded) ^ set(got)) + [p for p in recorded
+                                               if p in got and got[p] != recorded[p]]
+    return step, len(recorded), bad
+
+
+def phase_orbax(torch, vt, tmp):
+    """16.3 in this process: each committed fixture read leaf by leaf against
+    orbax's record, restored into a port state on the card (kernels on) and
+    stepped :data:`FIXTURE_STEPS` times with exact launches."""
+    import shutil
+
+    from vaegan_tpu_torch.ops import fused
+
+    log("== phase 16.3: the JAX package's Orbax checkpoints (tests/data/orbax, written by "
+        "tests/make_orbax_fixtures.py), read and resumed on the card with no JAX ==")
+    launches = {}
+    for name in FIXTURE_LAUNCHES:
+        t0 = time.perf_counter()
+        step, n, bad = fixture_leaves(torch, name)
+        log(f"{name}: step {step}, {n} leaves read in {time.perf_counter() - t0:.2f} s, "
+            f"sha256 differing from orbax's record: {bad or 'none'}")
+        if bad:
+            raise SystemExit(f"16.3: {name}: leaves differ from orbax's")
+        ck = os.path.join(tmp, name)
+        shutil.copytree(os.path.join(ORBAX_FIXTURES, name, "checkpoint"), ck)
+        cfg = vt.Config.from_json(os.path.join(ORBAX_FIXTURES, name, "config.json"))
+        cfg = cfg.replace(train=cfg.train.replace(use_pallas="all"))
+        mgr = vt.CheckpointManager(ck)
+        state = mgr.restore(vt.create_train_state(cfg, device="cuda", seed=SEED))
+        paper = cfg.optim.scheme == "three"
+        run = vt.make_paper_train_step(cfg) if paper else vt.make_train_step(cfg, True)
+        x = torch.rand((cfg.data.batch_size,) + (cfg.data.image_size,) * 2 + (1,),
+                       device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        for i in range(FIXTURE_STEPS):
+            before = dict(fused.LAUNCHES)
+            state, m = run(state, x, 16300 + i)
+            torch.cuda.synchronize()
+            got = {k: fused.LAUNCHES[k] - before[k] for k in before}
+            vals = {k: float(v) for k, v in m.items()}
+            finite = all(v == v and abs(v) != float("inf") for v in vals.values())
+            log(f"{name}: restored step {step} + {i + 1} ({'paper' if paper else 'G+D'} step, "
+                f"saved EMA {mgr.saved_has_g_ema()}): launches {got} (want "
+                f"{FIXTURE_LAUNCHES[name]}), finite={finite}, d_loss {vals['d_loss']!r}")
+            if got != FIXTURE_LAUNCHES[name] or not finite or state.step != step + i + 1:
+                raise SystemExit(f"16.3: {name}: wrong launches, step or a non-finite loss")
+        launches[f"orbax {name}"] = dict(fused.LAUNCHES)
+        del state, run
+    return launches
+
+
+def phase_16_processes(vt, tmp):
+    """16.2 and the CLI's part of 16.3, each in its own process, started
+    together: the endpoint child, ``cli sample`` from a copy of the
+    three-optimizer fixture and ``cli train --resume`` from a copy of the
+    two-optimizer one, 2 more steps."""
+    import shutil
+
+    log("== phase 16.2 (the live capture endpoint, in a process of its own) and the CLI on "
+        "Orbax directories (16.3), started together ==")
+    for name in FIXTURE_LAUNCHES:
+        shutil.copytree(os.path.join(ORBAX_FIXTURES, name, "checkpoint"),
+                        os.path.join(tmp, f"cli_{name}"))
+    cli = [sys.executable, "-m", "vaegan_tpu_torch.cli"]
+    cfg_of = lambda name: os.path.join(ORBAX_FIXTURES, name, "config.json")  # noqa: E731
+    endpoint, sampled, trained = run_together([
+        ("16.2 endpoint", [sys.executable, "-c", ENDPOINT_CHILD]),
+        ("16.3 cli sample", cli + ["sample", "--config", cfg_of("three"), "--checkpoint",
+                                   os.path.join(tmp, "cli_three"), "-n", "4",
+                                   "-o", os.path.join(tmp, "s.png")], tmp),
+        ("16.3 cli train --resume", cli + ["train", "--config", cfg_of("rmsprop_ema"),
+                                           "--checkpoint", os.path.join(tmp, "cli_rmsprop_ema"),
+                                           "--resume", "--epochs", "2"], tmp)])
+    rec = json.loads(endpoint.strip().splitlines()[-1])
+    log(f"16.2 capture of {CAPTURE_MS} ms while the main thread stepped: {rec}")
+    if not (rec["status"] == 200 and rec["row1_device_events"] > 0
+            and rec["main_thread_aten_ops"] > 0 and rec["second_start"].startswith("raised")):
+        raise SystemExit("16.2: the capture lacks row 1's device events or the main thread's "
+                         "ops, or a second server started")
+    if not os.path.getsize(os.path.join(tmp, "s.png")):
+        raise SystemExit("16.3: cli sample wrote no image")
+    ck = os.path.join(tmp, "cli_rmsprop_ema")
+    mgr = vt.CheckpointManager(ck)
+    files = sorted(os.listdir(ck))
+    log(f"16.3 cli train --resume: directory {files}, steps {mgr.all_steps()}, latest "
+        f"{mgr.latest_step()}; cli sample: {os.path.getsize(os.path.join(tmp, 's.png'))} bytes")
+    if mgr.all_steps() != [2, 4] or files != ["2", "4.pt"]:
+        raise SystemExit("16.3: the resumed run did not continue the Orbax directory")
+    return rec
+
+
+def phase_16(torch, vt, cfg_all, state, images, card_line):
+    """Phase 16 (its parts: :func:`phase_orbax`, :func:`phase_16_processes`,
+    :func:`phase_conv`); returns its launch counts by path and its numbers."""
+    import shutil
+
+    t16 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vaegan_p16_")
+    try:
+        paths = phase_orbax(torch, vt, tmp)
+        endpoint = phase_16_processes(vt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    conv = phase_conv(torch, vt, cfg_all, state, images, card_line)
+    paths["conv phase step"] = conv["launches"]
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    return {"paths": paths, "conv": conv, "endpoint": endpoint}
 
 
 # ---------------------------------------------------------------------------
@@ -4271,6 +4731,15 @@ def main() -> int:
     from vaegan_tpu_torch.ops import _build, fused
     from vaegan_tpu_torch.serving import load_bundle, save_bundle
 
+    t_phase = time.perf_counter()
+
+    def lap(label):
+        """Print the wall of the phase that ends here."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"{label}: {now - t_phase:.1f} s")
+        t_phase = now
+
     # ---------------------------------------------------------------- phase 1
     log("== phase 1: environment ==")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4316,6 +4785,7 @@ def main() -> int:
     if atomics:
         raise SystemExit("a kernel holds a float atomic: its sums would change from run to run")
     bounds = Bounds(bw, instr_rate, counts)
+    lap("phase 1")
 
     # ---------------------------------------------------------------- models
     cfg = vt.preset("vaegan_infer")
@@ -4342,6 +4812,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 2
     summary = phase_kernel(torch, sites, bounds)
+    lap("phase 2")
 
     # ---------------------------------------------------------------- phase 3
     log(f"== phase 3: served model vaegan_infer, {size}x{size}, float32, use_pallas='all' ==")
@@ -4444,6 +4915,8 @@ def main() -> int:
     del gen_off, state_off, gen_cpu, state_cpu, outputs
     torch.cuda.empty_cache()
 
+    lap("phase 3")
+
     # ---------------------------------------------------------------- phase 4
     log(f"== phase 4: numbers on {card_line} (float32, PyTorch's default flags) ==")
     t64 = time_host(torch, lambda: vt.reconstruct(cfg_all, state, images), reps=10)
@@ -4483,10 +4956,15 @@ def main() -> int:
         for ms, count, name in kernels[:10]:
             log(f"  {ms:9.3f} ms  x{count:<3d} {name[:110]}")
 
+    lap("phase 4")
+
     # ---------------------------------------------------------------- phases 5-7
     train_kernels = phase_train_kernels(torch, sites, vt.latent_shape(cfg), bounds)
+    lap("phase 5")
     cfg_train, train_state, batches, train_launches = phase_train_step(torch, vt, tf32_defaults)
+    lap("phase 6")
     t4, t16 = phase_train_numbers(torch, vt, cfg_train, train_state, batches, card_line)
+    lap("phase 7")
     del cfg_train, train_state, batches
     torch.cuda.empty_cache()
 
@@ -4530,6 +5008,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 15
     tools = phase_tools(torch, vt, card_line)
+
+    # ---------------------------------------------------------------- phase 16
+    p16 = phase_16(torch, vt, cfg_all, state, images, card_line)
     log(f"summary [{card_line}]: serving reconstruct b{BATCH} {BATCH / t64:.1f} images/s; "
         f"training step b{TRAIN_BATCH} {t4 * 1e3:.3f} ms = {TRAIN_BATCH / t4:.2f} images/s, "
         f"b16 {t16 * 1e3:.3f} ms = {16 / t16:.2f} images/s; paper step b{TRAIN_BATCH} "
@@ -4545,7 +5026,10 @@ def main() -> int:
         f"{[round(t * 1e3, 1) for t in mesh['tp_step_s']]} ms; roofline (bench --roofline, "
         "96x96, batch 128, bfloat16, kernels on): " + "; ".join(
             f"{r['label']} {r['step_ms']} ms, {r['fraction_of_achieved_bw']} of the triad's "
-            f"{r['achieved_hbm_gbs_triad']} GB/s" for r in roofline))
+            f"{r['achieved_hbm_gbs_triad']} GB/s" for r in roofline)
+        + f"; transposed convs phase / dilated: reconstruct b{BATCH} "
+        f"{p16['conv']['recon_ms']['phase'] / p16['conv']['recon_ms']['dilated']:.3f}, G+D step "
+        f"b{TRAIN_BATCH} {p16['conv']['step_ms']['phase'] / p16['conv']['step_ms']['dilated']:.3f}")
 
     # launches: the data-parallel path's (phase 11: train_data_parallel of
     # vaegan_256_dp, all five kernels); each other path's launches (the notebook
@@ -4559,7 +5043,8 @@ def main() -> int:
     paths = {"paper": paper["paper"], "accum": paper["accum"], **concat["paths"],
              "cli_train": cli_launches, "loop": loop_launches, "dp": dp["launches"],
              "cli_train_dp": dp["cli_launches"], "tp_loop": mesh["tp_launches"],
-             "cli_train_dp_tp": mesh["cli_launches"], "journey": journey, **tools}
+             "cli_train_dp_tp": mesh["cli_launches"], "journey": journey, **tools,
+             **p16["paths"]}
 
     def critic_figures(row, run=paper["critic"]):
         c = run[row]

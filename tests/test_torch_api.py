@@ -6,9 +6,11 @@ character; the Neptune channels), the logger's one host transfer per flush,
 
 from __future__ import annotations
 
+import http.client
 import io
 import json
 import math
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -185,5 +187,61 @@ def test_profiling_trace_annotate_timer_and_no_server(tmp_path):
     out = timer.result(4, torch.tensor(1.0))
     assert out["steps_per_sec"] > 0 and out["images_per_sec"] == pytest.approx(4 * out["steps_per_sec"])
     assert profiling.StepTimer(warmup=5).result(4)["images_per_sec"] == 0.0
-    with pytest.raises(NotImplementedError):
-        profiling.start_server()
+
+
+def _get(port, path):
+    """(status, JSON body) of a GET to the local endpoint (no proxy between)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def test_profiling_server_captures_another_threads_ops(tmp_path, monkeypatch):
+    """``start_server(0)``: a capture of 200 ms holds the aten ops of a worker
+    thread (not the server's), under the log directory fixed at start; a second
+    start raises; a bad duration is refused, a failed capture answered with
+    500; ``stop()`` frees the port."""
+    server = profiling.start_server(0, str(tmp_path / "prof"))
+    try:
+        assert server.log_dir == str(tmp_path / "prof") and server.port > 0
+        with pytest.raises(RuntimeError, match="already running"):
+            profiling.start_server(0)
+        stop, tid = threading.Event(), []
+
+        def work():
+            tid.append(threading.get_native_id())
+            a = torch.ones(64, 64)
+            while not stop.is_set():
+                torch.mm(a, a)
+
+        worker = threading.Thread(target=work)
+        worker.start()
+        try:
+            status, out = _get(server.port, "/capture?duration_ms=200")
+        finally:
+            stop.set()
+            worker.join()
+        assert status == 200
+        assert out["path"] == str(tmp_path / "prof" / "capture_1" / "trace.json")
+        assert out["cpu_events"] > 0 and out["device_events"] == 0
+        events = json.loads(Path(out["path"]).read_text())["traceEvents"]
+        assert any(e.get("name") == "aten::mm" and e.get("tid") == tid[0] for e in events)
+        assert _get(server.port, "/capture?duration_ms=0")[0] == 400
+        assert _get(server.port, "/elsewhere")[0] == 404
+
+        def fail(*args):
+            raise RuntimeError("the profiler is busy")
+
+        monkeypatch.setattr(profiling, "capture", fail)
+        assert _get(server.port, "/capture?duration_ms=1") == (
+            500, {"error": "RuntimeError: the profiler is busy"})
+    finally:
+        server.stop()
+    assert profiling._SERVER is None
+    profiling.start_server(server.port, str(tmp_path / "again")).stop()   # the port is free
+    with pytest.raises(RuntimeError, match="no profiler server"):
+        profiling.stop_server()

@@ -387,6 +387,49 @@ def test_phase9_launch_counts_are_the_steps(monkeypatch, path):
     assert counts == want
 
 
+@pytest.mark.parametrize("name", sorted(chip_smoke.FIXTURE_LAUNCHES))
+def test_phase16_fixture_launches_are_the_steps(monkeypatch, name):
+    """One step of each committed Orbax fixture, restored by the port with every
+    kernel on (on the CPU), calls the kernels as often as phase 16.3 holds the
+    card to (``FIXTURE_LAUNCHES``), and the fixture's step is 2."""
+    import os
+
+    import torch
+
+    import vaegan_tpu_torch as vt
+
+    torch.set_num_threads(1)
+    cfg = vt.Config.from_json(os.path.join(chip_smoke.ORBAX_FIXTURES, name, "config.json"))
+    cfg = cfg.replace(train=cfg.train.replace(use_pallas="all"))
+    mgr = vt.CheckpointManager(os.path.join(chip_smoke.ORBAX_FIXTURES, name, "checkpoint"))
+    state = mgr.restore(vt.create_train_state(cfg, device="cpu"))
+    assert state.step == mgr.latest_step() == 2
+    paper = cfg.optim.scheme == "three"
+    step = vt.make_paper_train_step(cfg) if paper else vt.make_train_step(cfg, True)
+    counts = _counting(monkeypatch)
+    step(state, torch.rand(cfg.data.batch_size, 32, 32, 1), 3)
+    assert counts == chip_smoke.FIXTURE_LAUNCHES[name]
+
+
+def test_phase16_points_and_sites():
+    """16.1 times the decoder's four transposed convs (two upsample blocks,
+    conv1 and shortcut each) at the notebook's training batch, the serving
+    batch and the DP preset's bfloat16 batch of 32."""
+    import torch
+
+    import vaegan_tpu_torch as vt
+    from vaegan_tpu_torch.models.layers import Conv2D
+
+    assert [(p, b) for _, p, b in chip_smoke.CONV_POINTS] == [
+        ("notebook", chip_smoke.TRAIN_BATCH), ("vaegan_infer", chip_smoke.BATCH),
+        ("vaegan_256_dp", 32)]
+    gen = vt.build_generator(vt.preset("vaegan_infer"), device="cpu")
+    names = [n for n, m in gen.named_modules() if isinstance(m, Conv2D) and m.transpose]
+    assert sorted(n.split("decoder-")[-1].replace("-upsample.", " ").removesuffix(".0")
+                  for n in names) == ["depth_1 conv1", "depth_1 shortcut", "depth_2 conv1",
+                                      "depth_2 shortcut"]
+
+
 def test_paper_config_and_critic_sites():
     """Phase 9 runs ``vaegan_paper`` uncut (96², batch 4, float32) with every
     kernel on, and its critic fuses 7 BN sites: the stem's and two per block."""

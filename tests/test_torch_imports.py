@@ -44,7 +44,8 @@ def test_the_scan_sees_the_package():
                    "tools/paper_probe.py", "tools/gan_only_budget.py",
                    "tools/large_batch_recipe.py", "tools/edges_multiseed.py",
                    "tools/profile_step_residual.py", "tools/conv_fusion_evidence.py",
-                   "tools/paper_loss_fusion_evidence.py", "tools/run_256dp_virtual_mesh.py"):
+                   "tools/paper_loss_fusion_evidence.py", "tools/run_256dp_virtual_mesh.py",
+                   "orbax_reader.py", "ops/conv.py"):
         assert f"vaegan_tpu_torch/{module}" in names, module
     assert "torch" in imported_roots(ROOT / "vaegan_tpu_torch" / "ops" / "fused.py")
 
@@ -62,6 +63,35 @@ def test_importing_the_package_loads_no_jax():
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
+
+
+# what the JAX package's checkpoints are written with; the port reads them without
+ORBAX_STACK = {"orbax", "tensorstore", "zstandard"}
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_orbax_tensorstore_or_zstandard_imports(path):
+    assert not imported_roots(path) & ORBAX_STACK
+
+
+def test_reading_an_orbax_checkpoint_loads_no_orbax_stack():
+    """The reader and the checkpoint manager, imported and run on a committed
+    fixture in a fresh interpreter, load none of orbax, tensorstore, zstandard
+    or JAX."""
+    import subprocess
+    import sys
+
+    step = ROOT / "tests" / "data" / "orbax" / "three" / "checkpoint" / "2"
+    code = ("import sys\n"
+            "from vaegan_tpu_torch import checkpoint, orbax_reader\n"
+            f"tree = orbax_reader.read_tree({str(step)!r})\n"
+            "assert tree['step'] == 2\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{sorted(ORBAX_STACK | FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -16,7 +16,11 @@ and the bench (``python -m vaegan_tpu_torch.bench``); data-parallel training
 over ``torch.distributed`` processes, one per device (``parallel``:
 ``make_mesh``, ``make_parallel_train_step``, ``parallel.train.train_data_parallel``;
 ``cli train --dp`` under ``torchrun``) and recomputation of the residual
-blocks in the backward (``cfg.train.remat``). Every TPU kernel of the
+blocks in the backward (``cfg.train.remat``); the JAX package's Orbax
+checkpoints, read with neither JAX nor Orbax (``orbax_reader``, through
+``CheckpointManager``), a live profiler capture endpoint
+(``utils.profiling.start_server``) and the phase-decomposed transposed
+convolution (``ops.conv``, off by default). Every TPU kernel of the
 JAX package is a hand-written CUDA kernel here (``ops.fused``: ``bn_act_dropout``
 forward and backward, ``reparam_kl`` forward and backward, ``recon_loss_sums``).
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``. The
@@ -44,8 +48,8 @@ _NAMES = {
     "experiment": "api", "visualize_reconstructions": "api",
 }
 _MODULES = ("api", "bench", "checkpoint", "cli", "config", "data", "entry", "inference",
-            "interop", "losses", "models", "ops", "parallel", "search", "serving", "train",
-            "utils")
+            "interop", "losses", "models", "ops", "orbax_reader", "parallel", "search",
+            "serving", "train", "utils")
 
 __all__ = sorted(set(_NAMES) | {"data", "parallel", "train", "utils"})
 

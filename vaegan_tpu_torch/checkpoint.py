@@ -16,8 +16,13 @@ restore into a state that holds slices cuts them from the whole tensors. So a
 tensor-parallel run's checkpoint loads into a one-process state, and the other
 way round.
 
-Checkpoints of the JAX package (orbax directories) are not read here: bring
-those across with ``interop.load_jax_train_state``.
+The JAX package's checkpoints, Orbax ``<step>/`` directories, are read too
+(``orbax_reader``, with neither JAX nor Orbax): ``all_steps``, ``latest_step``,
+``restore`` and ``saved_has_g_ema`` see both kinds, and ``restore`` of an Orbax
+step loads it as ``interop.load_jax_train_state`` would (the critic's pool shape
+from the template). ``save`` always writes ``<step>.pt``, and pruning removes
+only this package's files, so a TPU run's directory can be resumed here and
+keeps its Orbax steps. Where a step has both, the ``.pt`` is read.
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ from typing import List, Optional
 
 import torch
 
+from vaegan_tpu_torch import interop, orbax_reader
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^(\d+)\.pt$")
+_ORBAX = re.compile(r"^\d+$")          # a step directory (a crashed save's has a suffix)
 FORMAT = 1
 
 
@@ -95,9 +102,24 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
-    def all_steps(self) -> List[int]:
-        """The steps with a complete checkpoint, ascending (tmp files are not)."""
+    def _pt_steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory)) if m)
+
+    def _orbax_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def _orbax_steps(self) -> List[int]:
+        return sorted(int(n) for n in os.listdir(self.directory) if _ORBAX.match(n)
+                      and os.path.isfile(os.path.join(self._orbax_dir(int(n)), "default",
+                                                      "_METADATA")))
+
+    def _is_orbax(self, step: int) -> bool:
+        return not os.path.exists(self._path(step)) and step in self._orbax_steps()
+
+    def all_steps(self) -> List[int]:
+        """The steps with a complete checkpoint of either kind, ascending (tmp
+        files and a crashed Orbax save's ``*.orbax-checkpoint-tmp*`` are not)."""
+        return sorted(set(self._pt_steps()) | set(self._orbax_steps()))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -138,13 +160,16 @@ class CheckpointManager:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        for old in self.all_steps()[:-self.max_to_keep]:
+        for old in self._pt_steps()[:-self.max_to_keep]:
             os.unlink(self._path(old))
 
-    def _load(self, step: Optional[int], device, mmap: bool = False) -> dict:
+    def _step(self, step: Optional[int]) -> int:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        return step
+
+    def _load(self, step: int, device, mmap: bool = False) -> dict:
         return torch.load(self._path(step), map_location=device, weights_only=True, mmap=mmap)
 
     def restore(self, template: TrainState, step: Optional[int] = None) -> TrainState:
@@ -153,7 +178,19 @@ class CheckpointManager:
         return it. The template must match the checkpoint: the same modules and,
         with or without a generator EMA, the same as it was saved; a template
         that holds slices of the critic head's kernels gets its slices."""
-        payload = _cut(template, self._load(step, _device(template)))
+        step, dev = self._step(step), _device(template)
+        if self._is_orbax(step):
+            tree = orbax_reader.read_tree(self._orbax_dir(step))
+            payload = interop.jax_train_state_payload(template, tree,
+                                                      template.critic.pool_shape)
+            # the modules and optimizers copy their tensors to their own device;
+            # the metrics and the EMA are taken as they are, so they move here
+            for key in ("g_metrics", "g_ema"):
+                if payload[key] is not None:
+                    payload[key] = {k: v.to(dev) for k, v in payload[key].items()}
+        else:
+            payload = self._load(step, dev)
+        payload = _cut(template, payload)
         if (payload["g_ema"] is None) != (template.g_ema is None):
             raise ValueError(
                 f"checkpoint {'carries' if payload['g_ema'] is not None else 'has no'} "
@@ -175,12 +212,19 @@ class CheckpointManager:
         """Whether the saved state carries a generator EMA, so a caller can build
         a matching restore template whatever its own config says. ``None`` when
         that cannot be told: no checkpoint, or a file that cannot be read. The
-        file is memory-mapped, not read whole."""
+        file is memory-mapped, not read whole; of an Orbax step only
+        ``_METADATA`` is read (the value type of the ``('g_ema',)`` entry)."""
         try:
-            payload = self._load(step, "cpu", mmap=True)
-            return payload["g_ema"] is not None
+            step = self._step(step)
+            if self._is_orbax(step):
+                for entry in orbax_reader.tree_metadata(self._orbax_dir(step)).values():
+                    keys = [k.get("key") for k in entry.get("key_metadata", [])]
+                    if keys and keys[0] == "g_ema":
+                        return entry["value_metadata"]["value_type"] != "None"
+                return False
+            return self._load(step, "cpu", mmap=True)["g_ema"] is not None
         except (OSError, RuntimeError, KeyError, TypeError, ValueError, EOFError,
-                pickle.UnpicklingError):
+                AttributeError, pickle.UnpicklingError):
             return None
 
     def wait(self) -> None:

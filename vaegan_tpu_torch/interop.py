@@ -4,7 +4,9 @@
 critic (``{"params": ..., "batch_stats": ..., "spectral": ...}`` as nested dicts
 of arrays) and returns the port's ``state_dict``, which is also the reference
 notebook's ``UnsupervisedGeneratorNetwork`` / ``Discriminator`` layout.
-:func:`load_jax_train_state` loads a whole JAX ``TrainState`` into the port's.
+:func:`load_jax_train_state` loads a whole JAX ``TrainState`` into the port's, and
+:func:`jax_train_state_payload` gives it as a port checkpoint's payload (how
+``checkpoint.CheckpointManager`` restores an Orbax step).
 The rules are this package's own copy of those in ``vaegan_tpu/interop.py``
 (variables -> torch ``state_dict``, :221-366):
 
@@ -122,10 +124,20 @@ def from_jax_variables(variables: Mapping[str, Any],
     return out
 
 
+def _has(state, name: str) -> bool:
+    return name in state if isinstance(state, Mapping) else hasattr(state, name)
+
+
+def _field(state, name: str):
+    return state[name] if isinstance(state, Mapping) else getattr(state, name)
+
+
 def _find_state(jopt, fields: Tuple[str, ...]):
     """The part of an optax state (a transformation's state, or a chain's tuple
-    of them) that has every one of ``fields``; None if none has."""
-    if all(hasattr(jopt, f) for f in fields):
+    of them) that has every one of ``fields``; None if none has. A state read
+    from an Orbax checkpoint has mappings where optax has namedtuples and lists
+    where it has tuples (``orbax_reader.read_tree``)."""
+    if jopt is not None and all(_has(jopt, f) for f in fields):
         return jopt
     if isinstance(jopt, (tuple, list)):
         for part in jopt:
@@ -146,8 +158,8 @@ def _opt_trees(jopt, fields: Tuple[str, ...]):
     found = _find_state(jopt, fields)
     if found is None:
         raise ValueError(f"load_jax_train_state: the JAX optimizer state has no {fields}")
-    count = int(np.asarray(found.count)) if "count" in fields else None
-    return count, {f: getattr(found, f) for f in fields if f != "count"}
+    count = int(np.asarray(_field(found, "count"))) if "count" in fields else None
+    return count, {f: _field(found, f) for f in fields if f != "count"}
 
 
 # torch optimizer -> (fields of the JAX state, {torch state key: JAX field})
@@ -155,27 +167,28 @@ _OPT_STATE = {torch.optim.RMSprop: (("nu",), {"square_avg": "nu"}),
               torch.optim.Adam: (("count", "mu", "nu"), {"exp_avg": "mu", "exp_avg_sq": "nu"})}
 
 
-def load_jax_train_state(state, jstate, pool_shape: Tuple[int, int, int]):
-    """Load a JAX ``TrainState`` (any object with its fields: ``step``,
-    ``g_params``, ``d_params``, ``g_stats``, ``d_stats``, ``d_spectral``,
-    ``opt_g``, ``opt_d``, ``g_metrics``, ``g_ema``) into the port's
-    ``train.TrainState``, in place; returns it. The optimizers must be RMSprop
-    or Adam, as ``cfg.optim.optimizer`` builds them on both sides: RMSprop's
-    ``nu`` becomes each parameter's ``square_avg`` (step: the state's step);
-    optax Adam's ``(count, mu, nu)`` become torch Adam's ``step``, ``exp_avg``
-    and ``exp_avg_sq``. A three-optimizer state's ``opt_g = {"enc", "dec"}``
-    goes into the port's one ``opt_g``: the encoder's and the decoder's trees
-    are merged."""
-    gen, critic = state.generator, state.critic
-    gen.load_state_dict(from_jax_variables(
-        {"params": jstate.g_params, "batch_stats": jstate.g_stats}), strict=True)
-    critic.load_state_dict(from_jax_variables(
-        {"params": jstate.d_params, "batch_stats": jstate.d_stats,
-         "spectral": jstate.d_spectral}, pool_shape), strict=True)
-    step = int(np.asarray(jstate.step))
-    for opt, module, jopt, spectral, pool in (
-            (state.opt_g, gen, jstate.opt_g, {}, None),
-            (state.opt_d, critic, jstate.opt_d, jstate.d_spectral, pool_shape)):
+def jax_train_state_payload(state, jstate, pool_shape: Tuple[int, int, int]) -> dict:
+    """A JAX ``TrainState`` (any object with its fields: ``step``, ``g_params``,
+    ``d_params``, ``g_stats``, ``d_stats``, ``d_spectral``, ``opt_g``,
+    ``opt_d``, ``g_metrics``, ``g_ema``; or a mapping of them) as the payload of
+    a port checkpoint (``checkpoint.CheckpointManager``'s ``<step>.pt``) for
+    ``state``'s modules and optimizers: CPU tensors, whole critic kernels. The
+    optimizers must be RMSprop or Adam, as ``cfg.optim.optimizer`` builds them on
+    both sides: RMSprop's ``nu`` becomes each parameter's ``square_avg`` (step:
+    the state's step); optax Adam's ``(count, mu, nu)`` become torch Adam's
+    ``step``, ``exp_avg`` and ``exp_avg_sq``. A three-optimizer state's ``opt_g =
+    {"enc", "dec"}`` goes into the port's one ``opt_g``: the encoder's and the
+    decoder's trees are merged."""
+    get = (lambda k: jstate[k]) if isinstance(jstate, Mapping) else (lambda k: getattr(jstate, k))
+    gen_sd = from_jax_variables({"params": get("g_params"), "batch_stats": get("g_stats")})
+    critic_sd = from_jax_variables({"params": get("d_params"), "batch_stats": get("d_stats"),
+                                    "spectral": get("d_spectral")}, pool_shape)
+    step = int(np.asarray(get("step")))
+    payload = {"step": step, "generator": gen_sd, "critic": critic_sd}
+    for key, module, jopt, spectral, pool in (
+            ("opt_g", state.generator, get("opt_g"), {}, None),
+            ("opt_d", state.critic, get("opt_d"), get("d_spectral"), pool_shape)):
+        opt = getattr(state, key)
         kind = _OPT_STATE.get(type(opt))
         if kind is None:
             raise ValueError(f"load_jax_train_state carries RMSprop and Adam state, not "
@@ -186,14 +199,30 @@ def load_jax_train_state(state, jstate, pool_shape: Tuple[int, int, int]):
         torch_trees = {k: from_jax_variables({"params": trees[f], "spectral": spectral}, pool)
                        for k, f in keys.items()}
         n = step if count is None else count
-        for name, p in module.named_parameters():
-            opt.state[p] = {"step": torch.tensor(float(n)),
-                            **{k: t[name].to(p.device) for k, t in torch_trees.items()}}
-    dev = next(gen.parameters()).device
-    state.step = step
-    state.g_metrics = {k: torch.tensor(np.asarray(v), device=dev)
-                       for k, v in jstate.g_metrics.items()}
-    if jstate.g_ema is not None:
-        ema = from_jax_variables({"params": jstate.g_ema})
-        state.g_ema = {k: v.to(dev) for k, v in ema.items()}
+        index = {id(p): i for i, p in enumerate(p for g in opt.param_groups for p in g["params"])}
+        payload[key] = {
+            "state": {index[id(p)]: {"step": torch.tensor(float(n)),
+                                     **{k: t[name] for k, t in torch_trees.items()}}
+                      for name, p in module.named_parameters()},
+            "param_groups": opt.state_dict()["param_groups"]}
+    payload["g_metrics"] = {k: torch.tensor(np.asarray(v)) for k, v in get("g_metrics").items()}
+    ema = get("g_ema")
+    payload["g_ema"] = None if ema is None else from_jax_variables({"params": ema})
+    return payload
+
+
+def load_jax_train_state(state, jstate, pool_shape: Tuple[int, int, int]):
+    """Load a JAX ``TrainState`` into the port's ``train.TrainState``, in place
+    (:func:`jax_train_state_payload` says how); returns it. Its generator EMA,
+    where it has one, replaces the state's."""
+    payload = jax_train_state_payload(state, jstate, pool_shape)
+    state.generator.load_state_dict(payload["generator"], strict=True)
+    state.critic.load_state_dict(payload["critic"], strict=True)
+    state.opt_g.load_state_dict(payload["opt_g"])
+    state.opt_d.load_state_dict(payload["opt_d"])
+    dev = next(state.generator.parameters()).device
+    state.step = payload["step"]
+    state.g_metrics = {k: v.to(dev) for k, v in payload["g_metrics"].items()}
+    if payload["g_ema"] is not None:
+        state.g_ema = {k: v.to(dev) for k, v in payload["g_ema"].items()}
     return state

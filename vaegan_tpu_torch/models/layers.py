@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vaegan_tpu_torch.ops import conv as conv_ops
 from vaegan_tpu_torch.ops import ieee_float32
 from vaegan_tpu_torch.ops.fused import bn_act_dropout
 from vaegan_tpu_torch.ops.initializers import conv_init, kaiming_normal_
@@ -196,7 +197,7 @@ class Conv2D(nn.Module):
         x = as_channels_last(x.to(self.dtype))
         with precision(self.dtype):
             if replica.split_h == 1:
-                conv = F.conv_transpose2d if self.transpose else F.conv2d
+                conv = conv_ops.conv_transpose2d if self.transpose else F.conv2d
                 return conv(x, w, b, stride=stride, padding=self.padding)
             k, p, h = w.shape[-2], self.padding, x.shape[2]
             if self.transpose:
@@ -206,6 +207,10 @@ class Conv2D(nn.Module):
                 # they are the s h rows from top s + p
                 top, bottom = (k - 1 - p) // stride, (p + stride - 1) // stride
                 x = as_channels_last(replica.halo(x, top, bottom))
+                if conv_ops.phase_applies(w, stride, p):
+                    # one halo row each side (top = bottom = 1): the rows the
+                    # even and odd phases read, so no padding in H
+                    return conv_ops.conv_transpose2d(x, w, b, stride, p, halo=True)
                 start = top * stride + p
                 if (h + top + bottom - 1) * stride + k - 2 * start == stride * h:
                     # the padding that drops `start` rows at each end keeps them
