@@ -1,0 +1,10 @@
+"""The hand-written kernels' bound time at their call sites in the serving
+window over their device time in the trace."""
+
+from harness import yardstick
+
+
+def read(run):
+    if run.kind != "reconstruct" or run.trace is None:
+        return None
+    return yardstick.fused_roofline(run.launches, run.trace.kernels)

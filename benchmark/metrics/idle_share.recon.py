@@ -1,0 +1,8 @@
+"""One minus the union of the card's busy intervals over the traced serving
+window."""
+
+
+def read(run):
+    if run.kind != "reconstruct" or run.trace is None:
+        return None
+    return 100.0 * run.trace.idle_share
