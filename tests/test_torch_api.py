@@ -178,9 +178,9 @@ def test_make_grid_matches_jax_bitwise(n, nrow, normalize, tmp_path):
 # ---------------------------------------------------------------- profiling
 def test_profiling_trace_annotate_timer_and_no_server(tmp_path):
     with profiling.trace(str(tmp_path / "tr")):
-        with profiling.annotate("port-step"):
+        with profiling.span("port-step"):
             torch.ones(8).sum()
-    assert "port-step" in (tmp_path / "tr" / "trace.json").read_text()
+    assert "vaegan.port-step" in (tmp_path / "tr" / "trace.json").read_text()
     timer = profiling.StepTimer(warmup=1)
     for _ in range(3):
         timer.tick(torch.tensor(1.0))
@@ -201,10 +201,10 @@ def _get(port, path):
 
 
 def test_profiling_server_captures_another_threads_ops(tmp_path, monkeypatch):
-    """``start_server(0)``: a capture of 200 ms holds the aten ops of a worker
-    thread (not the server's), under the log directory fixed at start; a second
-    start raises; a bad duration is refused, a failed capture answered with
-    500; ``stop()`` frees the port."""
+    """``start_server(0)``: a capture of 200 ms holds the aten ops and the
+    program's spans of a worker thread (not the server's), under the log
+    directory fixed at start; a second start raises; a bad duration is
+    refused, a failed capture answered with 500; ``stop()`` frees the port."""
     server = profiling.start_server(0, str(tmp_path / "prof"))
     try:
         assert server.log_dir == str(tmp_path / "prof") and server.port > 0
@@ -216,7 +216,8 @@ def test_profiling_server_captures_another_threads_ops(tmp_path, monkeypatch):
             tid.append(threading.get_native_id())
             a = torch.ones(64, 64)
             while not stop.is_set():
-                torch.mm(a, a)
+                with profiling.span("worker.mm"):
+                    torch.mm(a, a)
 
         worker = threading.Thread(target=work)
         worker.start()
@@ -230,6 +231,8 @@ def test_profiling_server_captures_another_threads_ops(tmp_path, monkeypatch):
         assert out["cpu_events"] > 0 and out["device_events"] == 0
         events = json.loads(Path(out["path"]).read_text())["traceEvents"]
         assert any(e.get("name") == "aten::mm" and e.get("tid") == tid[0] for e in events)
+        assert any(e.get("name") == "vaegan.worker.mm" and e.get("tid") == tid[0]
+                   for e in events)
         assert _get(server.port, "/capture?duration_ms=0")[0] == 400
         assert _get(server.port, "/elsewhere")[0] == 404
 
@@ -241,6 +244,7 @@ def test_profiling_server_captures_another_threads_ops(tmp_path, monkeypatch):
             500, {"error": "RuntimeError: the profiler is busy"})
     finally:
         server.stop()
+        profiling.clear()
     assert profiling._SERVER is None
     profiling.start_server(server.port, str(tmp_path / "again")).stop()   # the port is free
     with pytest.raises(RuntimeError, match="no profiler server"):

@@ -569,6 +569,7 @@ class Event(NamedTuple):
     time_range: Any = None
     cpu_parent: Any = None
     kernels: Any = ()
+    linked_correlation_id: int = 0
 
 
 def test_a_profile_without_device_events_fails(monkeypatch):
@@ -608,7 +609,9 @@ def test_traced_links_each_kernel_to_its_ops(monkeypatch):
               Event(14, "an empty event", DeviceType.CUDA, Span(50.0, 50.0))]
     monkeypatch.setattr(tp, "profile", lambda *a, **k: FakeProfile(events))
     monkeypatch.setattr(profile_step_residual, "timed_steps", lambda *a: 0.05)
-    kernels, intervals, window = profile_step_residual.traced(None, None, None, 1)
+    kernels, window, owners, spans = profile_step_residual.traced(None, None, None, 1)
+    assert {name for name, _, _ in owners} == {""} and spans == []
+    intervals = [(a, b) for _, a, b in owners]
     assert kernels == [
         (conv, 30.0, 1, "aten::cudnn_convolution < ConvolutionBackwardBackward0"),
         (conv, 10.0, 1, "aten::cudnn_convolution"), ("Memcpy HtoD", 3.0, 2, "")]
@@ -617,3 +620,45 @@ def test_traced_links_each_kernel_to_its_ops(monkeypatch):
     fams = {r["op"]: r["ms_total"] for r in profile_step_residual.reduce_profile(
         kernels, intervals, 1, window, 10)["top_families"]}
     assert fams == {"cudnn_conv_double_bwd": 0.03, "cudnn_conv_fwd": 0.01, "copy": 0.0}
+
+
+def test_traced_reads_the_programs_spans(monkeypatch):
+    """A kernel belongs to the program span among the ancestors of the op it
+    links to, or, without that link, of the CUDA call that shares its id; a
+    launch with no span among its ancestors (the autograd engine's thread)
+    goes to the innermost span open when it began. A span's own device-side
+    range is no kernel; ``by_span`` takes each span's union, ``idle_gaps``
+    labels each gap with the span open on the host when it began."""
+    import torch.profiler as tp
+    from torch.autograd import DeviceType
+
+    Span = NamedTuple("Span", [("start", float), ("end", float)])
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    fwd_span = Event(20, "vaegan.step.d_forward", cpu, Span(0.0, 50.0))
+    bwd_span = Event(22, "vaegan.step.d_backward", cpu, Span(50.0, 120.0))
+    events = [
+        fwd_span, bwd_span,
+        Event(21, "aten::cudnn_convolution", cpu, Span(1.0, 10.0), cpu_parent=fwd_span),
+        # an op whose id is a kernel's: a kernel without a link is not its
+        Event(32, "aten::add", cpu, Span(11.0, 12.0), cpu_parent=fwd_span),
+        # the launch of the dgrad kernel, on the autograd engine's thread
+        Event(32, "cudaLaunchKernel", cpu, Span(65.0, 66.0), linked_correlation_id=99),
+        Event(24, "vaegan.step.d_backward", cuda, Span(60.0, 100.0)),
+        Event(30, "fprop", cuda, Span(5.0, 40.0), linked_correlation_id=21),
+        Event(31, "fprop", cuda, Span(35.0, 45.0), linked_correlation_id=21),
+        Event(32, "dgrad", cuda, Span(70.0, 100.0)),
+        Event(33, "Memcpy HtoD", cuda, Span(110.0, 112.0)),
+    ]
+    monkeypatch.setattr(tp, "profile", lambda *a, **k: FakeProfile(events))
+    monkeypatch.setattr(profile_step_residual, "timed_steps", lambda *a: 0.2)
+    kernels, window, owners, spans = profile_step_residual.traced(None, None, None, 1)
+    assert owners == [("vaegan.step.d_forward", 5.0, 40.0), ("vaegan.step.d_forward", 35.0, 45.0),
+                      ("vaegan.step.d_backward", 70.0, 100.0), ("", 110.0, 112.0)]
+    assert spans == [("vaegan.step.d_forward", 0.0, 50.0), ("vaegan.step.d_backward", 50.0, 120.0)]
+    out = profile_step_residual.span_tables(owners, spans, 1, window, 10)
+    assert out["by_span"] == [
+        {"span": "vaegan.step.d_forward", "ms_per_step": 0.04, "pct_of_step_time": 20.0},
+        {"span": "vaegan.step.d_backward", "ms_per_step": 0.03, "pct_of_step_time": 15.0},
+        {"span": "(no span)", "ms_per_step": 0.0, "pct_of_step_time": 1.0}]
+    assert out["idle_gaps"] == [{"span": "vaegan.step.d_forward", "ms": 0.025},
+                                {"span": "vaegan.step.d_backward", "ms": 0.01}]

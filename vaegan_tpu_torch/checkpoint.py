@@ -37,6 +37,7 @@ import torch
 from vaegan_tpu_torch import interop, orbax_reader
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.train.state import TrainState
+from vaegan_tpu_torch.utils.profiling import count
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 _ORBAX = re.compile(r"^\d+$")          # a step directory (a crashed save's has a suffix)
@@ -154,6 +155,7 @@ class CheckpointManager:
             "g_metrics": dict(state.g_metrics), "g_ema": state.g_ema,
         }
         tmp = f"{path}.tmp{os.getpid()}"
+        count("host_sync", where="checkpoint")     # the state's copy to the host
         try:
             torch.save(payload, tmp)
             os.replace(tmp, path)

@@ -31,6 +31,7 @@ import torch
 from vaegan_tpu_torch.config import DataConfig
 from vaegan_tpu_torch.data import nifti
 from vaegan_tpu_torch.ops.replica import rank_rows
+from vaegan_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -418,14 +419,17 @@ class DeviceDataLoader:
         return self.iter_batches(0)
 
     def iter_batches(self, start: int = 0) -> Iterator[torch.Tensor]:
-        idx = torch.from_numpy(self._epoch_indices())
-        if self.device.type == "cuda":
-            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        with span("feed.epoch"):
+            idx = torch.from_numpy(self._epoch_indices())
+            if self.device.type == "cuda":
+                idx = idx.pin_memory().to(self.device, non_blocking=True)
         for s in list(_batch_starts(len(idx), self.batch_size, self.drop_last))[start:]:
-            rows = idx[s: s + self.batch_size]
-            if self._rows is not None:
-                rows = rows[self._rows]
-            yield self.images.index_select(0, rows)
+            with span("feed.gather"):
+                rows = idx[s: s + self.batch_size]
+                if self._rows is not None:
+                    rows = rows[self._rows]
+                batch = self.images.index_select(0, rows)
+            yield batch
 
 
 def device_prefetch(iterator: Iterator, device="cuda", depth: int = 2) -> Iterator[torch.Tensor]:

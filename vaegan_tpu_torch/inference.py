@@ -29,6 +29,7 @@ import torch
 from vaegan_tpu_torch.config import Config
 from vaegan_tpu_torch.models import BatchNorm, Dropout, ResBlockVAE, UnsupervisedGeneratorNetwork
 from vaegan_tpu_torch.train.state import GeneratorState, TrainState, resolve_device
+from vaegan_tpu_torch.utils.profiling import span
 
 
 def _device(state: GeneratorState) -> torch.device:
@@ -58,9 +59,18 @@ def eval_reconstruct(cfg: Config, gen: UnsupervisedGeneratorNetwork,
     return reconstruction(cfg, gen, batch)
 
 
+# the running number of a process's reconstruct calls (a span's ``call=``)
+_CALLS = itertools.count()
+
+
 def reconstruct(cfg: Config, state: GeneratorState, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (reconstructions, scalar float32 MSE)."""
-    return eval_reconstruct(cfg, state.generator, _as_input(batch, _device(state)))
+    """Returns (reconstructions, scalar float32 MSE). The forward and the MSE
+    are the ``serve.reconstruct`` span (``utils.profiling``), timed on the
+    device, with ``call=`` the process's running call number."""
+    dev = _device(state)
+    batch = _as_input(batch, dev)
+    with span("serve.reconstruct", device=dev, call=next(_CALLS)):
+        return eval_reconstruct(cfg, state.generator, batch)
 
 
 def with_ema(state: GeneratorState) -> GeneratorState:

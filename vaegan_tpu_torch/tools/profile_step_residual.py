@@ -15,6 +15,18 @@ the same number of steps without the profiler, and the traced window's from
 CUDA events around the traced steps; beside them the device's busy share (the
 union of the kernels' intervals over the traced window).
 
+The step's own spans (``utils.profiling``: ``step.g_forward``,
+``step.d_backward``, ...) are in the trace as ``vaegan.*`` ranges, and two
+tables read them: ``by_span``, each span's device time a step (the union of
+the intervals of the kernels it launched: a kernel belongs to the innermost
+``vaegan.*`` span among the ancestors of what launched it (the op it links
+to, or, where the profiler gives no such link, the CUDA call that shares its
+id), or, for a launch on the autograd engine's own thread, whose ancestors
+stop there, to the innermost one open on any thread when it began), and
+``idle_gaps``, the
+longest gaps between the kernels, each labelled with the innermost
+``vaegan.*`` span open on the host when it began.
+
     python -m vaegan_tpu_torch.tools.profile_step_residual                 # notebook G+D step
     python -m vaegan_tpu_torch.tools.profile_step_residual --gp-every 4    # lazy-GP off-step
     python -m vaegan_tpu_torch.tools.profile_step_residual --vae | --paper # the other steps
@@ -55,6 +67,7 @@ from vaegan_tpu_torch.tools.common import (
 from vaegan_tpu_torch.train import create_train_state, make_paper_train_step, make_train_step
 from vaegan_tpu_torch.train.state import resolve_device
 from vaegan_tpu_torch.train.step import step_seed
+from vaegan_tpu_torch.utils import profiling
 
 # profiles taken before the run gives up on an empty one
 PROFILE_ATTEMPTS = 4
@@ -156,15 +169,21 @@ def family(name: str, context: str = "") -> str:
     return "other"
 
 
+def merged(intervals: Iterable[Tuple[float, float]]) -> List[List[float]]:
+    """The (start, end) intervals merged where they overlap, in order."""
+    busy: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    return busy
+
+
 def union_ms(intervals: Iterable[Tuple[float, float]]) -> float:
     """Milliseconds covered by at least one of the (start, end) microsecond
     intervals (a sum would count overlapping kernels twice)."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
+    return sum(b - a for a, b in merged(intervals)) / 1e3
 
 
 def reduce_profile(kernels: Sequence[Tuple[str, float, int, str]],
@@ -202,6 +221,43 @@ def reduce_profile(kernels: Sequence[Tuple[str, float, int, str]],
             "kernel_overlap": round(total_us / 1e3 / busy, 2),
             "top_ops": rows(per_name, "op"),
             "top_families": rows(per_family, "family")}
+
+
+def open_at(spans: Sequence[Tuple[str, float, float]], t: float) -> str:
+    """The innermost (latest begun) of ``spans`` (name, start, end) open at
+    ``t``, "" for none."""
+    open_ = [(s, n) for n, s, e in spans if s <= t < e]
+    return max(open_)[1] if open_ else ""
+
+
+def span_of(op, spans: Sequence[Tuple[str, float, float]]) -> str:
+    """The program span an op ran under (module docstring)."""
+    p = op
+    while p is not None:
+        if p.name.startswith(profiling.PREFIX):
+            return p.name
+        p = p.cpu_parent
+    return open_at(spans, op.time_range.start)
+
+
+def span_tables(owners: Sequence[Tuple[str, float, float]],
+                spans: Sequence[Tuple[str, float, float]], steps: int, window_ms: float,
+                top: int) -> Dict[str, object]:
+    """``by_span`` and ``idle_gaps`` (module docstring) of the device events
+    ``owners`` (span name or "", start, end in microseconds) and the host's
+    program ``spans`` (name, start, end)."""
+    per: Dict[str, List[Tuple[float, float]]] = defaultdict(list)
+    for name, a, b in owners:
+        per[name or "(no span)"].append((a, b))
+    ms = {name: union_ms(iv) for name, iv in per.items()}
+    by_span = [{"span": name, "ms_per_step": round(v / steps, 2),
+                "pct_of_step_time": round(100.0 * v / window_ms, 1)}
+               for name, v in sorted(ms.items(), key=lambda kv: -kv[1])]
+    busy = merged((a, b) for _, a, b in owners)
+    gaps = sorted(((open_at(spans, x[1]) or "(no span)", (y[0] - x[1]) / 1e3)
+                   for x, y in zip(busy, busy[1:]) if y[0] > x[1]), key=lambda g: -g[1])
+    return {"by_span": by_span,
+            "idle_gaps": [{"span": n, "ms": round(g, 3)} for n, g in gaps[:top]]}
 
 
 def attribute(events, device, cpu) -> List[Tuple[str, float, int, str]]:
@@ -252,8 +308,11 @@ def timed_steps(step, state, batch, seeds) -> float:
 
 
 def traced(step, state, batch, steps: int):
-    """A torch.profiler trace of ``steps`` steps: (kernels, intervals, window
-    ms), taken again while it holds no device event."""
+    """A torch.profiler trace of ``steps`` steps: (kernels, window ms,
+    owners, spans): :func:`attribute`'s kernels, the window, every device
+    event's (program span or "", start, end) and the program's host spans
+    (name, start, end); taken again while it holds no device event. The
+    spans' device-side ranges are not device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -263,10 +322,23 @@ def traced(step, state, batch, steps: int):
                                  [step_seed(2, 100 + i) for i in range(steps)])
         events = prof.events()
         device = [e for e in events if e.device_type == DeviceType.CUDA
-                  and e.time_range.end > e.time_range.start]
+                  and e.time_range.end > e.time_range.start
+                  and not e.name.startswith(profiling.PREFIX)]
         if device:
-            return (attribute(events, device, DeviceType.CPU),
-                    [(e.time_range.start, e.time_range.end) for e in device], window)
+            spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CPU and e.name.startswith(profiling.PREFIX)]
+            # what launched a device event: the op it links to, where the
+            # profiler gives that link, else the CUDA call that shares its id
+            cpu = [e for e in events if e.device_type == DeviceType.CPU]
+            ops = {e.id: e for e in cpu if not getattr(e, "linked_correlation_id", 0)}
+            calls = {e.id: e for e in cpu if e.name.startswith("cu")}
+            owners = []
+            for e in device:
+                link = getattr(e, "linked_correlation_id", 0)
+                op = ops.get(link) if link else calls.get(e.id)
+                owners.append((span_of(op, spans) if op is not None else "",
+                               e.time_range.start, e.time_range.end))
+            return attribute(events, device, DeviceType.CPU), window, owners, spans
         print(f"torch.profiler recorded no device event over {steps} steps "
               f"(profile {attempt} of {PROFILE_ATTEMPTS})", flush=True)
     raise SystemExit(f"torch.profiler recorded no device event in {PROFILE_ATTEMPTS} profiles")
@@ -284,7 +356,8 @@ def main(argv=None) -> dict:
         step(state, batch, step_seed(2, i))
     step_ms = timed_steps(step, state, batch,
                           [step_seed(2, 50 + i) for i in range(args.steps)]) / args.steps
-    kernels, intervals, window = traced(step, state, batch, args.steps)
+    kernels, window, owners, spans = traced(step, state, batch, args.steps)
+    intervals = [(a, b) for _, a, b in owners]
     record = {
         "step": label_of(args),
         "operating_point": f"{args.image_size}^2 batch {args.batch} {args.dtype}, "
@@ -293,6 +366,7 @@ def main(argv=None) -> dict:
         "traced_steps": args.steps,
         "step_time_ms": round(step_ms, 1),
         **reduce_profile(kernels, intervals, args.steps, window, args.top),
+        **span_tables(owners, spans, args.steps, window, args.top),
     }
     print(json.dumps(record, indent=1), flush=True)
     return record

@@ -21,6 +21,13 @@
 
 The host syncs of a run are the metric flush, the NaN guard at that cadence,
 the grid write and the checkpoint save; a step itself never waits for the card.
+Each is counted where it copies (``utils.profiling.count("host_sync")``: the
+flush's copy, the grid's write, a save that writes), and each global step is a
+``loop.step`` span (``step=global_step``) over ``loop.feed``, ``loop.sample``,
+``step``, ``loop.nan_guard``, ``loop.grid`` and ``loop.checkpoint``. A
+``loop.step`` that runs no step (the ``loop.feed`` that finds an epoch done, a
+batch skipped on resume, a resumed run already at its budget) is tagged
+``step=None``, so no two carry one step's id.
 
 Data parallelism (``mesh``, ``parallel.train_data_parallel``): every process
 runs this loop over its rows of each global batch with the same step seeds,
@@ -67,6 +74,7 @@ from vaegan_tpu_torch.train.step import (
     step_seed,
 )
 from vaegan_tpu_torch.utils.metrics import MetricsLogger
+from vaegan_tpu_torch.utils.profiling import count, span
 
 
 class TrainingDiverged(RuntimeError):
@@ -240,58 +248,77 @@ def train(
         else:
             source = iter(loader)
         it = device_prefetch(source, dev, depth=cfg.data.prefetch)
-        for i, batch in enumerate(it, start=batch_offset):
-            if global_step < start_step:  # decode-and-skip fallback
-                global_step += 1
-                continue
-            if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
-                # checked BEFORE a step: a resumed run already at its budget
-                # must not run (and save) another one
-                budget_hit = True
-                break
-            seed = step_seed(tcfg.seed, global_step)
-            do_g = (i % tcfg.n_critics) == 0
-            batches_done = epoch * n_batches + i if n_batches > 0 else global_step
-            sample_imgs = (sampler(state, batch, seed)
-                           if tcfg.sample_interval > 0
-                           and batches_done % tcfg.sample_interval == 0 else None)
-            do_gp = (not lazy_gp) or (global_step % tcfg.gp_every == 0)
-            step = steps[(True, True)] if paper else steps[(do_g, do_gp)]
-            state, metrics = step(state, batch, seed)
-            logger.log(epoch, tcfg.n_epochs, i, n_batches, metrics)
-            if tcfg.nan_check and (global_step + 1) % logger.flush_every == 0:
-                logger.flush()
-                window = logger.history[nan_checked:]
-                nan_checked = len(logger.history)
-                bad = sorted({k for m in window for k, v in m.items()
-                              if v != v or abs(v) == float("inf")})
-                if bad:
-                    raise TrainingDiverged(
-                        f"non-finite metrics {bad} within the last flush window "
-                        f"(ending epoch {epoch} batch {i}, step {global_step}); "
-                        f"last checkpoint: {ckpt.latest_step() if ckpt else None}")
+        i = batch_offset
+        while True:
+            with span("loop.step", step=global_step) as looped:
+                with span("loop.feed"):
+                    batch = next(it, None)
+                if batch is None:
+                    looped.tag(step=None)
+                    break
+                if global_step < start_step:  # decode-and-skip fallback
+                    looped.tag(step=None)
+                    global_step += 1
+                    i += 1
+                    continue
+                if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
+                    # checked BEFORE a step: a resumed run already at its budget
+                    # must not run (and save) another one
+                    looped.tag(step=None)
+                    budget_hit = True
+                    break
+                seed = step_seed(tcfg.seed, global_step)
+                do_g = (i % tcfg.n_critics) == 0
+                batches_done = epoch * n_batches + i if n_batches > 0 else global_step
+                sample_imgs = None
+                if tcfg.sample_interval > 0 and batches_done % tcfg.sample_interval == 0:
+                    with span("loop.sample"):
+                        sample_imgs = sampler(state, batch, seed)
+                do_gp = (not lazy_gp) or (global_step % tcfg.gp_every == 0)
+                step = steps[(True, True)] if paper else steps[(do_g, do_gp)]
+                with span("step"):
+                    state, metrics = step(state, batch, seed)
+                logger.log(epoch, tcfg.n_epochs, i, n_batches, metrics)
+                if tcfg.nan_check and (global_step + 1) % logger.flush_every == 0:
+                    with span("loop.nan_guard"):
+                        # its host sync is the flush's copy, counted there
+                        logger.flush()
+                        window = logger.history[nan_checked:]
+                        nan_checked = len(logger.history)
+                        bad = sorted({k for m in window for k, v in m.items()
+                                      if v != v or abs(v) == float("inf")})
+                    if bad:
+                        raise TrainingDiverged(
+                            f"non-finite metrics {bad} within the last flush window "
+                            f"(ending epoch {epoch} batch {i}, step {global_step}); "
+                            f"last checkpoint: {ckpt.latest_step() if ckpt else None}")
 
-            if sample_imgs is not None:
-                sample_imgs = _gather_rows(replica, sample_imgs)
-                if lead:
-                    from vaegan_tpu_torch.utils.imaging import save_image_grid
-                    save_image_grid(sample_imgs[:25], str(sample_dir / f"{batches_done}.png"),
-                                    nrow=5)
-            if (ckpt is not None and tcfg.checkpoint_every > 0
-                    and (global_step + 1) % tcfg.checkpoint_every == 0):
-                ckpt.save(state, replica=replica)
-                dist.barrier(replica.mesh_group)
-            global_step += 1
-            if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
-                budget_hit = True
-                break
+                if sample_imgs is not None:
+                    with span("loop.grid"):
+                        sample_imgs = _gather_rows(replica, sample_imgs)
+                        if lead:
+                            from vaegan_tpu_torch.utils.imaging import save_image_grid
+                            count("host_sync", where="grid")
+                            save_image_grid(sample_imgs[:25],
+                                            str(sample_dir / f"{batches_done}.png"), nrow=5)
+                if (ckpt is not None and tcfg.checkpoint_every > 0
+                        and (global_step + 1) % tcfg.checkpoint_every == 0):
+                    with span("loop.checkpoint"):
+                        ckpt.save(state, replica=replica)
+                        dist.barrier(replica.mesh_group)
+                global_step += 1
+                i += 1
+                if tcfg.max_steps is not None and global_step >= tcfg.max_steps:
+                    budget_hit = True
+                    break
 
     logger.flush()
     if ckpt is not None:
         # no force: a step the periodic save already wrote is kept
-        ckpt.save(state, replica=replica)
-        ckpt.wait()
-        dist.barrier(replica.mesh_group)
+        with span("loop.checkpoint"):
+            ckpt.save(state, replica=replica)
+            ckpt.wait()
+            dist.barrier(replica.mesh_group)
     elapsed = time.time() - t0
     executed = global_step - start_step
     logger.history.append({

@@ -65,7 +65,13 @@ sum-reduced KL is scaled by k in the microbatch loss, so the mean of the
 gradients is the full batch's, and the reported KL is the sum over the
 microbatches.
 
-Metrics stay on the device: a step never syncs with the host. A float32 step
+Metrics stay on the device: a step never syncs with the host. Its phases are
+spans (``utils.profiling``) timed on the batch's device, in event order:
+``step.g_forward``, ``step.d_forward`` (the critic's forwards and the penalty's
+input gradient), ``step.d_backward``, ``step.reduce`` (the exchange; no work on
+one process), ``step.d_update`` (with the clamp), ``step.g_half``,
+``step.g_update``, ``step.ema``, and ``step.reduce`` again for the metrics; the
+paper step's ``step.d_update`` holds its three optimizers. A float32 step
 runs under ``layers.ieee_float32``, so its backward and the penalty's double
 backward convolve in IEEE float32 too, not only its forwards.
 
@@ -115,6 +121,7 @@ from vaegan_tpu_torch.models.layers import Linear, precision
 from vaegan_tpu_torch.ops import fused
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.train.state import DTYPES, G_METRICS, TrainState
+from vaegan_tpu_torch.utils.profiling import span
 
 Metrics = Dict[str, torch.Tensor]
 DrawRecord = Dict[str, Tuple[int, Tuple[int, ...]]]
@@ -503,38 +510,51 @@ def make_train_step(cfg: Config, do_g_update: bool,
 
     def step(state: TrainState, batch: torch.Tensor, seed: int) -> Tuple[TrainState, Metrics]:
         gen, critic = state.generator, state.critic
-        seeds, draws = _generators(seed, batch.device)
+        dev = batch.device
         with precision(dtype):
             # ---- generator forward, ONCE; its graph serves the G half ----------
-            with torch.set_grad_enabled(do_g_update):
-                gen_imgs, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject, replica)
-            gen_sg = gen_imgs.detach()
+            with span("step.g_forward", device=dev):
+                seeds, draws = _generators(seed, dev)
+                with torch.set_grad_enabled(do_g_update):
+                    gen_imgs, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject,
+                                                    replica)
+                gen_sg = gen_imgs.detach()
 
             # ---- discriminator half --------------------------------------------
             d_params = list(critic.parameters())
-            d_loss, real_loss, fake_loss, gp = _critic_loss(
-                cfg, critic, batch, gen_sg, draws, inject, do_gp, gp_lambda_scale, replica)
-            _apply(state.opt_d, d_params, _reduce_grads(replica, d_params,
-                                                        _grads(d_loss, d_params),
-                                                        _split(critic)))
-            if clip is not None:
-                _clamp(d_params, clip)
+            with span("step.d_forward", device=dev):
+                d_loss, real_loss, fake_loss, gp = _critic_loss(
+                    cfg, critic, batch, gen_sg, draws, inject, do_gp, gp_lambda_scale, replica)
+            with span("step.d_backward", device=dev):
+                d_grads = _grads(d_loss, d_params)
+            with span("step.reduce", device=dev):
+                d_grads = _reduce_grads(replica, d_params, d_grads, _split(critic))
+            with span("step.d_update", device=dev):
+                _apply(state.opt_d, d_params, d_grads)
+                if clip is not None:
+                    _clamp(d_params, clip)
 
             # ---- generator half, scored by the UPDATED critic ------------------
             g_metrics = {}
             if do_g_update:
-                g_loss, adv, recon, kl = _gen_losses(cfg, critic, batch, gen_imgs, mu, lv,
-                                                     draws, inject, replica=replica)
-                g_params = list(gen.parameters())
-                _apply(state.opt_g, g_params,
-                       _reduce_grads(replica, g_params, _grads(g_loss, g_params)))
-                _ema_update(cfg, state.g_ema, gen)
+                with span("step.g_half", device=dev):
+                    g_loss, adv, recon, kl = _gen_losses(cfg, critic, batch, gen_imgs, mu, lv,
+                                                         draws, inject, replica=replica)
+                    g_params = list(gen.parameters())
+                    g_grads = _grads(g_loss, g_params)
+                with span("step.reduce", device=dev):
+                    g_grads = _reduce_grads(replica, g_params, g_grads)
+                with span("step.g_update", device=dev):
+                    _apply(state.opt_g, g_params, g_grads)
+                with span("step.ema", device=dev):
+                    _ema_update(cfg, state.g_ema, gen)
                 g_metrics = dict(zip(G_METRICS, (t.detach() for t in
                                                  (g_loss, adv, recon, kl))))
         state.step += 1
-        d_metrics, g_metrics = _reduce_metrics(replica, {
-            "d_loss": d_loss.detach(), "d_real_loss": real_loss.detach(),
-            "d_fake_loss": fake_loss.detach(), "gp": gp.detach()}, g_metrics)
+        with span("step.reduce", device=dev):
+            d_metrics, g_metrics = _reduce_metrics(replica, {
+                "d_loss": d_loss.detach(), "d_real_loss": real_loss.detach(),
+                "d_fake_loss": fake_loss.detach(), "gp": gp.detach()}, g_metrics)
         if do_g_update:
             state.g_metrics = g_metrics
         return state, {**d_metrics, **state.g_metrics}
@@ -554,56 +574,67 @@ def _make_accum_train_step(cfg: Config, do_g_update: bool, inject: dict, do_gp: 
 
     def step(state: TrainState, batch: torch.Tensor, seed: int) -> Tuple[TrainState, Metrics]:
         gen, critic = state.generator, state.critic
+        dev = batch.device
         micro = _cut(batch, k)
-        injects = _micro_injects(inject, ("eps", "alpha"), k, batch.device)
+        injects = _micro_injects(inject, ("eps", "alpha"), k, dev)
         mseeds = [micro_seed(seed, j) for j in range(k)]
         d_params = list(critic.parameters())
         with precision(dtype):
             # ---- pass 1: critic gradients summed over the microbatches ---------
             d_sum, d_msum, resume_at = None, None, []
             for x, inj, s in zip(micro, injects, mseeds):
-                seeds, draws = _generators(s, batch.device)
-                with torch.no_grad():
-                    gen_sg = _gen_forward(cfg, gen, x, seeds, draws, inj, replica)[0]
-                out = _critic_loss(cfg, critic, x, gen_sg, draws, inj, do_gp, gp_lambda_scale,
-                                   replica)
-                d_sum = _add(d_sum, _grads(out[0], d_params))
+                with span("step.g_forward", device=dev):
+                    seeds, draws = _generators(s, dev)
+                    with torch.no_grad():
+                        gen_sg = _gen_forward(cfg, gen, x, seeds, draws, inj, replica)[0]
+                with span("step.d_forward", device=dev):
+                    out = _critic_loss(cfg, critic, x, gen_sg, draws, inj, do_gp,
+                                       gp_lambda_scale, replica)
+                with span("step.d_backward", device=dev):
+                    d_sum = _add(d_sum, _grads(out[0], d_params))
                 d_msum = _add(d_msum, [t.detach() for t in out])
                 # pass 2's critic forwards continue this microbatch's stream here,
                 # as the full step's G half continues its D half's
                 resume_at.append(draws.get_state())
-            _apply(state.opt_d, d_params, _reduce_grads(replica, d_params, [g / k for g in d_sum],
-                                                        _split(critic)))
-            if clip is not None:
-                _clamp(d_params, clip)
+            with span("step.reduce", device=dev):
+                d_grads = _reduce_grads(replica, d_params, [g / k for g in d_sum], _split(critic))
+            with span("step.d_update", device=dev):
+                _apply(state.opt_d, d_params, d_grads)
+                if clip is not None:
+                    _clamp(d_params, clip)
             d_loss, real_loss, fake_loss, gp = (t / k for t in d_msum)
 
             # ---- pass 2: generator gradients against the updated critic --------
             if do_g_update:
                 g_params = list(gen.parameters())
                 g_sum, g_msum = None, None
-                with kept_buffers(gen):      # the recompute keeps pass 1's BN statistics
+                with kept_buffers(gen), span("step.g_half", device=dev):
+                    # the recompute keeps pass 1's BN statistics
                     for x, inj, s, at in zip(micro, injects, mseeds, resume_at):
-                        seeds, draws = _generators(s, batch.device)
+                        seeds, draws = _generators(s, dev)
                         g_imgs, mu, lv = _gen_forward(cfg, gen, x, seeds, draws, inj, replica)
                         draws.set_state(at)
                         out = _gen_losses(cfg, critic, x, g_imgs, mu, lv, draws, inj, kl_scale,
                                           replica)
                         g_sum = _add(g_sum, _grads(out[0], g_params))
                         g_msum = _add(g_msum, [t.detach() for t in out[1:]])
-                _apply(state.opt_g, g_params,
-                       _reduce_grads(replica, g_params, [g / k for g in g_sum]))
-                _ema_update(cfg, state.g_ema, gen)
+                with span("step.reduce", device=dev):
+                    g_grads = _reduce_grads(replica, g_params, [g / k for g in g_sum])
+                with span("step.g_update", device=dev):
+                    _apply(state.opt_g, g_params, g_grads)
+                with span("step.ema", device=dev):
+                    _ema_update(cfg, state.g_ema, gen)
                 adv, recon, kl_sum = g_msum
                 adv, recon = adv / k, recon / k
                 kl = kl_sum if lcfg.kl_reduction == "sum" else kl_sum / k
                 g_loss = (lcfg.adversarial_weight * adv + lcfg.reconstruction_weight * recon
                           + lcfg.kl_weight * kl)
         state.step += 1
-        d_metrics, g_metrics = _reduce_metrics(
-            replica, {"d_loss": d_loss, "d_real_loss": real_loss, "d_fake_loss": fake_loss,
-                      "gp": gp},
-            dict(zip(G_METRICS, (g_loss, adv, recon, kl))) if do_g_update else {})
+        with span("step.reduce", device=dev):
+            d_metrics, g_metrics = _reduce_metrics(
+                replica, {"d_loss": d_loss, "d_real_loss": real_loss, "d_fake_loss": fake_loss,
+                          "gp": gp},
+                dict(zip(G_METRICS, (g_loss, adv, recon, kl))) if do_g_update else {})
         if do_g_update:
             state.g_metrics = g_metrics
         return state, {**d_metrics, **state.g_metrics}
@@ -628,15 +659,26 @@ def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
     decode record))``, the records being :func:`draw_record`'s; the losses are
     this process's shares."""
     lcfg, dev = cfg.loss, batch.device
-    x_tilde, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject, replica)
-    rec_x = draw_record(gen)
-    z_p = inject.get("z_p")
-    z_p = (replica.draw(mu.shape, lambda s: torch.randn(s, generator=draws, device=dev,
-                                                        dtype=mu.dtype), 1)
-           if z_p is None else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
-    with inject_masks(gen, inject.get("g_masks_p")):
-        x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds, replica=replica)
-    rec_p = {k: v for k, v in draw_record(gen).items() if k.startswith("decoder.")}
+    with span("step.g_forward", device=dev):
+        x_tilde, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject, replica)
+        rec_x = draw_record(gen)
+        z_p = inject.get("z_p")
+        z_p = (replica.draw(mu.shape, lambda s: torch.randn(s, generator=draws, device=dev,
+                                                            dtype=mu.dtype), 1)
+               if z_p is None else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
+        with inject_masks(gen, inject.get("g_masks_p")):
+            x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds, replica=replica)
+        rec_p = {k: v for k, v in draw_record(gen).items() if k.startswith("decoder.")}
+    with span("step.d_forward", device=dev):
+        return _paper_critic_losses(cfg, critic, batch, x_tilde, mu, lv, x_p, draws, inject,
+                                    kl_scale, replica) + ((rec_x, rec_p),)
+
+
+def _paper_critic_losses(cfg: Config, critic, batch, x_tilde, mu, lv, x_p, draws, inject,
+                         kl_scale: float, replica: Replica):
+    """The critic on the real batch, x~ and x_p, and Algorithm 1's losses:
+    ``((enc_l, dec_l, dis_l), (l_prior, l_llike, l_gan, bce_real, bce_fake))``."""
+    lcfg = cfg.loss
 
     def d(x, masks=None, parts=1):
         with inject_masks(critic, masks):
@@ -672,7 +714,7 @@ def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
     dec_l = (cfg.optim.gamma * lcfg.reconstruction_weight * l_llike
              - lcfg.adversarial_weight * l_gan)
     dis_l = lcfg.adversarial_weight * l_gan
-    return (enc_l, dec_l, dis_l), (l_prior, l_llike, l_gan, bce_real, bce_fake), (rec_x, rec_p)
+    return (enc_l, dec_l, dis_l), (l_prior, l_llike, l_gan, bce_real, bce_fake)
 
 
 def _paper_grads(groups, group_losses):
@@ -690,19 +732,26 @@ def _paper_update(cfg: Config, state: TrainState, groups, grads,
     ``clip_value`` would cripple a BCE critic), then the EMA. Each optimizer's
     gradients are summed over the processes first."""
     (enc, dec, dis), (g_enc, g_dec, g_dis) = groups, grads
-    _apply(state.opt_g, enc + dec, _reduce_grads(replica, enc + dec, list(g_enc) + list(g_dec)))
-    _apply(state.opt_d, dis, _reduce_grads(replica, dis, g_dis, _split(state.critic)))
-    if cfg.loss.clip_value is not None and cfg.loss.adversarial == "wgan":
-        _clamp(dis, cfg.loss.clip_value)
-    _ema_update(cfg, state.g_ema, state.generator)
+    dev = dis[0].device
+    with span("step.reduce", device=dev):
+        g_gen = _reduce_grads(replica, enc + dec, list(g_enc) + list(g_dec))
+        g_dis = _reduce_grads(replica, dis, g_dis, _split(state.critic))
+    with span("step.d_update", device=dev):
+        _apply(state.opt_g, enc + dec, g_gen)
+        _apply(state.opt_d, dis, g_dis)
+        if cfg.loss.clip_value is not None and cfg.loss.adversarial == "wgan":
+            _clamp(dis, cfg.loss.clip_value)
+    with span("step.ema", device=dev):
+        _ema_update(cfg, state.g_ema, state.generator)
 
 
 def _paper_metrics(state: TrainState, replica: Replica, g_loss, d_loss, l_gan, l_llike,
                    l_prior, bce_real, bce_fake) -> Metrics:
-    d_metrics, state.g_metrics = _reduce_metrics(
-        replica, {"d_loss": d_loss.detach(), "d_real_loss": bce_real.detach(),
-                  "d_fake_loss": bce_fake.detach()},
-        dict(zip(G_METRICS, (t.detach() for t in (g_loss, l_gan, l_llike, l_prior)))))
+    with span("step.reduce", device=d_loss.device):
+        d_metrics, state.g_metrics = _reduce_metrics(
+            replica, {"d_loss": d_loss.detach(), "d_real_loss": bce_real.detach(),
+                      "d_fake_loss": bce_fake.detach()},
+            dict(zip(G_METRICS, (t.detach() for t in (g_loss, l_gan, l_llike, l_prior)))))
     return {**d_metrics, "gp": torch.zeros((), device=d_loss.device), **state.g_metrics}
 
 
@@ -735,7 +784,8 @@ def make_paper_train_step(cfg: Config, inject: Optional[Dict[str, object]] = Non
             group_losses, aux, records = _paper_losses(cfg, state.generator, state.critic,
                                                        batch, seeds, draws, inject,
                                                        replica=replica)
-            grads = _paper_grads(groups, group_losses)
+            with span("step.d_backward", device=batch.device):
+                grads = _paper_grads(groups, group_losses)
             _paper_update(cfg, state, groups, grads, replica)
         step.draws = dict(zip(("x", "p"), records))
         enc_l, dec_l, dis_l = group_losses
@@ -767,8 +817,9 @@ def _make_paper_accum_step(cfg: Config, inject: dict, replica: Replica) -> Calla
                 seeds, draws = _generators(micro_seed(seed, j), batch.device)
                 group_losses, aux, _ = _paper_losses(cfg, state.generator, state.critic, x,
                                                      seeds, draws, inj, kl_scale, replica)
-                for i, g in enumerate(_paper_grads(groups, group_losses)):
-                    sums[i] = _add(sums[i], g)
+                with span("step.d_backward", device=batch.device):
+                    for i, g in enumerate(_paper_grads(groups, group_losses)):
+                        sums[i] = _add(sums[i], g)
                 enc_l, dec_l, dis_l = group_losses
                 msum = _add(msum, [t.detach() for t in (enc_l + dec_l, dis_l, *aux)])
             _paper_update(cfg, state, groups, [[g / k for g in s] for s in sums], replica)

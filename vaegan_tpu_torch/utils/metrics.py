@@ -20,6 +20,8 @@ from typing import Any, Dict, List, Mapping, Optional, TextIO
 
 import torch
 
+from vaegan_tpu_torch.utils.profiling import count, span
+
 # our metric key -> reference Neptune channel name
 REFERENCE_KEYS = {
     "d_loss": "D loss",
@@ -98,8 +100,11 @@ def to_host(dicts: List[Mapping[str, Any]]) -> List[Dict[str, float]]:
         return [{} for _ in dicts]
     vals = [dicts[i][k] for i, k in keys]
     dev = next((v.device for v in vals if isinstance(v, torch.Tensor)), torch.device("cpu"))
-    host = torch.stack([torch.as_tensor(v, device=dev).detach().reshape(()).float()
-                        for v in vals]).cpu().tolist()
+    stacked = torch.stack([torch.as_tensor(v, device=dev).detach().reshape(()).float()
+                           for v in vals])
+    with span("metrics.copy"):
+        count("host_sync", where="metrics")
+        host = stacked.cpu().tolist()
     out: List[Dict[str, float]] = [{} for _ in dicts]
     for (i, k), v in zip(keys, host):
         out[i][k] = v
@@ -132,12 +137,13 @@ class MetricsLogger:
     def flush(self) -> None:
         if not self._buf:
             return
-        host = to_host([m for *_, m in self._buf])
-        for (epoch, n_epochs, batch, n_batches, _), metrics in zip(self._buf, host):
-            self.history.append(metrics)
-            for sink in self.sinks:
-                sink.write(epoch, n_epochs, batch, n_batches, metrics)
-        self._buf.clear()
+        with span("metrics.flush"):
+            host = to_host([m for *_, m in self._buf])
+            for (epoch, n_epochs, batch, n_batches, _), metrics in zip(self._buf, host):
+                self.history.append(metrics)
+                for sink in self.sinks:
+                    sink.write(epoch, n_epochs, batch, n_batches, metrics)
+            self._buf.clear()
         self.last_flush_time = time.time()
 
     def close(self):
