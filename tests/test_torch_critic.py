@@ -214,8 +214,12 @@ def test_step_backward_convolutions_run_in_ieee_float32(monkeypatch):
     train step, the penalty's double backward included, runs with cuDNN's TF32
     off; the flag is restored after the step. A spy node after each conv records
     the flag when autograd runs its backward, and places itself again in the
-    graph the backward builds, so the double backward is recorded too."""
-    seen = []
+    graph the backward builds, so the double backward is recorded too; the
+    input gradients and the penalty's weight gradients of ``Conv2D`` (``ops.conv``)
+    record it where they are computed."""
+    from vaegan_tpu_torch.ops import conv as conv_ops
+
+    seen, computed = [], []
 
     class Spy(torch.autograd.Function):
         @staticmethod
@@ -227,8 +231,14 @@ def test_step_backward_convolutions_run_in_ieee_float32(monkeypatch):
             seen.append(torch.backends.cudnn.allow_tf32)
             return Spy.apply(g)
 
-    conv2d = layers.F.conv2d
+    conv2d, conv_backward = layers.F.conv2d, conv_ops._conv_backward
+
+    def spy_backward(*a):
+        computed.append(torch.backends.cudnn.allow_tf32)
+        return conv_backward(*a)
+
     monkeypatch.setattr(layers.F, "conv2d", lambda *a, **k: Spy.apply(conv2d(*a, **k)))
+    monkeypatch.setattr(conv_ops, "_conv_backward", spy_backward)
     cfg = vt.Config.from_dict(jpreset("notebook").replace(
         generator=jpreset("notebook").generator.replace(depth=1, feature_size=4),
         discriminator=jpreset("notebook").discriminator.replace(**DISC["standard"]),
@@ -242,6 +252,10 @@ def test_step_backward_convolutions_run_in_ieee_float32(monkeypatch):
         assert torch.backends.cudnn.allow_tf32 is True
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    # each critic conv: backward of 4 forwards, plus the penalty's double backward
-    assert len(seen) > 5 * n_critic_convs
+    # each critic conv: the input gradients of the penalty's forward (inner),
+    # of the real, fake and interpolate forwards (outer) and of the G half's,
+    # and the penalty's weight gradient; the weight gradients of three forwards
+    assert len(computed) >= 5 * n_critic_convs
+    assert len(seen) >= 3 * n_critic_convs
+    seen += computed
     assert not any(seen)

@@ -541,9 +541,56 @@ def test_profile_reduction_of_a_recorded_event_list():
     ("sm80_xmma_wgrad_implicit_gemm", "aten::convolution_backward < "
      "autograd::engine::evaluate_function: ConvolutionBackwardBackward0",
      "cudnn_conv_double_bwd"),
+    # Conv2D's route (ops.conv): the penalty's wgrad and forward under its
+    # double-backward node, the first-order dgrad under the input branch's
+    ("sm90_xmma_wgrad_implicit_gemm_bf16bf16", "aten::convolution_backward < "
+     "InputGradBackward < autograd::engine::evaluate_function: InputGradBackward",
+     "cudnn_conv_double_bwd"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16", "aten::cudnn_convolution < aten::_convolution "
+     "< aten::convolution < aten::conv2d < InputGradBackward < "
+     "autograd::engine::evaluate_function: InputGradBackward", "cudnn_conv_double_bwd"),
+    ("void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>",
+     "aten::convolution_backward < InputGrad < _InputBranchBackward < "
+     "autograd::engine::evaluate_function: _InputBranchBackward", "cudnn_conv_dgrad"),
+    ("void implicit_convolve_sgemm<float, float, 1024, 5, 5, 3, 3, 3, 1, true>",
+     "aten::convolution_backward < InputGrad < _InputBranchBackward", "cudnn_conv_bwd"),
 ])
 def test_profile_families(name, op, fam):
     assert profile_step_residual.family(name, op) == fam
+
+
+def test_families_of_a_recorded_penalty_backward():
+    """The ops of a recorded double backward through ``Conv2D``'s route (a CPU
+    profile) with a cuDNN kernel's name each: the penalty's weight gradient
+    and forward convolution are the double backward's, a first-order dgrad
+    and wgrad keep their own families."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vaegan_tpu_torch.ops import conv
+
+    x = torch.randn(2, 3, 8, 8).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_()
+    w = torch.randn(4, 3, 3, 3, requires_grad=True)
+    y = conv.conv2d(x, w, None, 1, 1)
+    (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        torch.autograd.grad(g.square().sum() + y.sum(), w)
+    kernel = {"dgrad": "sm90_xmma_dgrad_implicit_gemm", "wgrad": "sm90_xmma_wgrad_implicit_gemm",
+              "fwd": "sm90_xmma_fprop_implicit_gemm"}
+    got = []
+    for e in p.events():
+        if e.name == "aten::convolution_backward":
+            mask = e.concrete_inputs[-1]
+            kind = "dgrad" if mask[0] else "wgrad"
+        elif e.name == "aten::_convolution":
+            kind = "fwd"
+        else:
+            continue
+        got.append((kind, profile_step_residual.family(
+            kernel[kind], profile_step_residual.context_of(e))))
+    assert sorted(got) == sorted([
+        ("fwd", "cudnn_conv_double_bwd"), ("wgrad", "cudnn_conv_double_bwd"),
+        ("dgrad", "cudnn_conv_dgrad"), ("wgrad", "cudnn_conv_wgrad")])
 
 
 class FakeProfile:

@@ -43,23 +43,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vaegan_tpu_torch.ops import conv as conv_ops
+from vaegan_tpu_torch.ops.conv import as_channels_last
 from vaegan_tpu_torch.ops import ieee_float32
 from vaegan_tpu_torch.ops.fused import bn_act_dropout
 from vaegan_tpu_torch.ops.initializers import conv_init, kaiming_normal_
 from vaegan_tpu_torch.ops.norm import batch_norm, batch_stats
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
 from vaegan_tpu_torch.ops.spectral_norm import l2_normalize, spectral_normalize
-
-
-def as_channels_last(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with canonical channels_last strides. A tensor with one channel is
-    channels_last-contiguous and NCHW-contiguous at once, and then the strides
-    elementwise ops happened to give it decide which format the next convolution
-    picks; this view settles it to channels_last without a copy."""
-    if x.is_contiguous(memory_format=torch.channels_last):
-        n, c, h, w = x.shape
-        return x.as_strided(x.shape, (h * w * c, 1, w * c, c))
-    return x.contiguous(memory_format=torch.channels_last)
 
 
 def precision(dtype: torch.dtype):
@@ -133,7 +123,10 @@ class Conv2D(nn.Module):
 
     A float32 layer convolves in IEEE float32 on the card, as the config says and
     as the JAX package's tests run it, not in the TF32 that PyTorch's cuDNN
-    default would pick; faster convolutions are the ``bfloat16`` config's."""
+    default would pick; faster convolutions are the ``bfloat16`` config's.
+    A non-transposed layer convolves through ``ops.conv.conv2d``, which takes
+    the double backward of its input gradient (the gradient penalty's) as a
+    cuDNN forward and weight gradient at the layer's own shape."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, *, use_bias: bool = False,
@@ -197,7 +190,7 @@ class Conv2D(nn.Module):
         x = as_channels_last(x.to(self.dtype))
         with precision(self.dtype):
             if replica.split_h == 1:
-                conv = conv_ops.conv_transpose2d if self.transpose else F.conv2d
+                conv = conv_ops.conv_transpose2d if self.transpose else conv_ops.conv2d
                 return conv(x, w, b, stride=stride, padding=self.padding)
             k, p, h = w.shape[-2], self.padding, x.shape[2]
             if self.transpose:
@@ -223,7 +216,7 @@ class Conv2D(nn.Module):
                 raise ValueError(f"a {k}x{k} conv at stride {stride}, padding {p} cannot run "
                                  "on a stripe")
             x = as_channels_last(replica.halo(x, top, bottom))
-            return F.conv2d(x, w, b, stride=stride, padding=(0, p))
+            return conv_ops.conv2d(x, w, b, stride=stride, padding=(0, p))
 
 
 def _stripe_rows(x: torch.Tensor, stride: int, replica: Replica) -> int:

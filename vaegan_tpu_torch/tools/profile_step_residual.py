@@ -57,6 +57,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import torch
 
 from vaegan_tpu_torch.config import Config, preset
+from vaegan_tpu_torch.ops.conv import InputGrad
 from vaegan_tpu_torch.tools.common import (
     add_device,
     add_use_pallas,
@@ -91,6 +92,10 @@ FAMILIES = (
                                r"unrolled", re.I)),
 )
 OP_NAME_CHARS = 200
+# the backward nodes that run the penalty's double backward through a
+# convolution: autograd's own rule (``ConvolutionBackwardBackward0``) and the
+# port's for ``Conv2D``'s input gradient (``ops.conv.InputGrad``)
+DOUBLE_BWD_NODES = ("backwardbackward", f"{InputGrad.__name__}Backward".lower())
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -147,16 +152,16 @@ def build_step(cfg: Config, args, dev: torch.device):
 def family(name: str, context: str = "") -> str:
     """The family of a device kernel, by its name and ``context``: the op that
     launched it and the ops around that one (module docstring). A
-    convolution under a double-backward node (the gradient penalty's) is
-    ``cudnn_conv_double_bwd``; else the name's wgrad or dgrad; else one under
-    a backward node, whose name does not say which of the two it computes,
-    ``cudnn_conv_bwd``; else ``cudnn_conv_fwd``."""
+    convolution under a double-backward node (the gradient penalty's:
+    :data:`DOUBLE_BWD_NODES`) is ``cudnn_conv_double_bwd``; else the name's
+    wgrad or dgrad; else one under a backward node, whose name does not say
+    which of the two it computes, ``cudnn_conv_bwd``; else ``cudnn_conv_fwd``."""
     for fn, launch_name in PORT_KERNELS.items():
         if fn in name:
             return f"vaegan_{launch_name}"
     if CONV.search(name):
         lower, ctx = name.lower(), context.lower()
-        if "backwardbackward" in ctx:
+        if any(node in ctx for node in DOUBLE_BWD_NODES):
             return "cudnn_conv_double_bwd"
         if "wgrad" in lower:
             return "cudnn_conv_wgrad"
