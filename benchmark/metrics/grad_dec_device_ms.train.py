@@ -1,0 +1,9 @@
+"""Device ms per step of Algorithm 1's step in the decoder's gradient pass, through
+the critic's x~ and x_p branches (``step.grad_dec``, inside
+``step.d_backward``)."""
+
+from harness import program_spans
+
+
+def read(run):
+    return program_spans.per_op(run, "train_loop", program_spans.device_ms("step.grad_dec"))

@@ -1,0 +1,8 @@
+"""Device ms per step of Algorithm 1's step in the critic's gradient pass, through
+its three forwards (``step.grad_dis``, inside ``step.d_backward``)."""
+
+from harness import program_spans
+
+
+def read(run):
+    return program_spans.per_op(run, "train_loop", program_spans.device_ms("step.grad_dis"))

@@ -4,7 +4,9 @@ CPU at 16² with a tiny config: off they record nothing and call nothing; under
 trace in event order and carry their step; the metric flush is the one host
 sync of a plain step; a span's host start lands on the profiler's clock through
 ``clock_anchor``; the rings drop the oldest; ``reconstruct`` numbers its calls;
-``device_ms`` reads a span's timing events."""
+``device_ms`` reads a span's timing events; Algorithm 1's step spans its prior
+decode and each group's gradient pass, and the fused critic counts its BN +
+LeakyReLU chains."""
 
 from __future__ import annotations
 
@@ -238,3 +240,61 @@ def test_device_ms_reads_each_spans_events_within_the_window(monkeypatch):
     assert profiling.device_ms("phase") > profiling.device_ms("phase", t0, t1) >= 10.0
     assert profiling.device_ms("host", t0, t1) is None
     assert profiling.host_ms("host", t0, t1) >= 10.0
+
+
+def paper_cfg(tmp_path: Path, **train_kw) -> vt.Config:
+    """The ``vaegan_paper`` preset at 16² with the notebook critic's block
+    structure (a stem and three blocks, so seven BN + LeakyReLU chains a
+    forward) at narrow widths."""
+    base = vt.preset("vaegan_paper")
+    tiny = tiny_cfg(tmp_path, **train_kw)
+    return base.replace(
+        generator=tiny.generator,
+        discriminator=base.discriminator.replace(
+            num_features_conv1=8, num_blocks=(1, 1, 1), num_strides_res=(1, 2, 2),
+            num_features_res=(8, 16, 16), pool_size=2, linear_widths=(16, 8)),
+        data=tiny.data, train=tiny.train.replace(ema_decay=0.999))
+
+
+PAPER_GRADS = ["step.grad_enc", "step.grad_dec", "step.grad_dis"]
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2], ids=["one_batch", "accumulated"])
+def test_the_paper_step_spans_its_prior_decode_and_each_gradient_pass(tmp_path, grad_accum):
+    """Algorithm 1's step: ``step.prior_decode`` inside ``step.g_forward``,
+    and the three groups' passes inside ``step.d_backward``, encoder, decoder,
+    critic, once a (micro)batch."""
+    cfg = paper_cfg(tmp_path, max_steps=1, grad_accum=grad_accum)
+    with profiling.tracing():
+        run(cfg)
+    recs = [r for r in profiling.spans() if r.name.startswith("step.")]
+    decodes = [r for r in recs if r.name == "step.prior_decode"]
+    passes = [r for r in recs if r.name in PAPER_GRADS]
+    assert len(decodes) == grad_accum
+    assert all(ancestors(r)[1:4] == ["step.g_forward", "step", "loop.step"] for r in decodes)
+    assert [r.name for r in passes] == PAPER_GRADS * grad_accum
+    assert all(ancestors(r)[1:4] == ["step.d_backward", "step", "loop.step"] for r in passes)
+    for r in passes:       # in turn, each inside its own d_backward
+        assert r.parent.t0_ns <= r.t0_ns <= r.t1_ns <= r.parent.t1_ns
+    assert [r.t0_ns for r in passes] == sorted(r.t0_ns for r in passes)
+
+
+def test_the_fused_critic_counts_each_bn_act_chain(tmp_path):
+    """With ``use_pallas="all"`` and no penalty the critic runs its stem's
+    and each block's two BN + LeakyReLU chains through row 1: 7 a forward,
+    21 an Algorithm-1 step (three forwards); under the notebook's WGAN-GP
+    step the critic is unfused and counts none."""
+    cfg = paper_cfg(tmp_path, max_steps=1)
+    state = vt.create_train_state(cfg, device="cpu")
+    assert state.critic.use_pallas
+    with profiling.tracing():
+        state.critic(torch.rand(2, 16, 16, 1), train=True)
+    assert profiling.counts("critic.fused_bn_act") == 7
+    profiling.clear()
+    with profiling.tracing():
+        run(cfg)
+    assert profiling.counts("critic.fused_bn_act") == 21
+    profiling.clear()
+    with profiling.tracing():
+        run(tiny_cfg(tmp_path, max_steps=1))
+    assert profiling.counts("critic.fused_bn_act") == 0

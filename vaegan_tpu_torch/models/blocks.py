@@ -12,7 +12,8 @@ shortcut are spectral-normalized; channel dropout (``nn.Dropout2d``) after conv1
 LeakyReLU slope 0.2; the shortcut is the identity unless the stride or the
 channel count changes. With ``use_pallas`` its BN -> LeakyReLU chains are fused
 at p = 0; the critic is built fused only when no gradient penalty is configured,
-since the kernel's backward is not twice-differentiable (``train.state``).
+since the kernel's backward is not twice-differentiable (``train.state``). Each
+fused chain counts ``critic.fused_bn_act`` (``utils.profiling.count``).
 
 ``replica`` (``ops.replica``) reaches every layer of a block: in a parallel
 step the BatchNorm statistics are global, the draws the global step's, and
@@ -28,6 +29,7 @@ from torch import nn
 
 from vaegan_tpu_torch.models.layers import BatchNorm, Conv2D, Dropout, leaky_relu
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
+from vaegan_tpu_torch.utils.profiling import count
 
 
 class ResBlockVAE(nn.Module):
@@ -117,6 +119,7 @@ class ResBlockDiscriminator(nn.Module):
     def _bn_act(self, bn: BatchNorm, x: torch.Tensor, train: bool,
                 replica: Replica) -> torch.Tensor:
         if self.use_pallas:
+            count("critic.fused_bn_act")
             return bn(x, train=train, fuse=(self.slope, 0.0), replica=replica)
         return leaky_relu(bn(x, train=train, replica=replica), self.slope)
 

@@ -45,6 +45,7 @@ from vaegan_tpu_torch.models.layers import (
 )
 from vaegan_tpu_torch.ops.fused import reparam_kl
 from vaegan_tpu_torch.ops.replica import LOCAL, Replica
+from vaegan_tpu_torch.utils.profiling import count
 
 
 def to_nchw(t: torch.Tensor) -> torch.Tensor:
@@ -265,7 +266,9 @@ class Discriminator(nn.Module):
     The first linear layer's width comes from ``image_size`` (the JAX module
     reads it off the traced shape; a PyTorch module sizes its weights when it is
     built). ``return_features`` also returns the ``cfg.feature_tap`` activation
-    (``res_out``, ``pool`` or ``fc1``) for the Dis_l feature-matching loss."""
+    (``res_out``, ``pool`` or ``fc1``) for the Dis_l feature-matching loss.
+    Built fused, the stem's BN + LeakyReLU counts ``critic.fused_bn_act`` as
+    each block's chains do."""
 
     def __init__(self, cfg: DiscriminatorConfig, image_size: int,
                  init_scheme: str = "reference", dtype: torch.dtype = torch.float32,
@@ -309,6 +312,7 @@ class Discriminator(nn.Module):
         act = lambda t: leaky_relu(t, 0.2)  # noqa: E731
         out = self.conv1(to_nchw(x.contiguous()), replica=replica)
         if self.use_pallas:
+            count("critic.fused_bn_act")
             out = self.bn1(out, train=train, fuse=(0.2, 0.0), replica=replica)
         else:
             out = act(self.bn1(out, train=train, replica=replica))

@@ -71,7 +71,10 @@ spans (``utils.profiling``) timed on the batch's device, in event order:
 input gradient), ``step.d_backward``, ``step.reduce`` (the exchange; no work on
 one process), ``step.d_update`` (with the clamp), ``step.g_half``,
 ``step.g_update``, ``step.ema``, and ``step.reduce`` again for the metrics; the
-paper step's ``step.d_update`` holds its three optimizers. A float32 step
+paper step's ``step.d_update`` holds its three optimizers, its
+``step.g_forward`` holds ``step.prior_decode`` (the z_p draw and the decode of
+x_p), and its ``step.d_backward`` holds the three gradient passes in turn,
+``step.grad_enc``, ``step.grad_dec`` and ``step.grad_dis``. A float32 step
 runs under ``layers.ieee_float32``, so its backward and the penalty's double
 backward convolve in IEEE float32 too, not only its forwards.
 
@@ -662,12 +665,14 @@ def _paper_losses(cfg: Config, gen, critic, batch, seeds, draws, inject,
     with span("step.g_forward", device=dev):
         x_tilde, mu, lv = _gen_forward(cfg, gen, batch, seeds, draws, inject, replica)
         rec_x = draw_record(gen)
-        z_p = inject.get("z_p")
-        z_p = (replica.draw(mu.shape, lambda s: torch.randn(s, generator=draws, device=dev,
-                                                            dtype=mu.dtype), 1)
-               if z_p is None else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
-        with inject_masks(gen, inject.get("g_masks_p")):
-            x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds, replica=replica)
+        with span("step.prior_decode", device=dev):
+            z_p = inject.get("z_p")
+            z_p = (replica.draw(mu.shape, lambda s: torch.randn(s, generator=draws, device=dev,
+                                                                dtype=mu.dtype), 1)
+                   if z_p is None else torch.as_tensor(z_p, device=dev, dtype=mu.dtype))
+            with inject_masks(gen, inject.get("g_masks_p")):
+                x_p = gen.decode(z_p, train=True, generator=draws, seeds=seeds,
+                                 replica=replica)
         rec_p = {k: v for k, v in draw_record(gen).items() if k.startswith("decoder.")}
     with span("step.d_forward", device=dev):
         return _paper_critic_losses(cfg, critic, batch, x_tilde, mu, lv, x_p, draws, inject,
@@ -717,11 +722,19 @@ def _paper_critic_losses(cfg: Config, critic, batch, x_tilde, mu, lv, x_p, draws
     return (enc_l, dec_l, dis_l), (l_prior, l_llike, l_gan, bce_real, bce_fake)
 
 
+# the span of each group's gradient pass, in the order of ``_paper_groups``
+GRAD_SPANS = ("step.grad_enc", "step.grad_dec", "step.grad_dis")
+
+
 def _paper_grads(groups, group_losses):
-    """Each group's gradient of its own loss, over one graph."""
-    last = len(groups) - 1
-    return [_grads(loss, params, retain_graph=i < last)
-            for i, (params, loss) in enumerate(zip(groups, group_losses))]
+    """Each group's gradient of its own loss, over one graph, each pass in its
+    span."""
+    last, dev = len(groups) - 1, group_losses[0].device
+    out = []
+    for i, (name, params, loss) in enumerate(zip(GRAD_SPANS, groups, group_losses)):
+        with span(name, device=dev):
+            out.append(_grads(loss, params, retain_graph=i < last))
+    return out
 
 
 def _paper_update(cfg: Config, state: TrainState, groups, grads,
